@@ -1,0 +1,173 @@
+"""Banded multiblock SGNS superstep: the LINE main path's kernel.
+
+Port of ``smore_tpu/ops/pallas_sgns_banded.py::sgns_banded_multiblock``.
+S micro-steps run in order; micro-step s updates source band ``sb[s]`` of
+the vertex table and context band ``db[s]`` of the context table with the
+shared-negative SGNS step, in tiles of TB = min(1024, B) rows that also
+run in order (each tile's gather sees the earlier tiles' writes; duplicates
+inside a tile sum). ``cn`` is the caller's snapshot of the Ks shared
+negatives per step; ``d_neg`` is returned for the caller to apply after the
+superstep.
+
+The tables are plain (Np, D) f32 tensors and are UPDATED IN PLACE (the JAX
+package donated them to the call). The TPU's 2-row fold, 128-lane layout
+and VMEM slab DMA have no counterpart here.
+
+``sgns_banded_multiblock`` runs the plain PyTorch twin
+``sgns_banded_multiblock_ref`` for CPU tensors and launches the CUDA kernel
+(``csrc/sgns_banded_multiblock.cu``) for CUDA tensors, or raises; it never
+falls back. ``sgns_banded_multiblock.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_KERNEL = "sgns_banded_multiblock"
+_MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
+_lib = None
+
+
+def _tile(B: int) -> int:
+    return min(1024, B)
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        from smore_tpu_torch.ops._build import load_kernel_lib
+
+        lib = load_kernel_lib(_KERNEL)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sgns_banded_multiblock_launch.restype = i
+        lib.sgns_banded_multiblock_launch.argtypes = (
+            [i] + [p] * 8 + [i] * 6 + [ctypes.c_float] + [p] * 7)
+        for fn in (lib.sgns_mb_grads_smem_bytes,
+                   lib.sgns_mb_scatter_smem_bytes):
+            fn.restype = ctypes.c_size_t
+            fn.argtypes = [i, i]
+        lib.sgns_mb_error_string.restype = ctypes.c_char_p
+        lib.sgns_mb_error_string.argtypes = [i]
+        _lib = lib
+    return _lib
+
+
+def _check(wv, wc, sb, db, src_l, pos_l, cn, alpha):
+    if src_l.dim() != 2 or pos_l.shape != src_l.shape:
+        raise ValueError(f"src_l/pos_l must be (S, B), got "
+                         f"{tuple(src_l.shape)} / {tuple(pos_l.shape)}")
+    S, B = src_l.shape
+    if cn.dim() != 3 or cn.shape[0] != S:
+        raise ValueError(f"cn must be (S={S}, Ks, D), got {tuple(cn.shape)}")
+    D = cn.shape[2]
+    for name, t in (("wv", wv), ("wc", wc)):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != D:
+            raise ValueError(f"{name} must be (rows, {D}) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (updated in place)")
+    if cn.dtype != torch.float32:
+        raise ValueError(f"cn must be float32, got {cn.dtype}")
+    for name, t in (("sb", sb), ("db", db), ("alpha", alpha)):
+        if tuple(t.shape) != (S,):
+            raise ValueError(f"{name} must be ({S},), got {tuple(t.shape)}")
+    if B % _tile(B) or _tile(B) % 8:
+        raise ValueError(f"batch {B} must tile by min(1024, B), a multiple "
+                         "of 8")
+    devs = {t.device for t in (wv, wc, sb, db, src_l, pos_l, cn, alpha)}
+    if len(devs) != 1:
+        raise ValueError(f"all tensors must share one device, got {devs}")
+
+
+def sgns_banded_multiblock_ref(wv, wc, sb, db, src_l, pos_l, cn, alpha,
+                               band_size: int, k_equiv: int = 5):
+    """Plain PyTorch twin of the kernel: the same loop over micro-steps and
+    tiles, with ``index_add_`` for the scatters. Updates wv, wc in place;
+    returns (wv, wc, d_neg (S, Ks, D), loss_sum ())."""
+    S, B = src_l.shape
+    Ks = cn.shape[1]
+    TB = _tile(B)
+    kscale = k_equiv / Ks
+    alpha = alpha.to(torch.float32)
+    d_neg = torch.zeros_like(cn)
+    loss = torch.zeros((), dtype=torch.float32, device=wv.device)
+    eps = 1e-7
+    for s in range(S):
+        a = alpha[s]
+        scale = a * kscale
+        for t0 in range(0, B, TB):
+            rv = (sb[s] * band_size + src_l[s, t0:t0 + TB]).long()
+            rc = (db[s] * band_size + pos_l[s, t0:t0 + TB]).long()
+            v, cp = wv[rv], wc[rc]
+            s_pos = torch.sigmoid((v * cp).sum(1, keepdim=True))
+            g_pos = (1.0 - s_pos) * a
+            s_neg = torch.sigmoid(v @ cn[s].T)
+            g_neg = s_neg * (-scale)
+            loss += (-torch.log(s_pos + eps)).sum() - kscale * torch.log(
+                1.0 - s_neg + eps).sum()
+            d_neg[s] += g_neg.T @ v
+            wv.index_add_(0, rv, g_pos * cp + g_neg @ cn[s])
+            wc.index_add_(0, rc, g_pos * v)
+    return wv, wc, d_neg, loss
+
+
+def sgns_banded_multiblock(wv, wc, sb, db, src_l, pos_l, cn, alpha,
+                           band_size: int, k_equiv: int = 5):
+    """One superstep (see the module docstring).
+
+    wv, wc: (Np, D) f32 contiguous tables, updated in place.
+    sb, db: (S,) source / context BAND INDICES.
+    src_l, pos_l: (S, B) BAND-LOCAL rows, in [0, band_size).
+    cn: (S, Ks, D) f32 negative snapshot; alpha: (S,) f32 rates.
+    Returns (wv, wc, d_neg (S, Ks, D), loss_sum ()). Indices are not
+    bounds-checked on the card (that would synchronise), as on the TPU.
+    """
+    _check(wv, wc, sb, db, src_l, pos_l, cn, alpha)
+    if wv.device.type == "cpu":
+        return sgns_banded_multiblock_ref(wv, wc, sb, db, src_l, pos_l, cn,
+                                          alpha, band_size, k_equiv)
+    if wv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {wv.device}")
+    lib = _load()
+    S, B = src_l.shape
+    Ks, D = cn.shape[1], cn.shape[2]
+    TB = _tile(B)
+    smem = max(lib.sgns_mb_grads_smem_bytes(Ks, D),
+               lib.sgns_mb_scatter_smem_bytes(Ks, D))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Ks={Ks}, D={D} need {smem} B of shared memory "
+                         f"per block (at most {_MAX_SMEM})")
+    # Tensors made here are freed when this returns, while the launches may
+    # still run: the caching allocator hands their memory only to later work
+    # on the same stream, which runs after them.
+    i32 = [t.to(torch.int32).contiguous() for t in (sb, db, src_l, pos_l)]
+    cn = cn.contiguous()
+    alpha = alpha.to(torch.float32).contiguous()
+    dev = wv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    vbuf = torch.empty(TB, D, **f32)
+    dsrc = torch.empty(TB, D, **f32)
+    dpos = torch.empty(TB, D, **f32)
+    gneg = torch.empty(TB, Ks, **f32)
+    d_neg = torch.zeros(S, Ks, D, **f32)
+    loss_rows = torch.empty(S, B, **f32)
+    rc = lib.sgns_banded_multiblock_launch(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        wv.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in i32),
+        cn.data_ptr(), alpha.data_ptr(),
+        S, B, TB, Ks, D, band_size, k_equiv / Ks,
+        vbuf.data_ptr(), gneg.data_ptr(), dsrc.data_ptr(), dpos.data_ptr(),
+        d_neg.data_ptr(), loss_rows.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"sgns_banded_multiblock launch failed: CUDA error {rc} "
+            f"({lib.sgns_mb_error_string(rc).decode()})")
+    sgns_banded_multiblock.launches += 1
+    return wv, wc, d_neg, loss_rows.sum()
+
+
+sgns_banded_multiblock.launches = 0

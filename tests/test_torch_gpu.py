@@ -1,0 +1,116 @@
+"""The port's CUDA kernel on the card, against its PyTorch twin.
+
+Needs a CUDA card and nvcc; skipped elsewhere. This file imports neither JAX
+nor smore_tpu, so it also runs where JAX is not installed:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from smore_tpu_torch.graph.graph import Graph
+from smore_tpu_torch.models.line import LINE
+from smore_tpu_torch.ops.sgns_banded import (
+    sgns_banded_multiblock,
+    sgns_banded_multiblock_ref,
+)
+
+# Atomics sum duplicate rows in an order that changes from run to run, and
+# later tiles gather those sums: f32 round-off scale, not bit-equal.
+RTOL, ATOL = 1e-4, 1e-5
+_ARGS = ("wv", "wc", "sb", "db", "src_l", "pos_l", "cn", "alpha")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(seed, S, B, band, n_bands, Ks, D, idx_hi):
+    rng = np.random.default_rng(seed)
+    n = band * n_bands
+    x = dict(
+        wv=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        wc=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        sb=rng.integers(0, n_bands, S).astype(np.int32),
+        db=rng.integers(0, n_bands, S).astype(np.int32),
+        src_l=rng.integers(0, idx_hi, (S, B)).astype(np.int32),
+        pos_l=rng.integers(0, idx_hi, (S, B)).astype(np.int32),
+        cn=(rng.standard_normal((S, Ks, D)) * 0.1).astype(np.float32),
+        alpha=np.linspace(0.05, 0.03, S).astype(np.float32),
+    )
+    x["db"][-1] = x["sb"][-1]  # a step with sb == db
+    return x
+
+
+CASES = {
+    "s4_b128_ks16": dict(S=4, B=128, band=64, n_bands=4, Ks=16, D=64,
+                         idx_hi=64),
+    "s3_b2048_ks128": dict(S=3, B=2048, band=64, n_bands=3, Ks=128, D=64,
+                           idx_hi=64),
+    "s2_b2048_duplicates": dict(S=2, B=2048, band=64, n_bands=2, Ks=32, D=64,
+                                idx_hi=16),
+    "d32_ks40": dict(S=2, B=256, band=96, n_bands=3, Ks=40, D=32,
+                     idx_hi=96),
+    "d128_ks128_big_smem": dict(S=2, B=1024, band=64, n_bands=3, Ks=128,
+                                D=128, idx_hi=64),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_matches_twin(cuda, case):
+    c = CASES[case]
+    x = _inputs(len(case), **c)
+    a = {k: torch.from_numpy(v.copy()).to(cuda) for k, v in x.items()}
+    b = {k: v.clone() for k, v in a.items()}
+    before = sgns_banded_multiblock.launches
+    kv, kc, kd, kl = sgns_banded_multiblock(*(a[k] for k in _ARGS),
+                                            band_size=c["band"])
+    assert sgns_banded_multiblock.launches == before + 1
+    assert kv is a["wv"] and kc is a["wc"]
+    rv, rc, rd, rl = sgns_banded_multiblock_ref(*(b[k] for k in _ARGS),
+                                                band_size=c["band"])
+    torch.cuda.synchronize()
+    for got, want in ((kv, rv), (kc, rc), (kd, rd)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(kl), float(rl), rtol=RTOL)
+    assert not np.allclose(kv.cpu().numpy(), x["wv"])
+
+
+@pytest.mark.gpu
+def test_line_trains_through_the_kernel(cuda):
+    """On a CUDA device LINE o2 takes the multiblock route by default when
+    the shapes fit, launches the kernel and learns the communities."""
+    rng = np.random.default_rng(7)
+    edges = []
+    for _ in range(3000):
+        c = rng.integers(0, 4)
+        if rng.random() < 0.9:
+            a, b = rng.integers(0, 50, 2) + 50 * c
+        else:
+            a, b = rng.integers(0, 200, 2)
+        if a != b:
+            edges.append((f"v{a}", f"v{b}", float(rng.integers(1, 4))))
+    g = Graph.from_edges(edges, undirected=True)
+    m = LINE(g, seed=0, device=cuda)
+    m.init(dim=64, order=2)
+    before = sgns_banded_multiblock.launches
+    m.train(banded=True, band_size=64, batch=128, hoist=4, sample_times=0.2,
+            steps_per_call=32, verbose=False)
+    assert sgns_banded_multiblock.launches > before
+    wv = m.state["vertex"].cpu().numpy()
+    assert np.isfinite(wv).all()
+    wv = wv / (np.linalg.norm(wv, axis=1, keepdims=True) + 1e-9)
+    src = np.repeat(np.arange(g.n_vertices), np.diff(g.indptr))
+    pos_s = (wv[src] * wv[g.indices]).sum(1)
+    r = np.random.default_rng(0)
+    neg_s = (wv[r.integers(0, g.n_vertices, 500)]
+             * wv[r.integers(0, g.n_vertices, 500)]).sum(1)
+    assert (pos_s[:, None] > neg_s[None, :]).mean() > 0.8

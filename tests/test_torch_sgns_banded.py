@@ -1,0 +1,116 @@
+"""The port's banded multiblock SGNS superstep against smore_tpu's Pallas
+kernel (interpret mode on the CPU). The CUDA kernel is held to the same
+twin on the card by tests/test_torch_gpu.py.
+
+On the CPU the port's wrapper runs its twin; smore_tpu's kernel runs on
+2-row-folded copies of the same tables. Tolerance rtol 2e-5, atol 1e-6
+(the Pallas suite's): both sides are f32 and differ only in the order of
+the dot-product and matmul sums."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smore_tpu.ops.pallas_sgns_banded import (
+    fold_table,
+    sgns_banded_multiblock as jax_multiblock,
+    unfold_table,
+)
+from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
+
+RTOL, ATOL = 2e-5, 1e-6
+
+
+def _inputs(seed, S, B, band, n_bands, Ks, D, sb, db, idx_hi=None):
+    rng = np.random.default_rng(seed)
+    n = band * n_bands
+    hi = band if idx_hi is None else idx_hi
+    return dict(
+        wv=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        wc=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        sb=np.asarray(sb, np.int32),
+        db=np.asarray(db, np.int32),
+        src_l=rng.integers(0, hi, (S, B)).astype(np.int32),
+        pos_l=rng.integers(0, hi, (S, B)).astype(np.int32),
+        cn=(rng.standard_normal((S, Ks, D)) * 0.1).astype(np.float32),
+        alpha=np.linspace(0.05, 0.03, S).astype(np.float32),
+    )
+
+
+CASES = {
+    # step 2 revisits step 0's band pair; step 3 has sb == db
+    "s4_b128_revisit": dict(seed=0, S=4, B=128, band=64, n_bands=4, Ks=16,
+                            D=64, sb=[1, 2, 1, 2], db=[2, 1, 2, 2]),
+    # two tiles of 1024: the second tile gathers the first tile's writes
+    "s2_b2048_two_tiles": dict(seed=1, S=2, B=2048, band=64, n_bands=3,
+                               Ks=128, D=64, sb=[0, 2], db=[1, 2]),
+    # 16 distinct rows per side: duplicates within and across tiles
+    "s2_b2048_duplicates": dict(seed=2, S=2, B=2048, band=64, n_bands=3,
+                                Ks=32, D=64, sb=[1, 1], db=[1, 0],
+                                idx_hi=16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_twin_matches_pallas_kernel(case):
+    c = dict(CASES[case])
+    band = c["band"]
+    x = _inputs(**c)
+    jv, jc, jd, jl = jax_multiblock(
+        fold_table(jnp.asarray(x["wv"])), fold_table(jnp.asarray(x["wc"])),
+        jnp.asarray(x["sb"]), jnp.asarray(x["db"]),
+        jnp.asarray(x["src_l"]), jnp.asarray(x["pos_l"]),
+        jnp.asarray(x["cn"]), jnp.asarray(x["alpha"]),
+        band_size=band, interpret=True,
+    )
+    t = {k: torch.from_numpy(v.copy()) for k, v in x.items()}
+    before = sgns_banded_multiblock.launches
+    tv, tc, td, tl = sgns_banded_multiblock(
+        t["wv"], t["wc"], t["sb"], t["db"], t["src_l"], t["pos_l"],
+        t["cn"], t["alpha"], band_size=band, k_equiv=5,
+    )
+    assert sgns_banded_multiblock.launches == before  # CPU: twin, no kernel
+    assert tv is t["wv"] and tc is t["wc"]  # updated in place
+    np.testing.assert_allclose(tv.numpy(), np.asarray(unfold_table(jv)),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(unfold_table(jc)),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=RTOL, atol=ATOL)
+    # the update really happened
+    assert not np.allclose(tv.numpy(), x["wv"])
+
+
+def _cpu_args():
+    x = _inputs(**CASES["s4_b128_revisit"])
+    return [torch.from_numpy(x[k]) for k in
+            ("wv", "wc", "sb", "db", "src_l", "pos_l", "cn", "alpha")]
+
+
+@pytest.mark.parametrize("bad", ["cn_rank", "wv_dtype", "alpha_len",
+                                 "pos_shape", "batch_tile"])
+def test_wrapper_rejects_bad_inputs(bad):
+    wv, wc, sb, db, src, pos, cn, alpha = _cpu_args()
+    if bad == "cn_rank":
+        cn = cn[0]
+    elif bad == "wv_dtype":
+        wv = wv.double()
+    elif bad == "alpha_len":
+        alpha = alpha[:2]
+    elif bad == "pos_shape":
+        pos = pos[:, :64]
+    else:
+        src, pos = src[:, :100], pos[:, :100]
+    with pytest.raises(ValueError):
+        sgns_banded_multiblock(wv, wc, sb, db, src, pos, cn, alpha,
+                               band_size=64)
+
+
+def test_wrapper_has_no_fallback_off_cpu():
+    """A device that is neither the CPU nor a CUDA card gets an error,
+    never the twin."""
+    args = [a.to("meta") for a in _cpu_args()]
+    with pytest.raises(ValueError, match="no kernel"):
+        sgns_banded_multiblock(*args, band_size=64)
