@@ -1,11 +1,12 @@
 """Shared model scaffolding: embedding tables and the training driver.
 
-Port of ``smore_tpu/models/base.py`` (``clamp_batch``, ``init_embedding``,
-``zeros_embedding``, ``TrainDriver`` on one device, ``PairModelBase``).
-The JAX driver ran ``steps_per_call`` steps in one jitted ``lax.scan``; here
-the same steps run in a Python loop, each step launching its kernels on the
-current stream, and the host reads nothing back unless it prints progress.
-The update is hand-derived SGD, so no autograd is involved.
+Port of ``smore_tpu/models/base.py`` (``hoisted_scan_step``,
+``clamp_batch``, ``init_embedding``, ``zeros_embedding``, ``TrainDriver`` on
+one device, ``PairModelBase``). The JAX driver ran ``steps_per_call`` steps
+in one jitted ``lax.scan``; here the same steps run in a Python loop, each
+step launching its kernels on the current stream, and the host reads
+nothing back unless it prints progress. The update is hand-derived SGD, so
+no autograd is involved.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.io.embeddings import save_embeddings
+from smore_tpu_torch.sampling.tables import SamplerTables
 
 State = Dict[str, torch.Tensor]
 # step_fn(state, ctx, gen, alpha) -> (state, loss); ``ctx`` holds the
@@ -27,6 +29,27 @@ StepFn = Callable[[State, object, torch.Generator, torch.Tensor],
                   Tuple[State, torch.Tensor]]
 
 ALPHA_MIN_FRAC = 1e-4  # reference: alpha_min = alpha * 0.0001
+
+
+def hoisted_scan_step(draw_fn, update_fn, hoist: int) -> StepFn:
+    """The StepFn of every mega-draw path: ``draw_fn(ctx, gen)`` returns a
+    tuple of tensors with a leading (hoist,) axis (the draws of ``hoist``
+    inner batches in one shot; they do not depend on the state, so hoisting
+    them keeps the sampling law), and ``update_fn(state, x, alpha) ->
+    (state, loss)`` applies one inner batch. The step takes the (hoist,)
+    alpha vector of TrainDriver(micro_steps=hoist) and returns the mean
+    loss of its inner batches."""
+
+    def step(state, ctx, gen, alphas):
+        xs = draw_fn(ctx, gen)
+        losses = []
+        for i in range(hoist):
+            state, loss = update_fn(state, tuple(x[i] for x in xs),
+                                    alphas[i])
+            losses.append(loss)
+        return state, torch.stack(losses).mean()
+
+    return step
 
 
 def clamp_batch(n_rows: int, batch: int, group: int = 1) -> int:
@@ -165,12 +188,24 @@ class PairModelBase:
         self.graph = graph
         self.seed = seed
         self.device = torch.device(device)
+        self.tables: Optional[SamplerTables] = None
         self.state: State = {}
         self.dim: int = 0
 
     @classmethod
     def load_edge_list(cls, path: str, undirected: bool = True, **kw):
         return cls(Graph.load_edge_list(path, undirected=undirected), **kw)
+
+    def build_sampler(self) -> SamplerTables:
+        """The device sampler, built at first use on the model's device."""
+        if self.tables is None:
+            self.tables = SamplerTables.build(
+                self.graph,
+                vertex_method=self.vertex_method,
+                negative_method=self.negative_method,
+                device=self.device,
+            )
+        return self.tables
 
     def init(self, dim: int, **kw) -> None:
         raise NotImplementedError
@@ -194,8 +229,9 @@ class PairModelBase:
         """Take parameters given as numpy arrays (for example the JAX
         package's ``{"vertex": ..., "context": ...}``) as this model's
         float32 tables on ``device`` (default: the model's)."""
-        if device is not None:
+        if device is not None and torch.device(device) != self.device:
             self.device = torch.device(device)
+            self.tables = None  # built again on the new device
         self.state = {
             k: torch.from_numpy(np.array(v, dtype=np.float32)).to(self.device)
             for k, v in tables.items()

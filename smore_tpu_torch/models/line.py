@@ -1,18 +1,27 @@
-"""LINE (Large-scale Information Network Embedding), order 2.
+"""LINE (Large-scale Information Network Embedding), orders 1 and 2.
 
-Port of ``smore_tpu/models/line.py``. Order 2 keeps a uniform-init vertex
-table and a zero-init context table and trains them by SGNS on edge
-samples (source by out-degree^0.75, context by edge weight^0.75,
-negatives by degree^0.75), with the learning rate decayed linearly to
-alpha * 1e-4 over ``sample_times`` million samples.
+Port of ``smore_tpu/models/line.py``. Order 1 keeps one uniform-init table
+and updates both endpoints of a sampled edge in it; order 2 keeps a
+uniform-init vertex table and a zero-init context table. Both train by
+SGNS on edge samples (source by out-degree^0.75, context by edge
+weight^0.75, negatives by degree^0.75), with the learning rate decayed
+linearly to alpha * 1e-4 over ``sample_times`` million samples.
 
 ``train`` keeps the JAX package's routing decisions as they are, with "on
-the TPU" read as "on a CUDA device". The route ported so far is the banded
-multiblock path, which the JAX package takes above 262,144 vertices on its
-accelerator: order 2, group 1, dim % 64 == 0, batch 2048 per stratum visit
-at band 16400, 16 micro-steps per superstep, pre-sampled edge streams,
-kernel ``ops/sgns_banded.sgns_banded_multiblock``. Every other route
-raises ``NotImplementedError`` naming its ROADMAP item.
+the TPU" read as "on a CUDA device". Two routes are ported:
+
+- the unbanded path (every graph under 262,144 vertices by default, orders
+  1 and 2): ``_make_step`` with shared negatives (hoisted, grouped or plain
+  draws from ``SamplerTables``, update ``ops.update.sgns_shared_negs_step``,
+  kernel ``ops/sgns.sgns_shared_grads`` when ``use_pallas=True``) or strict
+  per-sample negatives (``sgns_step`` / ``sgns_step_shared``);
+- the banded multiblock path, which the JAX package takes above 262,144
+  vertices on its accelerator: order 2, group 1, dim % 64 == 0, batch 2048
+  per stratum visit at band 16400, 16 micro-steps per superstep,
+  pre-sampled edge streams, kernel ``ops/sgns_banded.sgns_banded_multiblock``.
+
+Every other banded route raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -24,10 +33,16 @@ from smore_tpu_torch.models.base import (
     PairModelBase,
     TrainDriver,
     clamp_batch,
+    hoisted_scan_step,
     init_embedding,
     zeros_embedding,
 )
 from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
+from smore_tpu_torch.ops.update import (
+    sgns_shared_negs_step,
+    sgns_step,
+    sgns_step_shared,
+)
 from smore_tpu_torch.sampling.banded import (
     DEFAULT_BAND_SIZE,
     MULTI_BAND_SIZE,
@@ -101,6 +116,67 @@ class LINE(PairModelBase):
             self.state = {"vertex": vertex,
                           "context": zeros_embedding(n, dim, self.device)}
 
+    def _make_step(self, batch: int, negatives: int, collision: str = "sum",
+                   shared_negatives: int = 128, group: int = 1,
+                   use_pallas: bool = False, hoist: int = 1):
+        """The unbanded StepFn.
+
+        shared_negatives > 0: one pool of that many negatives per step,
+        shared by the batch (``sgns_shared_negs_step``); 0: strict
+        per-sample negatives like the reference. group > 1: each drawn
+        source gives ``group`` consecutive context samples. use_pallas: the
+        gradients go through kernel K1. hoist > 1 (shared negatives, group
+        > 1, the edge table): the draws of ``hoist`` inner batches run as
+        one mega-draw, and alpha arrives as a (hoist,) vector."""
+        order = self.order
+
+        def update(state, src, pos, negs, alpha, src_group):
+            kw = dict(k_equiv=negatives, collision=collision,
+                      src_group=src_group, use_pallas=use_pallas)
+            if order == 1:
+                w, _, loss = sgns_shared_negs_step(
+                    state["vertex"], state["vertex"], src, pos, negs, alpha,
+                    shared_table=True, **kw)
+                return {"vertex": w}, loss
+            wv, wc, loss = sgns_shared_negs_step(
+                state["vertex"], state["context"], src, pos, negs, alpha,
+                **kw)
+            return {"vertex": wv, "context": wc}, loss
+
+        if shared_negatives and hoist > 1:
+            Ks = shared_negatives
+            return hoisted_scan_step(
+                lambda tables, gen: tables.draw_edge_batches_hoisted(
+                    gen, batch, group, Ks, hoist),
+                lambda st, x, a: update(st, *x, a, group), hoist)
+
+        if shared_negatives:
+            Ks = shared_negatives
+
+            def step(state, tables, gen, alpha):
+                grouped = group > 1 and tables.has_edge_table
+                if grouped:
+                    x = tables.draw_edge_batch_grouped(gen, batch, group, Ks)
+                else:
+                    x = tables.draw_edge_batch(gen, batch, Ks)
+                return update(state, *x, alpha, group if grouped else 1)
+
+            return step
+
+        def step(state, tables, gen, alpha):
+            src = tables.source_sample(gen, (batch,))
+            pos = tables.target_sample(gen, src)
+            negs = tables.negative_sample(gen, (batch, negatives))
+            if order == 1:
+                w, loss = sgns_step_shared(state["vertex"], src, pos, negs,
+                                           alpha, collision=collision)
+                return {"vertex": w}, loss
+            wv, wc, loss = sgns_step(state["vertex"], state["context"], src,
+                                     pos, negs, alpha, collision=collision)
+            return {"vertex": wv, "context": wc}, loss
+
+        return step
+
     def _make_banded_multiblock_step(self, batch, negatives,
                                      shared_negatives, hoist):
         """One multiblock superstep: ``hoist`` micro-steps, each on its own
@@ -137,9 +213,10 @@ class LINE(PairModelBase):
         verbose: bool = True,
     ) -> None:
         """The JAX package's ``LINE.train`` arguments and defaults, less
-        ``sharding`` (multi-device is not ported; ``mesh`` raises).
-        ``use_pallas`` selects the fused / scatter-only banded kernels
-        there, routes still to be ported."""
+        ``sharding`` (multi-device is not ported; ``mesh`` raises). On the
+        unbanded path ``use_pallas=True`` selects kernel K1 ("auto" is off
+        there, as in the JAX package); on the banded path it selects the
+        fused / scatter-only kernels, routes still to be ported."""
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device training (mesh=) is not ported yet "
@@ -157,19 +234,62 @@ class LINE(PairModelBase):
             and (banded is True
                  or (banded == "auto" and n >= BANDED_AUTO_THRESHOLD))
         )
-        if not use_banded:
-            raise _unported("the unbanded shared-negative step (kernel K1)",
-                            "Queue 1 items 4 and 6")
-        if self.order != 2:
-            raise _unported("order 1", "Queue 1 item 8")
         if group == 0:
-            group = 1
+            group = 1 if (use_banded and self.order == 2) else 8
         if group > 1 and batch % group:
             raise ValueError(f"batch {batch} not divisible by group {group}")
         batch = clamp_batch(n, batch, group=group)
-        shared_negatives = min(shared_negatives, batch)
+        if shared_negatives:
+            shared_negatives = min(shared_negatives, batch)
+        if (hoist != 1 and not use_banded
+                and not self.build_sampler().has_edge_table):
+            # the hoisted step needs the joint edge table; without it the
+            # per-step path draws in two stages
+            hoist = 1
         auto_hoist = hoist == 0
+        if auto_hoist:
+            if use_banded and shared_negatives:
+                hoist = 8
+            elif (shared_negatives and group > 1
+                  and self.build_sampler().has_edge_table):
+                hoist = 32
+            else:
+                hoist = 1
 
+        if use_banded:
+            self._train_banded(total, negative_samples, alpha, batch,
+                               auto_batch, steps_per_call, shared_negatives,
+                               group, use_pallas, hoist, auto_hoist,
+                               band_hold, band_size, multiband, neg_band,
+                               edge_stream, verbose)
+            return
+
+        self.last_driver = driver = TrainDriver(
+            self._make_step(batch, negative_samples, collision,
+                            shared_negatives, group, use_pallas is True,
+                            hoist),
+            ctx=self.build_sampler(),
+            samples_per_step=batch * hoist,
+            alpha=alpha,
+            total_samples=total,
+            steps_per_call=max(1, steps_per_call // hoist),
+            micro_steps=hoist,
+            device=self.device,
+        )
+        # the tables are updated in place
+        self.state = driver.train(self.state, self._generator(_TRAIN),
+                                  verbose=verbose)
+
+    def _train_banded(self, total, negative_samples, alpha, batch,
+                      auto_batch, steps_per_call, shared_negatives, group,
+                      use_pallas, hoist, auto_hoist, band_hold, band_size,
+                      multiband, neg_band, edge_stream, verbose) -> None:
+        """The banded routes of ``train``; only the multiblock one is
+        ported."""
+        n = self.graph.n_vertices
+        if self.order != 2:
+            raise _unported("banded order 1 (1D band tables, kernel K2)",
+                            "Queue 1 item 8")
         on_card = self.device.type == "cuda"
         use_multi = (
             group == 1

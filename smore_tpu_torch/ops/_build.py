@@ -32,7 +32,8 @@ NVCC_FLAGS = [
 ]
 
 _libs: dict = {}
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: dict = {}  # one lock per kernel: builds of two kernels overlap
 # name -> (seconds spent building in this process, ptxas report)
 build_info: dict = {}
 
@@ -62,8 +63,11 @@ def _nvcc() -> str:
 
 
 def load_kernel_lib(name: str) -> ctypes.CDLL:
-    """Build (once per source revision) and load ``csrc/<name>.cu``."""
+    """Build (once per source revision) and load ``csrc/<name>.cu``. Calls
+    for different kernels from different threads build in parallel."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         src = os.path.join(CSRC, f"{name}.cu")

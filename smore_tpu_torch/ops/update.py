@@ -1,0 +1,227 @@
+"""The SGNS update core: gather rows, score, scale, scatter-add.
+
+Port of the SGNS part of ``smore_tpu/ops/update.py`` (``scatter_apply``,
+``apply_two_tables``, ``sgns_grads``, ``sgns_step``, ``sgns_step_shared``,
+``sgns_shared_negs_step``). A batched step applies every sample against
+the batch-start snapshot of the tables; duplicate rows in a batch sum
+their contributions (collision "sum"), or are divided by their occurrence
+count (collision "mean").
+
+The tables are UPDATED IN PLACE with ``index_add_`` (the JAX package
+returned new arrays from donated buffers), and each function returns the
+tensors it was given. Every delta is computed from rows gathered before
+the first scatter, so when both tables are one tensor (LINE order 1) the
+update still sees the batch-start snapshot. The update is hand-derived
+SGD; no autograd is involved.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from smore_tpu_torch.ops.sgns import sgns_shared_grads
+
+_EPS = 1e-7
+_LOSS_ROWS = 1024  # rows of the shared-negative monitoring loss
+
+
+def _maybe_mask(g: torch.Tensor, mask: Optional[torch.Tensor]):
+    return g if mask is None else g * mask
+
+
+def scatter_apply(w: torch.Tensor, idx_deltas, collision: str = "sum"):
+    """Add row updates ``[(idx (B,), delta (B, D)[, count_w (B,)]), ...]``
+    to ``w`` in place and return it.
+
+    "sum": duplicate rows sum their deltas. "mean": each row's deltas are
+    divided by the row's occurrence count over ALL the entries (weighted by
+    ``count_w`` where given, so that masked slots do not dilute it)."""
+    if collision == "sum":
+        for entry in idx_deltas:
+            w.index_add_(0, entry[0], entry[1])
+        return w
+    if collision != "mean":
+        raise ValueError(f"collision must be 'sum' or 'mean', got "
+                         f"{collision!r}")
+    cnt = torch.zeros(w.shape[0], dtype=w.dtype, device=w.device)
+    for entry in idx_deltas:
+        idx = entry[0]
+        cw = entry[2] if len(entry) > 2 and entry[2] is not None else None
+        if cw is None:
+            cw = torch.ones(idx.shape[0], dtype=w.dtype, device=w.device)
+        cnt.index_add_(0, idx, cw)
+    cnt.clamp_(min=1.0)
+    for entry in idx_deltas:
+        idx, delta = entry[0], entry[1]
+        w.index_add_(0, idx, delta / cnt[idx][:, None])
+    return w
+
+
+def apply_two_tables(w_vertex, w_context, vertex_entries, context_entries,
+                     shared_table: bool = False, update_vertex: bool = True,
+                     collision: str = "sum"):
+    """Scatter vertex-side and context-side updates; with ``shared_table``
+    (one table passed as both) every entry lands in one pass, so a "mean"
+    count sees them all."""
+    if shared_table:
+        entries = list(context_entries) + (
+            list(vertex_entries) if update_vertex else [])
+        w = scatter_apply(w_vertex, entries, collision)
+        return w, w
+    scatter_apply(w_context, context_entries, collision)
+    if update_vertex:
+        scatter_apply(w_vertex, vertex_entries, collision)
+    return w_vertex, w_context
+
+
+def sgns_grads(w_vertex, w_context, src, pos, negs, alpha,
+               mask: Optional[torch.Tensor] = None, reg: float = 0.0):
+    """SGNS deltas with per-sample negatives ``negs`` (B, K): returns
+    (d_src (B, D), d_pos (B, D), d_neg (B, K, D), loss ())."""
+    v = w_vertex[src]
+    cp = w_context[pos]
+    cn = w_context[negs]  # (B, K, D)
+    s_pos = torch.sigmoid((v * cp).sum(-1))
+    s_neg = torch.sigmoid(torch.einsum("bd,bkd->bk", v, cn))
+    g_pos = _maybe_mask((1.0 - s_pos) * alpha, mask)
+    g_neg = (0.0 - s_neg) * alpha
+    if mask is not None:
+        g_neg = g_neg * mask[:, None]
+    d_src = g_pos[:, None] * cp + torch.einsum("bk,bkd->bd", g_neg, cn)
+    d_pos = g_pos[:, None] * v
+    d_neg = g_neg[:, :, None] * v[:, None, :]
+    if reg:
+        m1 = 1.0 if mask is None else mask[:, None]
+        d_src = d_src - (alpha * reg) * v * m1
+        d_pos = d_pos - (alpha * reg) * cp * m1
+    ce = -torch.log(s_pos + _EPS) - torch.log(1.0 - s_neg + _EPS).sum(-1)
+    if mask is None:
+        loss = ce.mean()
+    else:
+        loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return d_src, d_pos, d_neg, loss
+
+
+def sgns_step(w_vertex, w_context, src, pos, negs, alpha,
+              mask: Optional[torch.Tensor] = None, reg: float = 0.0,
+              update_vertex: bool = True, collision: str = "sum"):
+    """One SGNS update with per-sample negatives against distinct vertex
+    and context tables (LINE order 2). ``update_vertex=False`` is the
+    reference's UpdateFreezePair. Returns (w_vertex, w_context, loss)."""
+    d_src, d_pos, d_neg, loss = sgns_grads(w_vertex, w_context, src, pos,
+                                           negs, alpha, mask, reg)
+    B, K, D = d_neg.shape
+    mask_k = None if mask is None else mask.repeat_interleave(K)
+    scatter_apply(w_context, [(pos, d_pos, mask),
+                              (negs.reshape(-1), d_neg.reshape(B * K, D),
+                               mask_k)], collision)
+    if update_vertex:
+        scatter_apply(w_vertex, [(src, d_src, mask)], collision)
+    return w_vertex, w_context, loss
+
+
+def sgns_step_shared(w, src, pos, negs, alpha,
+                     mask: Optional[torch.Tensor] = None, reg: float = 0.0,
+                     collision: str = "sum"):
+    """SGNS with per-sample negatives on one shared table (LINE order 1).
+    Returns (w, loss)."""
+    d_src, d_pos, d_neg, loss = sgns_grads(w, w, src, pos, negs, alpha,
+                                           mask, reg)
+    B, K, D = d_neg.shape
+    mask_k = None if mask is None else mask.repeat_interleave(K)
+    scatter_apply(w, [(src, d_src, mask), (pos, d_pos, mask),
+                      (negs.reshape(-1), d_neg.reshape(B * K, D), mask_k)],
+                  collision)
+    return w, loss
+
+
+def sgns_shared_negs_step(
+    w_vertex: torch.Tensor,
+    w_context: torch.Tensor,
+    src: torch.Tensor,  # (B,)
+    pos: torch.Tensor,  # (B,)
+    negs: torch.Tensor,  # (Ks,) the step's shared negative pool
+    alpha,
+    k_equiv: int = 5,  # the per-sample negative count emulated
+    mask: Optional[torch.Tensor] = None,
+    shared_table: bool = False,  # True: LINE order 1 (one table)
+    update_vertex: bool = True,
+    reg: float = 0.0,  # L2 shrink (reference Opt_SigmoidRegSGD)
+    collision: str = "sum",
+    src_group: int = 1,  # src is a repeat layout of groups of this size
+    use_pallas: bool = False,  # fused gradient kernel K1
+):
+    """SGNS with one pool of Ks negatives shared by the whole batch, their
+    gradients scaled by k_equiv / Ks so the expected per-sample update
+    matches the reference's. Returns (w_vertex, w_context, loss); loss is
+    the mean cross-entropy over the first min(1024, B) rows.
+
+    src_group > 1: ``src`` is ``repeat_interleave(src_small, G)``; the
+    source rows are gathered once per group and the source delta is summed
+    per group before its scatter.
+
+    use_pallas: the gradients go through ``ops.sgns.sgns_shared_grads``
+    (the port of K1: the CUDA kernel for CUDA tensors, its plain twin for
+    CPU tensors) when mask is None, reg is 0 and B % min(1024, B) == 0, as
+    in the JAX package."""
+    Ks = negs.shape[0]
+    B = src.shape[0]
+    if src_group > 1:
+        if B % src_group:
+            raise ValueError(f"batch {B} not divisible by src_group "
+                             f"{src_group}")
+        src_small = src[::src_group]
+        v = w_vertex[src_small].repeat_interleave(src_group, dim=0)
+    else:
+        v = w_vertex[src]
+    cp = w_context[pos]
+    cn = w_context[negs]
+    kscale = k_equiv / Ks
+    m = min(_LOSS_ROWS, B)
+
+    if use_pallas and mask is None and not reg and B % m == 0:
+        d_src, d_pos, d_neg = sgns_shared_grads(v, cp, cn, alpha,
+                                                k_equiv=k_equiv)
+        s_pos = torch.sigmoid((v[:m] * cp[:m]).sum(-1))
+        s_neg = torch.sigmoid(v[:m] @ cn.T)
+    else:
+        s_pos_full = torch.sigmoid((v * cp).sum(-1))
+        s_neg_full = torch.sigmoid(v @ cn.T)
+        g_pos = _maybe_mask((1.0 - s_pos_full) * alpha, mask)
+        g_neg = (0.0 - s_neg_full) * (alpha * kscale)
+        if mask is not None:
+            g_neg = g_neg * mask[:, None]
+        d_src = g_pos[:, None] * cp + g_neg @ cn
+        d_pos = g_pos[:, None] * v
+        d_neg = g_neg.T @ v
+        if reg:
+            ar = alpha * reg
+            m1 = 1.0 if mask is None else mask[:, None]
+            d_src = d_src - ar * v * m1
+            d_pos = d_pos - ar * cp * m1
+            d_neg = d_neg - ar * cn * kscale
+        s_pos, s_neg = s_pos_full[:m], s_neg_full[:m]
+
+    ce = -torch.log(s_pos + _EPS) - kscale * torch.log(
+        1.0 - s_neg + _EPS).sum(-1)
+    if mask is None:
+        loss = ce.mean()
+    else:
+        loss = (ce * mask[:m]).sum() / torch.clamp(mask[:m].sum(), min=1.0)
+
+    if src_group > 1:
+        d_src = d_src.reshape(B // src_group, src_group, -1).sum(1)
+        src_entry = (src_small, d_src)
+    else:
+        src_entry = (src, d_src, mask)
+
+    if shared_table:
+        w = scatter_apply(w_vertex, [src_entry, (pos, d_pos, mask),
+                                     (negs, d_neg)], collision)
+        return w, w, loss
+    scatter_apply(w_context, [(pos, d_pos, mask), (negs, d_neg)], collision)
+    if update_vertex:
+        scatter_apply(w_vertex, [src_entry], collision)
+    return w_vertex, w_context, loss

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its PyTorch twin.
+"""The port's CUDA kernels on the card, against their PyTorch twins.
 
 Needs a CUDA card and nvcc; skipped elsewhere. This file imports neither JAX
 nor smore_tpu, so it also runs where JAX is not installed:
@@ -12,6 +12,7 @@ import torch
 
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.models.line import LINE
+from smore_tpu_torch.ops.sgns import sgns_shared_grads, sgns_shared_grads_ref
 from smore_tpu_torch.ops.sgns_banded import (
     sgns_banded_multiblock,
     sgns_banded_multiblock_ref,
@@ -84,10 +85,8 @@ def test_kernel_matches_twin(cuda, case):
     assert not np.allclose(kv.cpu().numpy(), x["wv"])
 
 
-@pytest.mark.gpu
-def test_line_trains_through_the_kernel(cuda):
-    """On a CUDA device LINE o2 takes the multiblock route by default when
-    the shapes fit, launches the kernel and learns the communities."""
+def _toy_graph():
+    """The 200-vertex 4-community graph of tests/test_torch_line_slice.py."""
     rng = np.random.default_rng(7)
     edges = []
     for _ in range(3000):
@@ -98,13 +97,10 @@ def test_line_trains_through_the_kernel(cuda):
             a, b = rng.integers(0, 200, 2)
         if a != b:
             edges.append((f"v{a}", f"v{b}", float(rng.integers(1, 4))))
-    g = Graph.from_edges(edges, undirected=True)
-    m = LINE(g, seed=0, device=cuda)
-    m.init(dim=64, order=2)
-    before = sgns_banded_multiblock.launches
-    m.train(banded=True, band_size=64, batch=128, hoist=4, sample_times=0.2,
-            steps_per_call=32, verbose=False)
-    assert sgns_banded_multiblock.launches > before
+    return Graph.from_edges(edges, undirected=True)
+
+
+def _link_auc(m, g):
     wv = m.state["vertex"].cpu().numpy()
     assert np.isfinite(wv).all()
     wv = wv / (np.linalg.norm(wv, axis=1, keepdims=True) + 1e-9)
@@ -113,4 +109,58 @@ def test_line_trains_through_the_kernel(cuda):
     r = np.random.default_rng(0)
     neg_s = (wv[r.integers(0, g.n_vertices, 500)]
              * wv[r.integers(0, g.n_vertices, 500)]).sum(1)
-    assert (pos_s[:, None] > neg_s[None, :]).mean() > 0.8
+    return (pos_s[:, None] > neg_s[None, :]).mean()
+
+
+@pytest.mark.gpu
+def test_line_trains_through_the_kernel(cuda):
+    """On a CUDA device LINE o2 takes the multiblock route by default when
+    the shapes fit, launches the kernel and learns the communities."""
+    g = _toy_graph()
+    m = LINE(g, seed=0, device=cuda)
+    m.init(dim=64, order=2)
+    before = sgns_banded_multiblock.launches
+    m.train(banded=True, band_size=64, batch=128, hoist=4, sample_times=0.2,
+            steps_per_call=32, verbose=False)
+    assert sgns_banded_multiblock.launches > before
+    assert _link_auc(m, g) > 0.8
+
+
+# K1: the twin's matmuls and the kernel sum in other orders, and d_neg's
+# atomics in an order that changes from run to run
+K1_CASES = [(32768, 128, 64), (1024, 64, 32), (2048, 128, 128),
+            (200, 40, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Ks,D", K1_CASES)
+def test_k1_kernel_matches_twin(cuda, B, Ks, D):
+    rng = np.random.default_rng(B + Ks + D)
+    v, cp, cn = (torch.from_numpy((rng.standard_normal(s) * 0.3).astype(
+        np.float32)).to(cuda) for s in ((B, D), (B, D), (Ks, D)))
+    alpha = torch.tensor(0.025, device=cuda)
+    before = sgns_shared_grads.launches
+    got = sgns_shared_grads(v, cp, cn, alpha, k_equiv=5)
+    assert sgns_shared_grads.launches == before + 1
+    want = sgns_shared_grads_ref(v, cp, cn, alpha, k_equiv=5)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("d_src", "d_pos", "d_neg"), got, want):
+        assert x.shape == y.shape and x.dtype == torch.float32, name
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL, err_msg=name)
+    assert float(got[2].abs().max()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order", [1, 2])
+def test_line_unbanded_trains_through_k1(cuda, order):
+    """LINE's unbanded route with use_pallas=True launches K1 on a CUDA
+    device and learns the communities."""
+    g = _toy_graph()
+    m = LINE(g, seed=0, device=cuda)
+    m.init(dim=64, order=order)
+    before = sgns_shared_grads.launches
+    m.train(sample_times=0.2, batch=128, use_pallas=True, verbose=False)
+    assert m.banded_tables is None and m.last_driver.micro_steps == 32
+    assert sgns_shared_grads.launches > before
+    assert _link_auc(m, g) > 0.8

@@ -17,6 +17,8 @@ MODULES = [
     "smore_tpu_torch.io.embeddings",
     "smore_tpu_torch.ops._build",
     "smore_tpu_torch.ops.sgns_banded",
+    "smore_tpu_torch.ops.sgns",
+    "smore_tpu_torch.ops.update",
     "smore_tpu_torch.models.base",
     "smore_tpu_torch.models.line",
 ]

@@ -4,7 +4,8 @@ smore_tpu.
 One superstep on injected draws (rtol 2e-5, atol 1e-6: f32 on both sides,
 differing only in sum order), TrainDriver's alpha schedule (bit-equal in
 f32), the routing (same batch, band, micro-steps and steps per call), end
-to end quality on a toy community graph, and the routes not ported yet."""
+to end quality on a toy community graph, the routes not ported yet, and
+the unbanded routes that now train."""
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,7 @@ from smore_tpu_torch.graph.graph import Graph as TGraph
 from smore_tpu_torch.models.base import TrainDriver as TDriver
 from smore_tpu_torch.models.line import LINE as TLINE
 from smore_tpu_torch.models.line import multiblock_apply
+from smore_tpu_torch.sampling.tables import SamplerTables
 
 BAND = 64
 RTOL, ATOL = 2e-5, 1e-6
@@ -208,7 +210,7 @@ def test_line_end_to_end_quality(graphs, tmp_path):
 
 
 @pytest.mark.parametrize("route", [
-    "unbanded", "fused", "scatter_only", "band_hold", "neg_band", "order1",
+    "fused", "scatter_only", "band_hold", "neg_band", "order1",
     "no_multiband", "mesh",
 ])
 def test_unported_routes_raise(graphs, route):
@@ -218,7 +220,6 @@ def test_unported_routes_raise(graphs, route):
     kw = dict(sample_times=0.01, batch=128, band_size=BAND, banded=True,
               multiband=True, verbose=False)
     kw.update({
-        "unbanded": dict(banded=False),
         "fused": dict(multiband=False, use_pallas=True),
         "scatter_only": dict(multiband=False, use_pallas=True, group=1,
                              batch=100),
@@ -231,6 +232,26 @@ def test_unported_routes_raise(graphs, route):
     }[route])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.train(**kw)
+
+
+@pytest.mark.parametrize("route", ["banded_false", "auto_small_graph",
+                                   "order1_banded_false"])
+def test_unbanded_routes_train(graphs, route):
+    """The routes that raised before the unbanded path was ported: a graph
+    under 262,144 vertices (or banded=False) trains on SamplerTables, with
+    orders 1 and 2."""
+    _, tg = graphs
+    m = TLINE(tg, seed=0)
+    m.init(dim=64, order=1 if route.startswith("order1") else 2)
+    kw = dict(sample_times=0.01, batch=128, verbose=False)
+    if route != "auto_small_graph":
+        kw.update(banded=False, multiband=True, band_size=BAND)
+    m.train(**kw)
+    assert m.banded_tables is None
+    assert isinstance(m.last_driver.ctx, SamplerTables)
+    assert m.last_driver.executed_samples >= 10_000
+    for v in m.state.values():
+        assert v.shape == (tg.n_vertices, 64) and torch.isfinite(v).all()
 
 
 def test_driver_checkpoint_raises():
