@@ -1,46 +1,62 @@
 """Chip smoke test of the PyTorch port: builds the CUDA kernels and drives
-LINE's banded path at Youtube scale and its unbanded path on the 50k-vertex
-bench graph, on one NVIDIA card.
+LINE's banded routes at Youtube scale and its unbanded path on the
+50k-vertex bench graph, on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; there is no CPU path):
   1. device: a CUDA card must be present; prints its name and power limit
   2. build: compiles smore_tpu_torch/csrc/*.cu with nvcc, one process per
-     source, in parallel (first use)
+     source, all started together (first use)
   3. K4 vs twin at the banded path's shapes (S=16 micro-steps, B=2048,
      band 16400, Ks=128, D=64, 68 x 16400 table rows): tables, d_neg and
      loss must agree, and both times are printed
   4. K1 vs twin at the unbanded path's shapes (B=32768, Ks=128, D=64):
      d_src, d_pos and d_neg must agree, and both times are printed
-  5. banded main path: the 1.1M-vertex Youtube-scale graph
+  5. K3 vs twin at the fused route's shapes (57 x 16392-row tables,
+     B=4096 and 32768, Ks=128, D=64): bands, d_neg and loss must agree;
+     both times are printed
+  6. K2 vs twin and index_add_ at the order-1 route's shapes (B=32768,
+     band 32776 of a 29-band table, D=64), random and all-same rows: the
+     three must agree; their times are printed
+  7. banded main path: the 1.1M-vertex Youtube-scale graph
      (bench.make_youtube_graph) -> Graph.load_edge_list -> LINE(order 2,
      dim 64) -> train(40M samples, 5 negatives, alpha 0.025, every other
      argument at its default), all on the card; K4 must have been launched,
      the tables must be finite and the community AUC
      (bench.yt_community_auc) >= 0.58
-  6. the same graph on the unbanded route (banded=False, use_pallas=True),
-     40M samples: a measurement beside phase 5; K1 must have been launched
+  8. the same graph on the unbanded route (banded=False, use_pallas=True),
+     40M samples: a measurement beside phase 7; K1 must have been launched
      and the tables must be finite
-  7. unbanded main path: the 50k-vertex bench graph (bench.make_graph) ->
+  9. the fused route: LINE o2 train(multiband=False), every other argument
+     at its default (band 16392, batch 4096, group 1, hoist 8); K3 must
+     have been launched, the tables finite, the community AUC >= 0.57
+ 10. LINE order 1 at its defaults (1D band tables at band 32776, group 8,
+     hoist 8, batch 32768, the scatter-only route): K2 launched, a finite
+     table; its AUC is printed
+ 11. LINE o2 with multiband=False, use_pallas="scatter" (K2 on both 2D
+     scatters, band 32776, batch 32768): K2 launched, finite tables; a
+     measurement
+ 12. unbanded main path: the 50k-vertex bench graph (bench.make_graph) ->
      LINE(order 2, dim 64) -> train(40M samples, 5 negatives, alpha 0.025,
      use_pallas=True, every other argument at its default: batch 32768,
      group 8, hoist 32); K1 must have been launched, the tables must be
      finite and the community AUC >= 0.99
-  8. the same with group=1 (per-step draws), same gates
-  9. order 1 with use_pallas=True, 40M samples: K1 launched, a finite
+ 13. the same with group=1 (per-step draws), same gates
+ 14. order 1 with use_pallas=True, 40M samples: K1 launched, a finite
      table; its AUC is printed
-Each path runs 1M samples first (tables, stream and warm-up), then its
-kernels' launch counts are set to 0 and read after the timed 40M run. The
-last two lines are the kernel table and the result, each one JSON object.
-Files go to build/chip_smoke/ inside the checkout.
+Each path runs 1M samples first (tables, stream and warm-up), then every
+kernel's launch count is set to 0, read after the timed 40M run and
+printed. The last two lines are the kernel table (with each kernel's
+least possible time on the card, its bound) and the result, each one JSON
+object. Files go to build/chip_smoke/ inside the checkout.
 
     python3 chip_smoke.py --profile DIR
 
-also profiles 4M more samples of the banded and the unbanded main paths
-with torch.profiler and writes the kernel-time tables and Chrome traces to
-DIR (a measurement aid, off by default so that the smoke does not depend on
-the profiler).
+also profiles 4M more samples of the multiblock, fused, order-1 and
+unbanded main paths with torch.profiler and writes the kernel-time tables
+and Chrome traces to DIR (a measurement aid, off by default so that the
+smoke does not depend on the profiler).
 """
 
 from __future__ import annotations
@@ -63,16 +79,26 @@ OUT = os.path.join(HERE, "build", "chip_smoke")
 S, B, BAND, N_BANDS, KS, D = 16, 2048, 16400, 68, 128, 64
 # unbanded shapes: LINE defaults on the 50k graph (batch 32768)
 B_UNBANDED = 32768
+# fused route: band 16392 (57 bands at Youtube scale), batch 4096 (two
+# 2048-row tiles); order-1 route: band 32776 (29 bands), batch 32768
+FUSED_BAND, FUSED_BANDS, B_FUSED = 16392, 57, 4096
+SCAT_BAND, SCAT_BANDS, B_SCAT = 32776, 29, 32768
 # Atomics sum duplicate rows (K4) and d_neg (K1) in an order that changes
 # from run to run, and K4's later tiles gather those sums, so each kernel
 # is held to its twin at f32 round-off scale, not bit for bit.
 RTOL, ATOL = 1e-4, 1e-5
 SAMPLE_TIMES = 40  # millions of samples: the JAX package's quality gate
 AUC_MIN = 0.58  # JAX record 0.6106 +- 0.0068 less bench.py's 0.03 margin
+# fused route at 40M: JAX records 0.606 (PERF_NOTES.md:493) and 0.6022
+# (BASELINE.md:96) less bench.py's 0.03 margin
+AUC_MIN_FUSED = 0.57
 # 50k bench graph: the JAX package reached 1.0000 at 40M with group 8 and
 # group 1 (PERF_NOTES.md), and sits near 0.57 at 20M
 AUC_MIN_50K = 0.99
 TRAIN_KW = dict(negative_samples=5, alpha=0.025, verbose=False)
+# the card's peaks for the bound (NVIDIA's H100 SXM data sheet): f32 on the
+# CUDA cores, HBM3 bandwidth
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 
 
 def log(msg: str) -> None:
@@ -103,16 +129,32 @@ def phase_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def phase_build() -> None:
-    from smore_tpu_torch.ops import _build, sgns, sgns_banded
+def _counters():
+    """The launch-counting wrappers of every kernel, by kernel name."""
+    from smore_tpu_torch.ops.scatter import band_scatter_add
+    from smore_tpu_torch.ops.sgns import sgns_shared_grads
+    from smore_tpu_torch.ops.sgns_banded import (
+        sgns_banded_fused,
+        sgns_banded_multiblock,
+    )
 
+    return {f.__name__: f for f in (sgns_banded_multiblock, sgns_shared_grads,
+                                    sgns_banded_fused, band_scatter_add)}
+
+
+def phase_build() -> None:
+    from smore_tpu_torch.ops import _build, scatter, sgns, sgns_banded
+
+    loaders = (sgns_banded._load, sgns._load, sgns_banded._load_fused,
+               scatter._load)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        for f in [ex.submit(m._load) for m in (sgns_banded, sgns)]:
+    with ThreadPoolExecutor(len(loaders)) as ex:
+        for f in [ex.submit(load) for load in loaders]:
             f.result()
-    log(f"build: {time.perf_counter() - t0:.2f} s for both "
+    log(f"build: {time.perf_counter() - t0:.2f} s for all {len(loaders)} "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for name in ("sgns_banded_multiblock", "sgns_shared_grads"):
+    for name in ("sgns_banded_multiblock", "sgns_shared_grads",
+                 "sgns_banded_fused", "band_scatter_add"):
         secs, report = _build.build_info[name]
         log(f"  {name}: {secs:.2f} s")
         for line in report.splitlines():
@@ -120,11 +162,40 @@ def phase_build() -> None:
                 log(f"  ptxas: {line.strip()}")
 
 
+_SLEEP_CYCLES_PER_MS = None
+
+
+def _sleep_cycles_per_ms() -> float:
+    """The card's clock as torch.cuda._sleep counts it (measured once)."""
+    global _SLEEP_CYCLES_PER_MS
+    if _SLEEP_CYCLES_PER_MS is None:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)  # warm-up
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS = 10_000_000 / start.elapsed_time(end)
+    return _SLEEP_CYCLES_PER_MS
+
+
 def _time_ms(call, reps: int) -> float:
+    """Device time per call: CUDA events around ``reps`` calls that are all
+    enqueued while the card is still busy with a spin of twice their
+    enqueue time, so that the host's launch rate does not enter the time
+    (a host slower than the card would otherwise leave it idle between
+    launches)."""
     call()  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    torch.cuda._sleep(int((2 * host_ms + 1) * _sleep_cycles_per_ms()))
     start.record()
     for _ in range(reps):
         call()
@@ -139,6 +210,28 @@ def _alternate(plain, kernel, reps_plain: int, reps_kernel: int):
     t_kern = [_time_ms(kernel, reps_kernel) for _ in range(2)]
     t_plain.append(_time_ms(plain, reps_plain))
     return min(t_kern), t_kern, min(t_plain), t_plain
+
+
+def _bound(name: str, flops: float, nbytes: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    operations over the f32 peak and the bytes over the HBM rate."""
+    t_ops, t_bytes = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    log(f"{name} bound: {flops / 1e9:.4f} GFLOP -> {t_ops:.4f} ms, "
+        f"{nbytes / 1e6:.2f} MB -> {t_bytes:.4f} ms")
+    return dict(bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _sgns_flops(samples: int, ks: int, d: int) -> float:
+    """v.cp, v cn^T, g_pos cp + g_neg cn, g_pos v and g_neg^T v per
+    sample, as multiply-adds counted twice."""
+    return samples * (6 * ks * d + 4 * d)
+
+
+def _rows(*ids) -> int:
+    """Distinct table rows among index arrays (each read and written once)."""
+    return int(np.unique(np.concatenate(
+        [np.asarray(i).ravel() for i in ids])).size)
 
 
 def _compare(name, got, want) -> float:
@@ -205,7 +298,13 @@ def phase_k4_vs_twin(device) -> dict:
                                        band_size=BAND), 5, 20)
     log(f"K4 superstep time: kernel {ms:.4f} ms {t_kern}, twin "
         f"{plain_ms:.4f} ms {t_plain} ({S * B} samples each)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    h = {k: y[k].cpu().numpy() for k in ("sb", "db", "src_l", "pos_l")}
+    rows = (_rows(h["sb"][:, None] * BAND + h["src_l"])
+            + _rows(h["db"][:, None] * BAND + h["pos_l"]))
+    nbytes = (2 * rows * D + 2 * S * KS * D) * 4 + S * (2 * B + 3) * 4
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **_bound("K4", _sgns_flops(S * B, KS, D), nbytes),
+                library_ms=None)
 
 
 def phase_k1_vs_twin(device) -> dict:
@@ -231,13 +330,118 @@ def phase_k1_vs_twin(device) -> dict:
         lambda: sgns_shared_grads(v, cp, cn, alpha, k_equiv=5), 50, 50)
     log(f"K1 call time: kernel {ms:.4f} ms {t_kern}, twin {plain_ms:.4f} "
         f"ms {t_plain} ({B_UNBANDED} samples each)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    nbytes = (4 * B_UNBANDED * D + 2 * KS * D + 1) * 4
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **_bound("K1", _sgns_flops(B_UNBANDED, KS, D), nbytes),
+                library_ms=None)
+
+
+def _fused_inputs(seed: int, b: int, device):
+    """Random inputs at the fused route's shapes, with duplicate rows: half
+    of each side's ids come from 64 hot rows of its band."""
+    rng = np.random.default_rng(seed)
+    n = FUSED_BAND * FUSED_BANDS
+    src = rng.integers(0, FUSED_BAND, b)
+    pos = rng.integers(0, FUSED_BAND, b)
+    hot = rng.integers(0, FUSED_BAND, 64)
+    src = np.where(rng.random(b) < 0.5, hot[rng.integers(0, 64, b)], src)
+    pos = np.where(rng.random(b) < 0.5, hot[rng.integers(0, 64, b)], pos)
+    x = dict(
+        wv=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        wc=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        sb=np.int32(rng.integers(0, FUSED_BANDS) * FUSED_BAND),
+        db=np.int32(rng.integers(0, FUSED_BANDS) * FUSED_BAND),
+        src_l=src.astype(np.int32), pos_l=pos.astype(np.int32),
+        cn=(rng.standard_normal((KS, D)) * 0.1).astype(np.float32),
+        alpha=np.float32(0.025),
+    )
+    return {k: torch.from_numpy(np.array(v)).to(device) for k, v in x.items()}
+
+
+def phase_k3_vs_twin(device) -> dict:
+    from smore_tpu_torch.ops.sgns_banded import (
+        sgns_banded_fused,
+        sgns_banded_fused_ref,
+    )
+
+    out = {}
+    for b in (B_FUSED, B_SCAT):
+        x = _fused_inputs(b, b, device)
+        y = {k: v.clone() for k, v in x.items()}
+        kv, kc, kd, kl = sgns_banded_fused(*(x[k] for k in _ARGS))
+        rv, rc, rd, rl = sgns_banded_fused_ref(*(y[k] for k in _ARGS))
+        torch.cuda.synchronize()
+        err = max(_compare(name, got, want) for name, got, want in (
+            ("wv", kv, rv), ("wc", kc, rc), ("d_neg", kd, rd)))
+        np.testing.assert_allclose(float(kl), float(rl), rtol=RTOL,
+                                   err_msg="kernel vs twin: loss")
+        log(f"K3 vs twin (B={b} band={FUSED_BAND} Ks={KS} D={D}): max "
+            f"|diff| {err:.3e} within rtol {RTOL} atol {ATOL}; loss sum "
+            f"{float(kl):.4f} vs {float(rl):.4f}")
+        ms, t_kern, plain_ms, t_plain = _alternate(
+            lambda: sgns_banded_fused_ref(*(y[k] for k in _ARGS)),
+            lambda: sgns_banded_fused(*(x[k] for k in _ARGS)), 10, 50)
+        log(f"K3 micro-step time (B={b}): kernel {ms:.4f} ms {t_kern}, "
+            f"twin {plain_ms:.4f} ms {t_plain}")
+        if b == B_FUSED:  # the fused route's batch
+            h = {k: y[k].cpu().numpy() for k in ("sb", "db", "src_l",
+                                                 "pos_l")}
+            rows = _rows(h["sb"] + h["src_l"]) + _rows(h["db"] + h["pos_l"])
+            nbytes = (2 * rows * D + 2 * KS * D) * 4 + (2 * b + 4) * 4
+            out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       **_bound("K3", _sgns_flops(b, KS, D), nbytes),
+                       library_ms=None)
+    return out
+
+
+def phase_k2_vs_twin(device) -> dict:
+    from smore_tpu_torch.ops.scatter import (
+        band_scatter_add,
+        band_scatter_add_ref,
+    )
+
+    rng = np.random.default_rng(3)
+    n = SCAT_BAND * SCAT_BANDS
+    table = torch.from_numpy((rng.standard_normal((n, D)) * 0.1).astype(
+        np.float32)).to(device)
+    # deltas of a gradient's size, so all-same sums stay in f32 range
+    delta = torch.from_numpy((rng.standard_normal((B_SCAT, D)) * 1e-3)
+                             .astype(np.float32)).to(device)
+    start = torch.tensor(17 * SCAT_BAND, dtype=torch.int32, device=device)
+    out = {}
+    for kind, idx in (("random", rng.integers(0, SCAT_BAND, B_SCAT)),
+                      ("all_same", np.full(B_SCAT, 7))):
+        idx_d = torch.from_numpy(idx.astype(np.int32)).to(device)
+        rows = (start.long() + idx_d.long())
+        got = band_scatter_add(table.clone(), start, idx_d, delta)
+        want = band_scatter_add_ref(table.clone(), start, idx_d, delta)
+        lib = table.clone().index_add_(0, rows, delta)
+        torch.cuda.synchronize()
+        err = max(_compare(f"K2 {kind}", got, want),
+                  _compare(f"K2 {kind} vs index_add_", got, lib))
+        a, b_, c = table.clone(), table.clone(), table.clone()
+        ms, t_kern, plain_ms, t_plain = _alternate(
+            lambda: band_scatter_add_ref(b_, start, idx_d, delta),
+            lambda: band_scatter_add(a, start, idx_d, delta), 50, 50)
+        t_lib = [_time_ms(lambda: c.index_add_(0, rows, delta), 50)
+                 for _ in range(2)]
+        log(f"K2 vs twin and index_add_ ({kind}, B={B_SCAT} band="
+            f"{SCAT_BAND} D={D}): max |diff| {err:.3e}; kernel {ms:.4f} ms "
+            f"{t_kern}, twin {plain_ms:.4f} ms {t_plain}, index_add_ "
+            f"{min(t_lib):.4f} ms {t_lib}")
+        if kind == "random":  # the route's ids are spread over the band
+            nbytes = (B_SCAT * D + B_SCAT + 1
+                      + 2 * int(np.unique(idx).size) * D) * 4
+            out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       **_bound("K2", B_SCAT * D, nbytes),
+                       library_ms=min(t_lib))
+    return out
 
 
 def _train_counted(m, counter, **kw):
     """1M samples (tables, stream, warm-up), fresh tables, then the timed
-    40M run with the kernel's launch count set to 0 just before it.
-    Returns (samples/s, launches)."""
+    40M run with every kernel's launch count set to 0 just before it.
+    Returns (samples/s, launches of ``counter``)."""
     t0 = time.perf_counter()
     m.train(sample_times=1, **TRAIN_KW, **kw)
     torch.cuda.synchronize()
@@ -245,15 +449,18 @@ def _train_counted(m, counter, **kw):
         f"{time.perf_counter() - t0:.1f} s")
     m.init(dim=D, order=m.order)  # fresh tables; the sampler is kept
     torch.cuda.synchronize()
-    counter.launches = 0
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     m.train(sample_times=SAMPLE_TIMES, **TRAIN_KW, **kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = counter.launches
+    counts = {name: c.launches for name, c in counters.items()}
+    launches = counts[counter.__name__]
     executed = m.last_driver.executed_samples
     log(f"  {executed:,} samples in {dt:.3f} s = {executed / dt:,.0f} "
-        f"samples/s; {counter.__name__} launches {launches}")
+        f"samples/s; launches {counts}")
     require(launches > 0, f"the path never launched {counter.__name__}")
     for k, t in m.state.items():
         require(tuple(t.shape) == (m.graph.n_vertices, D),
@@ -317,7 +524,41 @@ def phase_youtube(device):
     log(f"  community AUC at {SAMPLE_TIMES}M samples: unbanded {auc_u:.4f} "
         f"vs banded {auc:.4f}; samples/s unbanded {rate_u:,.0f} vs banded "
         f"{rate:,.0f}")
-    return m, launches
+    return g, m, launches
+
+
+def phase_youtube_routes(g, device) -> dict:
+    """The banded routes off the multiblock path on the Youtube-scale
+    graph: fused (K3, gated), order 1 (K2) and scatter-only o2 (K2)."""
+    sys.path.insert(0, HERE)
+    import bench
+    from smore_tpu_torch.models.line import LINE
+    from smore_tpu_torch.ops.scatter import band_scatter_add
+    from smore_tpu_torch.ops.sgns_banded import sgns_banded_fused
+
+    out = {}
+    for tag, order, kw, counter, gate in (
+        ("fused", 2, dict(multiband=False), sgns_banded_fused,
+         AUC_MIN_FUSED),
+        ("order 1", 1, {}, band_scatter_add, None),
+        ("scatter-only o2", 2, dict(multiband=False, use_pallas="scatter"),
+         band_scatter_add, None),
+    ):
+        m = LINE(g, seed=0, device=device)
+        m.init(dim=D, order=order)
+        log(f"banded {tag} route at Youtube scale (LINE o{order}, {kw}):")
+        rate, launches = _train_counted(m, counter, **kw)
+        bt = m.banded_tables
+        log(f"  route: {_route(m)} band {bt.band_size} bands {bt.n_bands} "
+            f"{'2D' if bt.two_d else '1D'}")
+        auc = bench.yt_community_auc(m.state["vertex"].cpu().numpy(),
+                                     g.names)
+        log(f"  community AUC at {SAMPLE_TIMES}M samples: {auc:.4f}"
+            + (f" (gate >= {gate})" if gate else " (no gate)"))
+        if gate:
+            require(auc >= gate, f"{tag}: community AUC {auc:.4f} < {gate}")
+        out[tag] = (m, launches)
+    return out
 
 
 def community_auc_50k(emb: np.ndarray, names, n_pairs=200_000,
@@ -416,11 +657,19 @@ def main() -> None:
     phase_build()
     k4 = phase_k4_vs_twin(device)
     k1 = phase_k1_vs_twin(device)
-    m_yt, k4_launches = phase_youtube(device)
+    k3 = phase_k3_vs_twin(device)
+    k2 = phase_k2_vs_twin(device)
+    g_yt, m_yt, k4_launches = phase_youtube(device)
+    routes = phase_youtube_routes(g_yt, device)
+    m_fused, k3_launches = routes["fused"]
+    m_o1, k2_launches = routes["order 1"]
     unbanded = phase_unbanded(device)
     m_50k, k1_launches = unbanded["group 8 (main path)"]
     if args.profile:
         phase_profile(m_yt, args.profile, "line_yt")
+        phase_profile(m_fused, args.profile, "line_yt_fused",
+                      multiband=False)
+        phase_profile(m_o1, args.profile, "line_yt_order1")
         phase_profile(m_50k, args.profile, "line_50k_unbanded",
                       use_pallas=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -440,6 +689,22 @@ def main() -> None:
             "replaces": "smore_tpu/ops/pallas_sgns.py:67",
             "launches": k1_launches,
             **k1,
+        },
+        {
+            "name": "sgns_banded_fused",
+            "route": "cuda",
+            "source": "smore_tpu_torch/csrc/sgns_banded_fused.cu",
+            "replaces": "smore_tpu/ops/pallas_sgns_banded.py:1076",
+            "launches": k3_launches,
+            **k3,
+        },
+        {
+            "name": "band_scatter_add",
+            "route": "cuda",
+            "source": "smore_tpu_torch/csrc/band_scatter_add.cu",
+            "replaces": "smore_tpu/ops/pallas_scatter.py:50",
+            "launches": k2_launches,
+            **k2,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -62,7 +62,7 @@ def clamp_batch(n_rows: int, batch: int, group: int = 1) -> int:
 
 
 def init_embedding(gen: torch.Generator, rows: int, dim: int,
-                   device: torch.device | str = "cpu") -> torch.Tensor:
+                   device: torch.device | str = "cuda") -> torch.Tensor:
     """Reference init: uniform(-0.5, 0.5) / dim."""
     u = torch.rand(rows, dim, generator=gen, dtype=torch.float32,
                    device=device)
@@ -70,7 +70,7 @@ def init_embedding(gen: torch.Generator, rows: int, dim: int,
 
 
 def zeros_embedding(rows: int, dim: int,
-                    device: torch.device | str = "cpu") -> torch.Tensor:
+                    device: torch.device | str = "cuda") -> torch.Tensor:
     return torch.zeros(rows, dim, dtype=torch.float32, device=device)
 
 
@@ -100,8 +100,10 @@ class TrainDriver:
 
     samples_per_step counts every sample a step consumes (batch *
     micro_steps on the multiblock path); it sets the alpha schedule and the
-    throughput report. One device only: ``mesh`` and ``checkpoint_path``
-    raise, as their ports are still ahead (ROADMAP Queue 1 items 12 and 5).
+    throughput report. ``device`` (default the CUDA card) holds the alpha
+    schedule and the loss. One device only: ``mesh`` and
+    ``checkpoint_path`` raise, as their ports are still ahead (ROADMAP
+    Queue 1 items 12 and 5).
     """
 
     def __init__(
@@ -113,7 +115,7 @@ class TrainDriver:
         total_samples: int,
         steps_per_call: int = 256,
         micro_steps: int = 1,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         mesh=None,
         checkpoint_path: Optional[str] = None,
     ):
@@ -177,14 +179,16 @@ class TrainDriver:
 class PairModelBase:
     """Base for sampled-pair embedding models (the LINE family).
 
-    ``device`` is where the tables and every draw live; ``seed`` seeds the
+    ``device`` is where the tables and every draw live: the CUDA card
+    unless the caller asks for another (``device="cpu"``); without a card
+    the first allocation raises, there is no fallback. ``seed`` seeds the
     model's torch.Generators (init and training draws)."""
 
     vertex_method = "out_degrees"
     negative_method = "degrees"
 
     def __init__(self, graph: Graph, seed: int = 0,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.graph = graph
         self.seed = seed
         self.device = torch.device(device)

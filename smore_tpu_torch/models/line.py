@@ -8,7 +8,8 @@ weight^0.75, negatives by degree^0.75), with the learning rate decayed
 linearly to alpha * 1e-4 over ``sample_times`` million samples.
 
 ``train`` keeps the JAX package's routing decisions as they are, with "on
-the TPU" read as "on a CUDA device". Two routes are ported:
+the TPU" read as "on a CUDA device" (the model's device, the card unless
+the caller asks for the CPU). The routes:
 
 - the unbanded path (every graph under 262,144 vertices by default, orders
   1 and 2): ``_make_step`` with shared negatives (hoisted, grouped or plain
@@ -18,10 +19,17 @@ the TPU" read as "on a CUDA device". Two routes are ported:
 - the banded multiblock path, which the JAX package takes above 262,144
   vertices on its accelerator: order 2, group 1, dim % 64 == 0, batch 2048
   per stratum visit at band 16400, 16 micro-steps per superstep,
-  pre-sampled edge streams, kernel ``ops/sgns_banded.sgns_banded_multiblock``.
+  pre-sampled edge streams, kernel ``ops/sgns_banded.sgns_banded_multiblock``;
+- the other banded routes (``_make_banded_step``: order 1 on 1D band
+  tables, order 2 on 2D ones, grouped or not, hoisted or per-step draws,
+  update ``ops.update.sgns_shared_negs_step_banded``): fused through kernel
+  ``ops/sgns_banded.sgns_banded_fused`` (order 2, group 1, ``use_pallas``
+  True, or "auto" on the card), scatter-only through kernel
+  ``ops/scatter.band_scatter_add`` (``use_pallas`` True otherwise, or
+  "auto" / "scatter" on the card when the batches tile), else plain.
 
-Every other banded route raises ``NotImplementedError`` naming its ROADMAP
-item.
+``band_hold`` and ``neg_band`` raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -40,11 +48,13 @@ from smore_tpu_torch.models.base import (
 from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
 from smore_tpu_torch.ops.update import (
     sgns_shared_negs_step,
+    sgns_shared_negs_step_banded,
     sgns_step,
     sgns_step_shared,
 )
 from smore_tpu_torch.sampling.banded import (
     DEFAULT_BAND_SIZE,
+    FUSED_BAND_SIZE,
     MULTI_BAND_SIZE,
     BandedTables,
 )
@@ -72,7 +82,7 @@ def multiblock_draw(bt: BandedTables, gen: torch.Generator, batch: int,
     if bt.stream is not None:
         return bt.draw_banded_stream(gen, batch, n_negs, steps)
     sb, db, src, pos, negs = bt.draw_banded_batches_hoisted(
-        gen, batch, n_negs, steps)
+        gen, batch, 1, n_negs, steps)
     return sb, db, src - sb[:, None], pos - db[:, None], negs
 
 
@@ -98,7 +108,7 @@ def multiblock_apply(state, band_size: int, sb, db, src_l, pos_l, negs,
 
 class LINE(PairModelBase):
     def __init__(self, graph: Graph, seed: int = 0,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__(graph, seed, device)
         self.order = 2
         self.banded_tables: BandedTables | None = None
@@ -177,6 +187,45 @@ class LINE(PairModelBase):
 
         return step
 
+    def _make_banded_step(self, batch, negatives, shared_negatives, group,
+                          hoist=1, pallas_scatter=False, fused=False):
+        """The banded StepFn off the multiblock route: one stratum per
+        micro-step, update ``sgns_shared_negs_step_banded`` (order 1 on one
+        table with 1D strata, order 2 with the source band too on 2D
+        tables). hoist > 1: the draws of ``hoist`` micro-steps run as one
+        mega-draw, and alpha arrives as a (hoist,) vector."""
+        order = self.order
+        Ks = shared_negatives
+        band_size = self.banded_tables.band_size
+        two_d = self.banded_tables.two_d
+
+        def inner(state, x, alpha):
+            sb, db, src, pos, negs = x
+            kw = dict(k_equiv=negatives, src_group=group,
+                      pallas_scatter=pallas_scatter,
+                      fused=fused and order == 2)
+            if order == 1:
+                w, _, loss = sgns_shared_negs_step_banded(
+                    state["vertex"], state["vertex"], db, band_size, src,
+                    pos, negs, alpha, shared_table=True, **kw)
+                return {"vertex": w}, loss
+            wv, wc, loss = sgns_shared_negs_step_banded(
+                state["vertex"], state["context"], db, band_size, src, pos,
+                negs, alpha, src_band_start=sb if two_d else None, **kw)
+            return {"vertex": wv, "context": wc}, loss
+
+        if hoist > 1:
+            return hoisted_scan_step(
+                lambda bt, gen: bt.draw_banded_batches_hoisted(
+                    gen, batch, group, Ks, hoist),
+                inner, hoist)
+
+        def step(state, bt, gen, alpha):
+            return inner(state, bt.draw_banded_batch(gen, batch, group, Ks),
+                         alpha)
+
+        return step
+
     def _make_banded_multiblock_step(self, batch, negatives,
                                      shared_negatives, hoist):
         """One multiblock superstep: ``hoist`` micro-steps, each on its own
@@ -215,8 +264,10 @@ class LINE(PairModelBase):
         """The JAX package's ``LINE.train`` arguments and defaults, less
         ``sharding`` (multi-device is not ported; ``mesh`` raises). On the
         unbanded path ``use_pallas=True`` selects kernel K1 ("auto" is off
-        there, as in the JAX package); on the banded path it selects the
-        fused / scatter-only kernels, routes still to be ported."""
+        there, as in the JAX package); on the banded path off the multiblock
+        route it selects the fused kernel K3 where it applies and the
+        scatter kernel K2 otherwise ("auto": K3 or K2 on the card when the
+        batches tile; "scatter": K2 only)."""
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device training (mesh=) is not ported yet "
@@ -284,15 +335,20 @@ class LINE(PairModelBase):
                       auto_batch, steps_per_call, shared_negatives, group,
                       use_pallas, hoist, auto_hoist, band_hold, band_size,
                       multiband, neg_band, edge_stream, verbose) -> None:
-        """The banded routes of ``train``; only the multiblock one is
-        ported."""
+        """The banded routes of ``train`` (the JAX package's
+        ``line.py:479-677``)."""
         n = self.graph.n_vertices
-        if self.order != 2:
-            raise _unported("banded order 1 (1D band tables, kernel K2)",
-                            "Queue 1 item 8")
+
+        # the TPU kernels' tile constraint, kept so both packages route the
+        # same shapes the same way: a multiple of 2048, or under 2048 and a
+        # multiple of 8 (pos: batch rows, src: batch / group rows)
+        def _tiles(b):
+            return b % 2048 == 0 or (b < 2048 and b % 8 == 0)
+
         on_card = self.device.type == "cuda"
         use_multi = (
-            group == 1
+            self.order == 2
+            and group == 1
             and self.dim % 64 == 0
             and (multiband is True or (multiband == "auto" and on_card))
         )
@@ -301,47 +357,67 @@ class LINE(PairModelBase):
             # concentration the quality gate was measured at
             batch = clamp_batch(n, 2048, group=group)
         if use_multi:
-            # the TPU kernel's tiling guard, kept so both packages route
-            # the same shapes the same way
+            # the TPU kernel's tiling guard
             tb = min(1024, batch)
             if batch % 128 or batch % tb or (tb // 128) not in (1, 8):
                 use_multi = False
+        fused = (
+            not use_multi
+            and self.order == 2
+            and group == 1
+            and _tiles(batch)
+            and (use_pallas is True or (use_pallas == "auto" and on_card))
+        )
+        pallas_scat = not fused and (
+            use_pallas is True
+            or (use_pallas in ("auto", "scatter") and on_card
+                and _tiles(batch) and _tiles(batch // group))
+        )
+        auto_band = band_size == 0
         band_size = band_size or (MULTI_BAND_SIZE if use_multi
+                                  else FUSED_BAND_SIZE if fused
                                   else DEFAULT_BAND_SIZE)
         if use_multi and band_size % 16:
             use_multi = False
-        if not use_multi:
-            if use_pallas is True or (use_pallas in ("auto", "scatter")
-                                      and on_card):
-                raise _unported(
-                    "the fused or scatter-only banded step (kernels K3, K2)",
-                    "Queue 1 item 8, Queue 2")
-            if band_hold is True:
-                raise _unported("band_hold", "Queue 1 item 14")
-            raise _unported("the banded step without multiband",
-                            "Queue 1 item 8")
-        if neg_band is True and shared_negatives % 8 == 0:
+        if (fused and auto_batch and auto_band
+                and band_size < DEFAULT_BAND_SIZE):
+            # the 40M-gate AUC tracks the per-stratum visit size, and 4096
+            # is the largest fused batch that held the gate in the JAX
+            # package; re-clamped so a small graph is not overshot
+            batch = clamp_batch(n, 4096, group=group)
+        if use_multi and neg_band is True and shared_negatives % 8 == 0:
             raise _unported("neg_band (kernel K5)", "Queue 1 item 14")
+        if (not use_multi and band_hold is True and self.order == 2
+                and hoist > 1):
+            raise _unported("band_hold", "Queue 1 item 14")
 
+        two_d = self.order == 2
         bt = self.banded_tables
-        if bt is None or bt.band_size != band_size or not bt.two_d:
+        if bt is None or bt.band_size != band_size or bt.two_d != two_d:
             bt = BandedTables.build(
-                self.graph, band_size=band_size, two_d=True,
+                self.graph, band_size=band_size, two_d=two_d,
                 vertex_method=self.vertex_method, device=self.device,
             )
             self.banded_tables = bt
-        if auto_hoist or hoist < 2:
-            hoist = 16  # micro-steps per superstep
-        want_stream = (
-            edge_stream is True
-            or (isinstance(edge_stream, int) and edge_stream > 1)
-            or (edge_stream == "auto" and bt.band_size < (1 << 15))
-        )
-        if want_stream and bt.stream is None:
-            # mult=32 keeps entry reuse ~1x over a 400M-sample run
-            mult = (edge_stream if isinstance(edge_stream, int)
-                    and edge_stream > 1 else 32)
-            bt.build_stream(mult=mult, seed=self.seed)
+        if use_multi:
+            if auto_hoist or hoist < 2:
+                hoist = 16  # micro-steps per superstep
+            want_stream = (
+                edge_stream is True
+                or (isinstance(edge_stream, int) and edge_stream > 1)
+                or (edge_stream == "auto" and bt.band_size < (1 << 15))
+            )
+            if want_stream and bt.stream is None:
+                # mult=32 keeps entry reuse ~1x over a 400M-sample run
+                mult = (edge_stream if isinstance(edge_stream, int)
+                        and edge_stream > 1 else 32)
+                bt.build_stream(mult=mult, seed=self.seed)
+            step_fn = self._make_banded_multiblock_step(
+                batch, negative_samples, shared_negatives, hoist)
+        else:
+            step_fn = self._make_banded_step(
+                batch, negative_samples, shared_negatives, group, hoist,
+                pallas_scatter=pallas_scat, fused=fused)
 
         n_pad = bt.n_rows_padded
         state = {}
@@ -351,8 +427,7 @@ class LINE(PairModelBase):
             padded[:n] = v
             state[k] = padded
         self.last_driver = driver = TrainDriver(
-            self._make_banded_multiblock_step(
-                batch, negative_samples, shared_negatives, hoist),
+            step_fn,
             ctx=bt,
             samples_per_step=batch * hoist,
             alpha=alpha,

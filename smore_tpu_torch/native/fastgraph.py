@@ -1,12 +1,12 @@
 """ctypes bindings to the native host layer (edge-list parsing, alias
 builds, embedding text dump).
 
-Port of ``smore_tpu/native/fastgraph.py``. The C++ source is the JAX
-package's framework-free ``smore_tpu/native/fastgraph.cpp``, read by path
-(never imported, never copied) and compiled with ``g++`` at first use into
-this package's build directory (``ops/_build.build_dir()``), so the
-source tree of ``smore_tpu`` is never written. Same compiler flags as the
-JAX package, so the alias tables and the text dump are bit-equal to its.
+Port of ``smore_tpu/native/fastgraph.py``. The C++ source is this
+package's own copy of the JAX package's framework-free loader,
+``smore_tpu_torch/csrc/fastgraph.cpp`` (code unchanged), compiled with
+``g++`` at first use into this package's build directory
+(``ops/_build.build_dir()``). Same compiler flags as the JAX package, so
+the alias tables and the text dump are bit-equal to its.
 
 ``available()`` is False when the source or ``g++`` is missing; callers
 then take their pure-Python paths, as in the JAX package.
@@ -26,8 +26,8 @@ import numpy as np
 from smore_tpu_torch.ops._build import build_dir
 
 _SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "smore_tpu", "native", "fastgraph.cpp",
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "csrc", "fastgraph.cpp",
 )
 _lib = None
 _tried = False

@@ -7,9 +7,10 @@ takes seconds, not minutes)::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o <build_dir>/lib<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited kernel is
-rebuilt and a stale one never loaded. ``ptxas``'s report (registers, shared
-memory, spills) is kept beside it as ``.log``. Nothing is built at import
+The library name carries a hash of the source and of every shared header
+(``csrc/*.cuh``), so an edited kernel or header is rebuilt and a stale
+library never loaded. ``ptxas``'s report (registers, shared memory,
+spills) is kept beside it as ``.log``. Nothing is built at import
 time; a missing ``nvcc`` or a failed build raises with the compiler's
 message.
 """
@@ -17,6 +18,7 @@ message.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -62,6 +64,15 @@ def _nvcc() -> str:
     )
 
 
+def _digest(src: str) -> str:
+    """Hash of a source and every header it may include."""
+    h = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:12]
+
+
 def load_kernel_lib(name: str) -> ctypes.CDLL:
     """Build (once per source revision) and load ``csrc/<name>.cu``. Calls
     for different kernels from different threads build in parallel."""
@@ -71,8 +82,7 @@ def load_kernel_lib(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = os.path.join(CSRC, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:12]
+        digest = _digest(src)
         so = os.path.join(build_dir(), f"lib{name}-{digest}.so")
         t0 = time.perf_counter()
         if not os.path.exists(so):

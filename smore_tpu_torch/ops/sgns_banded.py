@@ -1,4 +1,5 @@
-"""Banded multiblock SGNS superstep: the LINE main path's kernel.
+"""Banded SGNS kernels: the multiblock superstep (K4, LINE's main path) and
+the fused micro-step (K3, the fused banded route).
 
 Port of ``smore_tpu/ops/pallas_sgns_banded.py::sgns_banded_multiblock``.
 S micro-steps run in order; micro-step s updates source band ``sb[s]`` of
@@ -13,10 +14,18 @@ The tables are plain (Np, D) f32 tensors and are UPDATED IN PLACE (the JAX
 package donated them to the call). The TPU's 2-row fold, 128-lane layout
 and VMEM slab DMA have no counterpart here.
 
-``sgns_banded_multiblock`` runs the plain PyTorch twin
-``sgns_banded_multiblock_ref`` for CPU tensors and launches the CUDA kernel
-(``csrc/sgns_banded_multiblock.cu``) for CUDA tensors, or raises; it never
-falls back. ``sgns_banded_multiblock.launches`` counts kernel launches.
+Port of ``sgns_banded_fused`` from the same file: ONE micro-step on the
+band starting at row ``sb`` of the vertex table and the band starting at row
+``db`` of the context table, in tiles of TB = min(2048, B) rows run in the
+same order, returning ``d_neg`` and the loss SUM over all B rows. Band
+starts stay on the device (the TPU sliced the bands at traced starts; here
+kernel and twin add them to the local ids), so no step reads them back.
+
+Each wrapper runs its plain PyTorch twin (``*_ref``) for CPU tensors and
+launches its CUDA kernel (``csrc/sgns_banded_multiblock.cu``,
+``csrc/sgns_banded_fused.cu``, both on the tile of
+``csrc/sgns_banded_tile.cuh``) for CUDA tensors, or raises; it never falls
+back. ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -25,33 +34,75 @@ import ctypes
 
 import torch
 
-_KERNEL = "sgns_banded_multiblock"
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
-_lib = None
+_libs: dict = {}
+_EPS = 1e-7
 
 
 def _tile(B: int) -> int:
     return min(1024, B)
 
 
-def _load():
-    global _lib
-    if _lib is None:
+def _fused_tile(B: int) -> int:
+    return min(2048, B)
+
+
+def _load_lib(name: str, prefix: str, launch_args):
+    """Build and bind ``csrc/<name>.cu``; its helpers are ``<prefix>_*``."""
+    if name not in _libs:
         from smore_tpu_torch.ops._build import load_kernel_lib
 
-        lib = load_kernel_lib(_KERNEL)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sgns_banded_multiblock_launch.restype = i
-        lib.sgns_banded_multiblock_launch.argtypes = (
-            [i] + [p] * 8 + [i] * 6 + [ctypes.c_float] + [p] * 7)
-        for fn in (lib.sgns_mb_grads_smem_bytes,
-                   lib.sgns_mb_scatter_smem_bytes):
+        lib = load_kernel_lib(name)
+        i = ctypes.c_int
+        launch = getattr(lib, f"{name}_launch")
+        launch.restype = i
+        launch.argtypes = launch_args
+        for fn in ("grads", "scatter"):
+            fn = getattr(lib, f"{prefix}_{fn}_smem_bytes")
             fn.restype = ctypes.c_size_t
             fn.argtypes = [i, i]
-        lib.sgns_mb_error_string.restype = ctypes.c_char_p
-        lib.sgns_mb_error_string.argtypes = [i]
-        _lib = lib
-    return _lib
+        err = getattr(lib, f"{prefix}_error_string")
+        err.restype = ctypes.c_char_p
+        err.argtypes = [i]
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _load():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _load_lib("sgns_banded_multiblock", "sgns_mb",
+                     [i] + [p] * 8 + [i] * 6 + [ctypes.c_float] + [p] * 7)
+
+
+def _load_fused():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _load_lib("sgns_banded_fused", "sgns_bf",
+                     [i] + [p] * 8 + [i] * 4 + [ctypes.c_float] + [p] * 7)
+
+
+def _smem(lib, prefix: str, Ks: int, D: int) -> None:
+    smem = max(getattr(lib, f"{prefix}_grads_smem_bytes")(Ks, D),
+               getattr(lib, f"{prefix}_scatter_smem_bytes")(Ks, D))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Ks={Ks}, D={D} need {smem} B of shared memory "
+                         f"per block (at most {_MAX_SMEM})")
+
+
+def _tile_ref(wv, wc, rv, rc, cn, a, kscale):
+    """One tile of the plain twins: gather rows ``rv`` of wv and ``rc`` of
+    wc from the current tables, scatter their deltas in place. Returns the
+    tile's (g_neg^T v (Ks, D), loss sum ())."""
+    v, cp = wv[rv], wc[rc]
+    s_pos = torch.sigmoid((v * cp).sum(1, keepdim=True))
+    g_pos = (1.0 - s_pos) * a
+    s_neg = torch.sigmoid(v @ cn.T)
+    g_neg = s_neg * (-(a * kscale))
+    loss = (-torch.log(s_pos + _EPS)).sum() - kscale * torch.log(
+        1.0 - s_neg + _EPS).sum()
+    d_neg = g_neg.T @ v
+    wv.index_add_(0, rv, g_pos * cp + g_neg @ cn)
+    wc.index_add_(0, rc, g_pos * v)
+    return d_neg, loss
 
 
 def _check(wv, wc, sb, db, src_l, pos_l, cn, alpha):
@@ -89,27 +140,16 @@ def sgns_banded_multiblock_ref(wv, wc, sb, db, src_l, pos_l, cn, alpha,
     S, B = src_l.shape
     Ks = cn.shape[1]
     TB = _tile(B)
-    kscale = k_equiv / Ks
     alpha = alpha.to(torch.float32)
     d_neg = torch.zeros_like(cn)
     loss = torch.zeros((), dtype=torch.float32, device=wv.device)
-    eps = 1e-7
     for s in range(S):
-        a = alpha[s]
-        scale = a * kscale
         for t0 in range(0, B, TB):
             rv = (sb[s] * band_size + src_l[s, t0:t0 + TB]).long()
             rc = (db[s] * band_size + pos_l[s, t0:t0 + TB]).long()
-            v, cp = wv[rv], wc[rc]
-            s_pos = torch.sigmoid((v * cp).sum(1, keepdim=True))
-            g_pos = (1.0 - s_pos) * a
-            s_neg = torch.sigmoid(v @ cn[s].T)
-            g_neg = s_neg * (-scale)
-            loss += (-torch.log(s_pos + eps)).sum() - kscale * torch.log(
-                1.0 - s_neg + eps).sum()
-            d_neg[s] += g_neg.T @ v
-            wv.index_add_(0, rv, g_pos * cp + g_neg @ cn[s])
-            wc.index_add_(0, rc, g_pos * v)
+            dn, ls = _tile_ref(wv, wc, rv, rc, cn[s], alpha[s], k_equiv / Ks)
+            d_neg[s] += dn
+            loss += ls
     return wv, wc, d_neg, loss
 
 
@@ -134,11 +174,7 @@ def sgns_banded_multiblock(wv, wc, sb, db, src_l, pos_l, cn, alpha,
     S, B = src_l.shape
     Ks, D = cn.shape[1], cn.shape[2]
     TB = _tile(B)
-    smem = max(lib.sgns_mb_grads_smem_bytes(Ks, D),
-               lib.sgns_mb_scatter_smem_bytes(Ks, D))
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Ks={Ks}, D={D} need {smem} B of shared memory "
-                         f"per block (at most {_MAX_SMEM})")
+    _smem(lib, "sgns_mb", Ks, D)
     # Tensors made here are freed when this returns, while the launches may
     # still run: the caching allocator hands their memory only to later work
     # on the same stream, which runs after them.
@@ -171,3 +207,108 @@ def sgns_banded_multiblock(wv, wc, sb, db, src_l, pos_l, cn, alpha,
 
 
 sgns_banded_multiblock.launches = 0
+
+
+def _check_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha):
+    if src_l.dim() != 1 or pos_l.shape != src_l.shape:
+        raise ValueError(f"src_l/pos_l must be (B,), got "
+                         f"{tuple(src_l.shape)} / {tuple(pos_l.shape)}")
+    B = src_l.shape[0]
+    if cn.dim() != 2 or cn.dtype != torch.float32:
+        raise ValueError(f"cn must be (Ks, D) float32, got "
+                         f"{tuple(cn.shape)} {cn.dtype}")
+    D = cn.shape[1]
+    for name, t in (("wv", wv), ("wc", wc)):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != D:
+            raise ValueError(f"{name} must be (rows, {D}) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (updated in place)")
+    for name, t in (("sb", sb), ("db", db), ("alpha", alpha)):
+        if t.numel() != 1:
+            raise ValueError(f"{name} must hold one value, got "
+                             f"{tuple(t.shape)}")
+    # the TPU kernel's asserts (pallas_sgns_banded.py:1093-1094)
+    if B < 1 or B % _fused_tile(B) or _fused_tile(B) % 8:
+        raise ValueError(f"batch {B} must tile by min(2048, B), a multiple "
+                         "of 8")
+    devs = {t.device for t in (wv, wc, sb, db, src_l, pos_l, cn, alpha)}
+    if len(devs) != 1:
+        raise ValueError(f"all tensors must share one device, got {devs}")
+
+
+def sgns_banded_fused_ref(wv, wc, sb, db, src_l, pos_l, cn, alpha,
+                          k_equiv: int = 5):
+    """Plain PyTorch twin of K3: the same loop over 2048-row tiles, each
+    gathering from the current tables. Updates wv, wc in place; returns
+    (wv, wc, d_neg (Ks, D), loss_sum ())."""
+    B = src_l.shape[0]
+    TB = _fused_tile(B)
+    a = alpha.to(torch.float32).reshape(())
+    kscale = k_equiv / cn.shape[0]
+    sb, db = sb.reshape(()), db.reshape(())
+    d_neg = torch.zeros_like(cn)
+    loss = torch.zeros((), dtype=torch.float32, device=wv.device)
+    for t0 in range(0, B, TB):
+        rv = (sb + src_l[t0:t0 + TB]).long()
+        rc = (db + pos_l[t0:t0 + TB]).long()
+        dn, ls = _tile_ref(wv, wc, rv, rc, cn, a, kscale)
+        d_neg += dn
+        loss += ls
+    return wv, wc, d_neg, loss
+
+
+def sgns_banded_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha,
+                      k_equiv: int = 5):
+    """One fused banded micro-step (K3, see the module docstring).
+
+    wv, wc: (Np, D) f32 contiguous tables, updated in place.
+    sb, db: one-element int tensors, the source / context band START rows.
+    src_l, pos_l: (B,) BAND-LOCAL rows; B tiles by min(2048, B).
+    cn: (Ks, D) f32 negative snapshot; alpha: one-element f32 tensor.
+    Returns (wv, wc, d_neg (Ks, D), loss_sum ()). Indices are not
+    bounds-checked on the card (that would synchronise), as on the TPU.
+    """
+    _check_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha)
+    if wv.device.type == "cpu":
+        return sgns_banded_fused_ref(wv, wc, sb, db, src_l, pos_l, cn, alpha,
+                                     k_equiv)
+    if wv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {wv.device}")
+    lib = _load_fused()
+    B = src_l.shape[0]
+    Ks, D = cn.shape
+    TB = _fused_tile(B)
+    _smem(lib, "sgns_bf", Ks, D)
+    # Tensors made here are freed when this returns, while the launches may
+    # still run: the caching allocator hands their memory only to later work
+    # on the same stream, which runs after them.
+    i32 = [t.to(torch.int32).reshape(-1).contiguous()
+           for t in (sb, db, src_l, pos_l)]
+    cn = cn.contiguous()
+    alpha = alpha.to(torch.float32).reshape(1).contiguous()
+    dev = wv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    vbuf = torch.empty(TB, D, **f32)
+    dsrc = torch.empty(TB, D, **f32)
+    dpos = torch.empty(TB, D, **f32)
+    gneg = torch.empty(TB, Ks, **f32)
+    d_neg = torch.zeros(Ks, D, **f32)
+    loss_rows = torch.empty(B, **f32)
+    rc = lib.sgns_banded_fused_launch(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        wv.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in i32),
+        cn.data_ptr(), alpha.data_ptr(), B, TB, Ks, D, k_equiv / Ks,
+        vbuf.data_ptr(), gneg.data_ptr(), dsrc.data_ptr(), dpos.data_ptr(),
+        d_neg.data_ptr(), loss_rows.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"sgns_banded_fused launch failed: CUDA error {rc} "
+            f"({lib.sgns_bf_error_string(rc).decode()})")
+    sgns_banded_fused.launches += 1
+    return wv, wc, d_neg, loss_rows.sum()
+
+
+sgns_banded_fused.launches = 0

@@ -2,7 +2,9 @@
 
 Port of the SGNS part of ``smore_tpu/ops/update.py`` (``scatter_apply``,
 ``apply_two_tables``, ``sgns_grads``, ``sgns_step``, ``sgns_step_shared``,
-``sgns_shared_negs_step``). A batched step applies every sample against
+``sgns_shared_negs_step``, and the banded large-table forms
+``sgns_shared_negs_step_banded`` / ``_sgns_banded_step_fused``). A batched
+step applies every sample against
 the batch-start snapshot of the tables; duplicate rows in a batch sum
 their contributions (collision "sum"), or are divided by their occurrence
 count (collision "mean").
@@ -21,7 +23,9 @@ from typing import Optional
 
 import torch
 
+from smore_tpu_torch.ops.scatter import band_scatter_add
 from smore_tpu_torch.ops.sgns import sgns_shared_grads
+from smore_tpu_torch.ops.sgns_banded import sgns_banded_fused
 
 _EPS = 1e-7
 _LOSS_ROWS = 1024  # rows of the shared-negative monitoring loss
@@ -137,47 +141,14 @@ def sgns_step_shared(w, src, pos, negs, alpha,
     return w, loss
 
 
-def sgns_shared_negs_step(
-    w_vertex: torch.Tensor,
-    w_context: torch.Tensor,
-    src: torch.Tensor,  # (B,)
-    pos: torch.Tensor,  # (B,)
-    negs: torch.Tensor,  # (Ks,) the step's shared negative pool
-    alpha,
-    k_equiv: int = 5,  # the per-sample negative count emulated
-    mask: Optional[torch.Tensor] = None,
-    shared_table: bool = False,  # True: LINE order 1 (one table)
-    update_vertex: bool = True,
-    reg: float = 0.0,  # L2 shrink (reference Opt_SigmoidRegSGD)
-    collision: str = "sum",
-    src_group: int = 1,  # src is a repeat layout of groups of this size
-    use_pallas: bool = False,  # fused gradient kernel K1
-):
-    """SGNS with one pool of Ks negatives shared by the whole batch, their
-    gradients scaled by k_equiv / Ks so the expected per-sample update
-    matches the reference's. Returns (w_vertex, w_context, loss); loss is
-    the mean cross-entropy over the first min(1024, B) rows.
-
-    src_group > 1: ``src`` is ``repeat_interleave(src_small, G)``; the
-    source rows are gathered once per group and the source delta is summed
-    per group before its scatter.
-
-    use_pallas: the gradients go through ``ops.sgns.sgns_shared_grads``
-    (the port of K1: the CUDA kernel for CUDA tensors, its plain twin for
-    CPU tensors) when mask is None, reg is 0 and B % min(1024, B) == 0, as
-    in the JAX package."""
-    Ks = negs.shape[0]
-    B = src.shape[0]
-    if src_group > 1:
-        if B % src_group:
-            raise ValueError(f"batch {B} not divisible by src_group "
-                             f"{src_group}")
-        src_small = src[::src_group]
-        v = w_vertex[src_small].repeat_interleave(src_group, dim=0)
-    else:
-        v = w_vertex[src]
-    cp = w_context[pos]
-    cn = w_context[negs]
+def _shared_negs_deltas(v, cp, cn, alpha, k_equiv: int,
+                        mask: Optional[torch.Tensor] = None,
+                        reg: float = 0.0, use_pallas: bool = False):
+    """The shared-negative SGNS deltas of gathered rows v, cp (B, D) against
+    the pool cn (Ks, D): (d_src, d_pos, d_neg (Ks, D), loss), loss the mean
+    cross-entropy over the first min(1024, B) rows. use_pallas: through
+    kernel K1 when mask is None, reg is 0 and B % min(1024, B) == 0."""
+    B, Ks = v.shape[0], cn.shape[0]
     kscale = k_equiv / Ks
     m = min(_LOSS_ROWS, B)
 
@@ -210,6 +181,50 @@ def sgns_shared_negs_step(
         loss = ce.mean()
     else:
         loss = (ce * mask[:m]).sum() / torch.clamp(mask[:m].sum(), min=1.0)
+    return d_src, d_pos, d_neg, loss
+
+
+def sgns_shared_negs_step(
+    w_vertex: torch.Tensor,
+    w_context: torch.Tensor,
+    src: torch.Tensor,  # (B,)
+    pos: torch.Tensor,  # (B,)
+    negs: torch.Tensor,  # (Ks,) the step's shared negative pool
+    alpha,
+    k_equiv: int = 5,  # the per-sample negative count emulated
+    mask: Optional[torch.Tensor] = None,
+    shared_table: bool = False,  # True: LINE order 1 (one table)
+    update_vertex: bool = True,
+    reg: float = 0.0,  # L2 shrink (reference Opt_SigmoidRegSGD)
+    collision: str = "sum",
+    src_group: int = 1,  # src is a repeat layout of groups of this size
+    use_pallas: bool = False,  # fused gradient kernel K1
+):
+    """SGNS with one pool of Ks negatives shared by the whole batch, their
+    gradients scaled by k_equiv / Ks so the expected per-sample update
+    matches the reference's. Returns (w_vertex, w_context, loss); loss is
+    the mean cross-entropy over the first min(1024, B) rows.
+
+    src_group > 1: ``src`` is ``repeat_interleave(src_small, G)``; the
+    source rows are gathered once per group and the source delta is summed
+    per group before its scatter.
+
+    use_pallas: the gradients go through ``ops.sgns.sgns_shared_grads``
+    (the port of K1: the CUDA kernel for CUDA tensors, its plain twin for
+    CPU tensors) when mask is None, reg is 0 and B % min(1024, B) == 0, as
+    in the JAX package."""
+    B = src.shape[0]
+    if src_group > 1:
+        if B % src_group:
+            raise ValueError(f"batch {B} not divisible by src_group "
+                             f"{src_group}")
+        src_small = src[::src_group]
+        v = w_vertex[src_small].repeat_interleave(src_group, dim=0)
+    else:
+        v = w_vertex[src]
+    d_src, d_pos, d_neg, loss = _shared_negs_deltas(
+        v, w_context[pos], w_context[negs], alpha, k_equiv, mask, reg,
+        use_pallas)
 
     if src_group > 1:
         d_src = d_src.reshape(B // src_group, src_group, -1).sum(1)
@@ -225,3 +240,92 @@ def sgns_shared_negs_step(
     if update_vertex:
         scatter_apply(w_vertex, [src_entry], collision)
     return w_vertex, w_context, loss
+
+
+# --------------------------------------------------------------------- #
+# BANDED shared-negatives SGNS: the large-table routes. The draws put every
+# positive context of a batch in ONE band of rows (and, with 2D strata,
+# every source in one band of the vertex table); the TPU sliced those bands
+# out at traced starts to scatter at small-table cost and band-split the
+# negatives and order-1 sources. Here every table is indexed at global rows
+# (the sums are the same), the band start stays a device tensor, and only
+# the kernels K2 (``pallas_scatter``) and K3 (``fused``) take band-local ids.
+# --------------------------------------------------------------------- #
+def sgns_shared_negs_step_banded(
+    w_vertex: torch.Tensor,  # (Np, D); IS w_context when shared_table
+    w_context: torch.Tensor,  # (Np, D), Np padded to a band multiple
+    band_start: torch.Tensor,  # () int, first row of the contexts' band
+    band_size: int,  # kept for the JAX call shape; rows are global here
+    src: torch.Tensor,  # (B,) repeat layout when src_group > 1
+    pos: torch.Tensor,  # (B,) GLOBAL vids, all inside the band
+    negs: torch.Tensor,  # (Ks,) global shared negative pool
+    alpha,
+    k_equiv: int = 5,
+    shared_table: bool = False,  # LINE order 1 (1D band tables)
+    src_group: int = 1,
+    src_band_start: Optional[torch.Tensor] = None,  # 2D strata: every src
+    # lies in [src_band_start, +band_size)
+    pallas_scatter: bool = False,  # the two big in-band scatter-adds (B
+    # pos rows, B/G src rows on 2D tables) through kernel K2
+    fused: bool = False,  # 2D ungrouped only: gather, math and scatter in
+    # kernel K3, tile by tile
+):
+    """Semantics = ``sgns_shared_negs_step(collision="sum")`` on the same
+    (src, pos, negs); only the scatter routing differs. Updates the tables
+    in place; returns (w_vertex, w_context, loss), loss the mean over the
+    first min(1024, B) rows (the fused route: over all rows, as in the JAX
+    package)."""
+    if fused:
+        if src_band_start is None or shared_table:
+            raise ValueError("the fused kernel covers the 2D two-table "
+                             "banded path")
+        if src_group != 1:
+            raise ValueError("the fused kernel is for the ungrouped path")
+        return _sgns_banded_step_fused(
+            w_vertex, w_context, band_start, src, pos, negs, alpha, k_equiv,
+            src_band_start)
+    if shared_table and src_band_start is not None:
+        raise ValueError("2D banding is for two-table mode; order 1 uses 1D "
+                         "tables")
+    B, G = src.shape[0], src_group
+    if B % G:
+        raise ValueError(f"batch {B} not divisible by src_group {G}")
+    # every gather before the first scatter: order 1 updates one tensor
+    src_x = src[::G] if G > 1 else src
+    v = w_vertex[src_x]
+    if G > 1:
+        v = v.repeat_interleave(G, dim=0)
+    d_src, d_pos, d_neg, loss = _shared_negs_deltas(
+        v, w_context[pos], w_context[negs], alpha, k_equiv)
+    if G > 1:
+        d_src = d_src.reshape(B // G, G, -1).sum(1)
+
+    if pallas_scatter:
+        band_scatter_add(w_context, band_start, pos - band_start, d_pos)
+    else:
+        w_context.index_add_(0, pos, d_pos)
+    w_context.index_add_(0, negs, d_neg)
+    if shared_table:
+        w_context.index_add_(0, src_x, d_src)
+        return w_context, w_context, loss
+    if src_band_start is not None and pallas_scatter:
+        band_scatter_add(w_vertex, src_band_start, src_x - src_band_start,
+                         d_src)
+    else:
+        w_vertex.index_add_(0, src_x, d_src)
+    return w_vertex, w_context, loss
+
+
+def _sgns_banded_step_fused(w_vertex, w_context, band_start, src, pos, negs,
+                            alpha, k_equiv, src_band_start):
+    """The fused route's step: snapshot the negatives' context rows, run
+    kernel K3 on both bands, then add the negatives' deltas. Returns
+    (w_vertex, w_context, loss_sum / B)."""
+    cn = w_context[negs]
+    alpha = torch.as_tensor(alpha, dtype=torch.float32,
+                            device=w_context.device)
+    _, _, d_neg, loss_sum = sgns_banded_fused(
+        w_vertex, w_context, src_band_start, band_start,
+        src - src_band_start, pos - band_start, cn, alpha, k_equiv=k_equiv)
+    w_context.index_add_(0, negs, d_neg)
+    return w_vertex, w_context, loss_sum / src.shape[0]

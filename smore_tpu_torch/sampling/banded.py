@@ -10,9 +10,10 @@ law is exact; only which samples share a step changes.
 
 ``BandedTables.build`` and ``build_stream`` are host numpy, bit-equal to
 the JAX package's; their arrays then live on ``device`` as tensors. The
-draws (``draw_banded_stream``, ``draw_banded_batches_hoisted``) run on the
-device from a ``torch.Generator``: its numbers differ from JAX's threefry,
-so they are held to the law, not to the bits.
+draws (``draw_banded_stream``, ``draw_banded_batches_hoisted``,
+``draw_banded_batch``) run on the device from a ``torch.Generator``: its
+numbers differ from JAX's threefry, so they are held to the law, not to
+the bits.
 """
 
 from __future__ import annotations
@@ -33,10 +34,13 @@ from smore_tpu_torch.sampling.tables import (
 # 4 adst | 5..7 zero pad, as in the JAX package
 _EDGE_COLS = 8
 
-# The JAX package's band sizes (small powers of two times odd factors).
-# MULTI_BAND_SIZE, the multiblock path's band, is the one the quality gate
-# was measured at (batch 2048 per stratum visit at band 16400).
+# The JAX package's band sizes (small powers of two times odd factors),
+# kept so both packages cut the same strata. MULTI_BAND_SIZE, the
+# multiblock path's band, is the one the quality gate was measured at
+# (batch 2048 per stratum visit at band 16400); FUSED_BAND_SIZE is the
+# fused route's (batch 4096 per visit).
 DEFAULT_BAND_SIZE = 32776
+FUSED_BAND_SIZE = 16392
 MULTI_BAND_SIZE = 16400
 
 
@@ -80,7 +84,7 @@ class BandedTables:
         vertex_method: str = "out_degrees",
         power: float = 0.75,
         two_d: bool = True,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "BandedTables":
         n, e = g.n_vertices, g.n_edges
         if e == 0 or e >= (1 << 24) or n >= (1 << 24):
@@ -271,22 +275,54 @@ class BandedTables:
         return sb, db, src_l, pos_l, self._draw_negatives(gen, steps, n_negs)
 
     def draw_banded_batches_hoisted(self, gen: torch.Generator, batch: int,
-                                    n_negs: int, steps: int):
+                                    group: int, n_negs: int, steps: int):
         """``steps`` stratified draws in one shot, without a stream: per
-        sample one within-stratum alias draw over the edge slots. Returns
-        (sb, db, src, pos, negs) as ``draw_banded_stream`` but with src and
-        pos GLOBAL vids. Ungrouped: the JAX package's grouped draws serve
-        the order-1 and fused banded routes, which are not ported yet."""
+        micro-step one stratum, then per source one within-stratum alias
+        draw over the edge slots. Returns (sb, db, src, pos, negs) shaped
+        (steps,), (steps,), (steps, batch), (steps, batch), (steps,
+        n_negs), all i32, with src and pos GLOBAL vids; sb is 0 on 1D
+        tables (sources unconstrained).
+
+        group > 1: the slot draw runs on ``batch // group`` sources, src is
+        their repeat layout (``group`` consecutive samples per source), the
+        first context of each group is the slot's own and the other
+        ``group - 1`` are drawn from the source's (src, stratum) segment by
+        its within-segment context law."""
+        bg = batch // group
         s, sb, db = self._draw_strata(gen, steps)
         meta = self.band_meta[s]
         off, cnt = meta[:, 0], meta[:, 1]
-        u = torch.rand(steps, batch, 2, generator=gen, device=self.device)
-        r = (u[..., 0] * cnt[:, None].to(torch.float32)).to(torch.int32)
+        u = torch.rand(steps, batch, 2 if group == 1 else 4, generator=gen,
+                       device=self.device)
+        r = (u[:, :bg, 0] * cnt[:, None].to(torch.float32)).to(torch.int32)
         slot = off[:, None] + torch.minimum(
             r, torch.clamp(cnt[:, None] - 1, min=0))
         row = self.edge_pa[slot]
-        take = (u[..., 1] < row[..., 0])[..., None]
+        take = (u[:, :bg, 1] < row[..., 0])[..., None]
         picked = torch.where(take, row[..., 1:3], row[..., 3:5]).to(
             torch.int32)
-        return (sb, db, picked[..., 0], picked[..., 1],
-                self._draw_negatives(gen, steps, n_negs))
+        src, pos0 = picked[..., 0], picked[..., 1]
+        if group > 1:
+            seg = self.edge_seg[slot]
+            segp = torch.where(take, seg[..., 0:2], seg[..., 2:4]).to(
+                torch.int32).repeat_interleave(group, dim=1)
+            so, sd = segp[..., 0], segp[..., 1]
+            src = src.repeat_interleave(group, dim=1)
+            rr = (u[..., 2] * sd.to(torch.float32)).to(torch.int32)
+            crow = self.ctx_pa[so + torch.minimum(
+                rr, torch.clamp(sd - 1, min=0))]
+            pos = torch.where(u[..., 3] < crow[..., 0], crow[..., 1],
+                              crow[..., 2]).to(torch.int32)
+            pos[:, ::group] = pos0
+        else:
+            pos = pos0
+        return sb, db, src, pos, self._draw_negatives(gen, steps, n_negs)
+
+    def draw_banded_batch(self, gen: torch.Generator, batch: int, group: int,
+                          n_negs: int):
+        """One stratified step draw (the per-step route, hoist 1): returns
+        (src_band_start (), dst_band_start (), src (batch,), pos (batch,),
+        negs (n_negs,)), one micro-step of ``draw_banded_batches_hoisted``
+        and the same law."""
+        return tuple(x[0] for x in self.draw_banded_batches_hoisted(
+            gen, batch, group, n_negs, 1))

@@ -59,7 +59,7 @@ def build_negative_table(
     g: Graph,
     negative_method: str = "degrees",
     power: float = 0.75,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> torch.Tensor:
     """The (N, 2) f32 [prob, alias] negative alias table (deg^0.75 law)."""
     return torch.from_numpy(_negative_pa(g, negative_method, power)).to(
@@ -120,7 +120,7 @@ class SamplerTables:
         vertex_method: str = "out_degrees",
         negative_method: str = "degrees",
         power: float = 0.75,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> "SamplerTables":
         n = g.n_vertices
         vp, va = build_alias(_vertex_distribution(g, vertex_method),

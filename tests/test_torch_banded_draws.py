@@ -5,7 +5,11 @@ torch's generator and JAX's threefry give different numbers, so the draws
 are held to the law, as tests/test_banded.py and tests/test_hoisted_draws.py
 hold the JAX package's: stratum frequencies against the stratum mass,
 band-local rows in range, every drawn pair a real edge of its stratum, the
-conditional pair law inside a stratum, and the negatives against deg^0.75."""
+conditional pair law inside a stratum, and the negatives against deg^0.75.
+The grouped and per-step draws of the other banded routes, on 2D and 1D
+tables: the repeat layout of src, sb == 0 on 1D tables, the stratum mass,
+the joint law of each group's first pair and the within-(src, stratum)
+context law of its other pairs."""
 
 import numpy as np
 import pytest
@@ -16,7 +20,13 @@ from smore_tpu_torch.models.line import multiblock_draw
 from smore_tpu_torch.sampling.banded import BandedTables
 from smore_tpu_torch.sampling.tables import _vertex_distribution
 
+# one intra-op thread: test workers share the cores, and a thread pool
+# in each of them oversubscribes the CPU on these tiny shapes
+torch.set_num_threads(1)
+
 BAND = 64
+
+CPU = torch.device("cpu")  # the port defaults to the card
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +56,7 @@ def _joint_law(g, power=0.75):
 
 
 def _tables(g, stream, min_len=4096):
-    bt = BandedTables.build(g, band_size=BAND, two_d=True)
+    bt = BandedTables.build(g, band_size=BAND, two_d=True, device=CPU)
     return bt.build_stream(mult=4, min_len=min_len, seed=0) if stream else bt
 
 
@@ -131,3 +141,111 @@ def test_negatives_follow_degree_law(graph):
     chi2 = ((counts - exp) ** 2 / exp).sum()
     dof = g.n_vertices - 1
     assert chi2 < dof + 5 * np.sqrt(2 * dof), chi2
+
+
+# --------------------------------------------- grouped and per-step draws
+def _grouped(bt, gen, batch, group, n_negs, steps, per_step):
+    """``steps`` draws of either form, stacked as the hoisted draw's."""
+    if not per_step:
+        return bt.draw_banded_batches_hoisted(gen, batch, group, n_negs,
+                                              steps)
+    xs = [bt.draw_banded_batch(gen, batch, group, n_negs)
+          for _ in range(steps)]
+    assert xs[0][0].shape == xs[0][1].shape == ()
+    return tuple(torch.stack(col) for col in zip(*xs))
+
+
+def _strata(bt, sb, db):
+    nb = bt.n_bands
+    if bt.two_d:
+        return (sb.numpy() // BAND) * nb + db.numpy() // BAND
+    return db.numpy() // BAND
+
+
+@pytest.mark.parametrize("two_d", [True, False])
+@pytest.mark.parametrize("per_step", [False, True])
+def test_grouped_layout(graph, two_d, per_step):
+    """src is the repeat layout of batch // group sources, every pair is an
+    edge of its stratum, and sb is 0 on 1D tables."""
+    g, G = graph, 4
+    bt = BandedTables.build(g, band_size=BAND, two_d=two_d, device=CPU)
+    sb, db, src, pos, negs = _grouped(bt, _gen(4), 64, G, 8, 50, per_step)
+    assert src.shape == pos.shape == (50, 64) and negs.shape == (50, 8)
+    assert all(t.dtype == torch.int32 for t in (sb, db, src, pos, negs))
+    assert torch.equal(src, src[:, ::G].repeat_interleave(G, dim=1))
+    assert bool(((pos >= db[:, None]) & (pos < db[:, None] + BAND)).all())
+    if two_d:
+        assert bool(((src >= sb[:, None])
+                     & (src < sb[:, None] + BAND)).all())
+    else:
+        assert int(sb.abs().max()) == 0
+    esrc = np.repeat(np.arange(g.n_vertices), np.diff(g.indptr))
+    edges = set(zip(esrc.tolist(), g.indices.tolist()))
+    assert all(p in edges for p in zip(src.numpy().ravel().tolist(),
+                                       pos.numpy().ravel().tolist()))
+
+
+@pytest.mark.parametrize("two_d", [True, False])
+def test_grouped_stratum_frequencies_match_mass(graph, two_d):
+    g = graph
+    bt = BandedTables.build(g, band_size=BAND, two_d=two_d, device=CPU)
+    nb = bt.n_bands
+    src, dst, jw = _joint_law(g)
+    strat = (src // BAND) * nb + dst // BAND if two_d else dst // BAND
+    ns = nb * nb if two_d else nb
+    strat_p = np.zeros(ns)
+    np.add.at(strat_p, strat, jw)
+    steps = 6000
+    sb, db, *_ = bt.draw_banded_batches_hoisted(_gen(5), 16, 4, 8, steps)
+    emp = np.bincount(_strata(bt, sb, db), minlength=ns) / steps
+    sd = np.sqrt(strat_p * (1 - strat_p) / steps)
+    assert (np.abs(emp - strat_p) < 4 * sd + 1e-12).all()
+
+
+def _tv_bound(want, n):
+    """Twice the total variation distance that n iid draws from ``want``
+    show on average (0.5 * sum sqrt(2 p (1 - p) / (pi n))), plus 0.01."""
+    p = want / want.sum()
+    return 2 * 0.5 * np.sqrt(2 * p * (1 - p) / (np.pi * n)).sum() + 0.01
+
+
+@pytest.mark.parametrize("two_d", [True, False])
+def test_grouped_pair_laws_in_a_stratum(graph, two_d):
+    """In the most drawn stratum: the first pair of each group follows the
+    stratum's joint edge law, and the group's other contexts follow the
+    source's within-(src, stratum) context law (weight^0.75)."""
+    g, G = graph, 4
+    bt = BandedTables.build(g, band_size=BAND, two_d=two_d, device=CPU)
+    nb, n = bt.n_bands, g.n_vertices
+    esrc, edst, jw = _joint_law(g)
+    estrat = (esrc // BAND) * nb + edst // BAND if two_d else edst // BAND
+    sb, db, src, pos, _ = bt.draw_banded_batches_hoisted(
+        _gen(6), 2048, G, 8, 1200)
+    s = _strata(bt, sb, db)
+    top = int(np.bincount(s).argmax())
+    rows = s == top
+    sel = estrat == top
+
+    first_s = src[:, ::G].numpy()[rows].ravel()
+    first_p = pos[:, ::G].numpy()[rows].ravel()
+    emp = np.bincount(first_s * n + first_p, minlength=n * n).astype(float)
+    want = np.zeros(n * n)
+    np.add.at(want, esrc[sel] * n + edst[sel], jw[sel])
+    tv = 0.5 * np.abs(emp / emp.sum() - want / want.sum()).sum()
+    assert tv < _tv_bound(want, emp.sum()), f"first-pair TV {tv:.4f}"
+
+    extra = np.ones(src.shape[1], bool)
+    extra[::G] = False
+    xs = src.numpy()[rows][:, extra].ravel()
+    xp = pos.numpy()[rows][:, extra].ravel()
+    emp = np.bincount(xs * n + xp, minlength=n * n).astype(float)
+    # want: the drawn sources' marginal times their context law in-stratum
+    w = np.asarray(g.weights, np.float64)[sel] ** 0.75
+    z = np.zeros(n)
+    np.add.at(z, esrc[sel], w)
+    src_marg = np.bincount(xs, minlength=n) / len(xs)
+    want = np.zeros(n * n)
+    np.add.at(want, esrc[sel] * n + edst[sel],
+              src_marg[esrc[sel]] * w / z[esrc[sel]])
+    tv = 0.5 * np.abs(emp / emp.sum() - want / want.sum()).sum()
+    assert tv < _tv_bound(want, emp.sum()), f"extra-context TV {tv:.4f}"

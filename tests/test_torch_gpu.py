@@ -12,8 +12,11 @@ import torch
 
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.models.line import LINE
+from smore_tpu_torch.ops.scatter import band_scatter_add, band_scatter_add_ref
 from smore_tpu_torch.ops.sgns import sgns_shared_grads, sgns_shared_grads_ref
 from smore_tpu_torch.ops.sgns_banded import (
+    sgns_banded_fused,
+    sgns_banded_fused_ref,
     sgns_banded_multiblock,
     sgns_banded_multiblock_ref,
 )
@@ -163,4 +166,87 @@ def test_line_unbanded_trains_through_k1(cuda, order):
     m.train(sample_times=0.2, batch=128, use_pallas=True, verbose=False)
     assert m.banded_tables is None and m.last_driver.micro_steps == 32
     assert sgns_shared_grads.launches > before
+    assert _link_auc(m, g) > 0.8
+
+
+# K3: one fused micro-step, (B, band, Ks, D) at the fused route's shapes
+# (two tiles at 4096, sixteen at 32768) and a small band with heavy
+# duplicates; atomics as in K4
+K3_CASES = [(4096, 16392, 128, 64), (128, 64, 16, 64), (32768, 16392, 128,
+                                                         64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,band,Ks,D", K3_CASES)
+def test_k3_kernel_matches_twin(cuda, B, band, Ks, D):
+    rng = np.random.default_rng(B + band)
+    n = 3 * band
+    x = dict(
+        wv=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        wc=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        sb=np.int32(band), db=np.int32(2 * band),
+        src_l=rng.integers(0, min(band, 512), B).astype(np.int32),
+        pos_l=rng.integers(0, band, B).astype(np.int32),
+        cn=(rng.standard_normal((Ks, D)) * 0.1).astype(np.float32),
+        alpha=np.float32(0.025),
+    )
+    a = {k: torch.from_numpy(np.array(v)).to(cuda) for k, v in x.items()}
+    b = {k: v.clone() for k, v in a.items()}
+    args = ("wv", "wc", "sb", "db", "src_l", "pos_l", "cn", "alpha")
+    before = sgns_banded_fused.launches
+    kv, kc, kd, kl = sgns_banded_fused(*(a[k] for k in args))
+    assert sgns_banded_fused.launches == before + 1
+    assert kv is a["wv"] and kc is a["wc"]
+    rv, rc, rd, rl = sgns_banded_fused_ref(*(b[k] for k in args))
+    torch.cuda.synchronize()
+    for got, want in ((kv, rv), (kc, rc), (kd, rd)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(kl), float(rl), rtol=RTOL)
+    assert not np.allclose(kc.cpu().numpy(), x["wc"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["random", "all_same", "iota"])
+def test_k2_kernel_matches_twin(cuda, kind):
+    """Rows into the third band of a four-band table; atomics sum the
+    duplicates in another order (rtol 2e-5, atol 2e-4, as the Pallas
+    kernel's own test against np.add.at)."""
+    rng = np.random.default_rng(5)
+    band, D, B = 128, 64, 8192
+    idx = {"random": rng.integers(0, band, B),
+           "all_same": np.full(B, 7),
+           "iota": np.arange(B) % band}[kind].astype(np.int32)
+    table = torch.from_numpy(rng.normal(size=(4 * band, D)).astype(
+        np.float32)).to(cuda)
+    delta = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)).to(
+        cuda)
+    start = torch.tensor(2 * band, dtype=torch.int32, device=cuda)
+    idx = torch.from_numpy(idx).to(cuda)
+    want = band_scatter_add_ref(table.clone(), start, idx, delta)
+    before = band_scatter_add.launches
+    got = band_scatter_add(table, start, idx, delta)
+    assert got is table and band_scatter_add.launches == before + 1
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("order,kw,counter", [
+    (2, dict(multiband=False, use_pallas=True), sgns_banded_fused),
+    (1, {}, band_scatter_add),
+])
+def test_line_banded_routes_train_through_k3_k2(cuda, order, kw, counter):
+    """On a CUDA device LINE o2 with multiband=False, use_pallas=True takes
+    the fused route (K3), and banded order 1 ("auto") the scatter-only
+    route (K2); both learn the communities."""
+    g = _toy_graph()
+    m = LINE(g, seed=0, device=cuda)
+    m.init(dim=64, order=order)
+    before = counter.launches
+    m.train(banded=True, band_size=64, batch=128, sample_times=0.2,
+            steps_per_call=32, verbose=False, **kw)
+    assert counter.launches > before
+    assert m.banded_tables.two_d == (order == 2)
     assert _link_auc(m, g) > 0.8

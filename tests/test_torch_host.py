@@ -4,8 +4,11 @@ CSR and names, alias tables, the negative table, every array of the banded
 tables and of the pre-sampled edge stream, and the embedding text are all
 host numpy in both packages and must agree exactly."""
 
+import os
+
 import numpy as np
 import pytest
+import torch
 
 from smore_tpu.graph.graph import Graph as JGraph
 from smore_tpu.io.embeddings import save_embeddings as j_save
@@ -14,12 +17,19 @@ from smore_tpu.sampling.banded import BandedTables as JBanded
 from smore_tpu.sampling.tables import SamplerTables
 from smore_tpu_torch.graph.graph import Graph as TGraph
 from smore_tpu_torch.io.embeddings import load_embeddings
+from smore_tpu_torch.native import fastgraph
 from smore_tpu_torch.io.embeddings import save_embeddings as t_save
 from smore_tpu_torch.sampling import alias as t_alias
 from smore_tpu_torch.sampling.banded import BandedTables as TBanded
 from smore_tpu_torch.sampling.tables import build_negative_table
 
 from conftest import TOY_EDGES
+
+# one intra-op thread: test workers share the cores, and a thread pool
+# in each of them oversubscribes the CPU on these tiny shapes
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")  # the port defaults to the card
 
 
 def _comm_edges():
@@ -69,6 +79,12 @@ def test_load_edge_list_bit_equal(tmp_path, use_native, undirected):
     jg = JGraph.load_edge_list(str(p), undirected, use_native=use_native)
     tg = TGraph.load_edge_list(str(p), undirected, use_native=use_native)
     _same_graph(jg, tg)
+    # the port builds its own copy of the loader, never the JAX package's
+    port = os.path.dirname(os.path.dirname(os.path.abspath(
+        fastgraph.__file__)))
+    assert os.path.basename(port) == "smore_tpu_torch"
+    src = os.path.abspath(fastgraph._SRC)
+    assert os.path.commonpath([src, port]) == port and os.path.exists(src)
 
 
 @pytest.mark.parametrize("n,power", [(7, 0.75), (300, 1.0), (5000, 0.75)])
@@ -95,7 +111,7 @@ def test_build_alias_segmented_bit_equal(n_seg):
 def test_negative_table_bit_equal(name):
     jg, tg = _pair(name)
     a = np.asarray(SamplerTables.build_negative_table(jg))
-    b = build_negative_table(tg).numpy()
+    b = build_negative_table(tg, device=CPU).numpy()
     assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
@@ -107,7 +123,7 @@ _BANDED_ARRAYS = ("band_pa", "band_meta", "edge_pa", "edge_seg", "ctx_pa",
 def test_banded_tables_bit_equal(two_d):
     jg, tg = _pair("comm")
     jb = JBanded.build(jg, band_size=64, two_d=two_d)
-    tb = TBanded.build(tg, band_size=64, two_d=two_d)
+    tb = TBanded.build(tg, band_size=64, two_d=two_d, device=CPU)
     for f in _BANDED_ARRAYS:
         a, b = np.asarray(getattr(jb, f)), getattr(tb, f).numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b), f
@@ -120,8 +136,8 @@ def test_edge_stream_bit_equal(two_d):
     jg, tg = _pair("comm")
     jb = JBanded.build(jg, band_size=64, two_d=two_d).build_stream(
         mult=4, seed=0)
-    tb = TBanded.build(tg, band_size=64, two_d=two_d).build_stream(
-        mult=4, seed=0)
+    tb = TBanded.build(tg, band_size=64, two_d=two_d,
+                       device=CPU).build_stream(mult=4, seed=0)
     for f in ("stream", "stream_meta"):
         a, b = np.asarray(getattr(jb, f)), getattr(tb, f).numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b), f

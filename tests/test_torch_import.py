@@ -18,6 +18,7 @@ MODULES = [
     "smore_tpu_torch.ops._build",
     "smore_tpu_torch.ops.sgns_banded",
     "smore_tpu_torch.ops.sgns",
+    "smore_tpu_torch.ops.scatter",
     "smore_tpu_torch.ops.update",
     "smore_tpu_torch.models.base",
     "smore_tpu_torch.models.line",

@@ -4,8 +4,11 @@ smore_tpu.
 One superstep on injected draws (rtol 2e-5, atol 1e-6: f32 on both sides,
 differing only in sum order), TrainDriver's alpha schedule (bit-equal in
 f32), the routing (same batch, band, micro-steps and steps per call), end
-to end quality on a toy community graph, the routes not ported yet, and
-the unbanded routes that now train."""
+to end quality on a toy community graph, the routes not ported yet, the
+unbanded and the other banded routes that now train, and the entry points'
+default device (the card)."""
+
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -23,12 +26,20 @@ from smore_tpu.ops.pallas_sgns_banded import (
 )
 from smore_tpu_torch.graph.graph import Graph as TGraph
 from smore_tpu_torch.models.base import TrainDriver as TDriver
+from smore_tpu_torch.models.base import init_embedding, zeros_embedding
 from smore_tpu_torch.models.line import LINE as TLINE
 from smore_tpu_torch.models.line import multiblock_apply
-from smore_tpu_torch.sampling.tables import SamplerTables
+from smore_tpu_torch.sampling.banded import BandedTables
+from smore_tpu_torch.sampling.tables import SamplerTables, build_negative_table
+
+# one intra-op thread: test workers share the cores, and a thread pool
+# in each of them oversubscribes the CPU on these tiny shapes
+torch.set_num_threads(1)
 
 BAND = 64
 RTOL, ATOL = 2e-5, 1e-6
+
+CPU = torch.device("cpu")  # the port defaults to the card
 
 
 def _edges():
@@ -103,7 +114,7 @@ def test_one_superstep_matches_jax(graphs):
     want_v = unfold_table(wvf)
     want_c = unfold_table(wcf).at[negs.reshape(-1)].add(d_neg.reshape(-1, D))
 
-    m = TLINE(tg, seed=0)
+    m = TLINE(tg, seed=0, device=CPU)
     m.load_state_numpy(tables)
     assert m.dim == D and m.state["vertex"].dtype == torch.float32
     t = [torch.from_numpy(a) for a in (sb, db, src_l, pos_l, negs, alphas)]
@@ -148,7 +159,8 @@ def test_alpha_schedule_equals_jax(micro_steps, total, per_step, spc, alpha):
         return state, torch.zeros(())
 
     td = TDriver(tstep, ctx=None, samples_per_step=sps, alpha=alpha,
-                 total_samples=total, steps_per_call=spc, micro_steps=M)
+                 total_samples=total, steps_per_call=spc, micro_steps=M,
+                 device=CPU)
     td.train({}, torch.Generator(), verbose=False)
     got = torch.cat(seen).numpy()
     assert got.dtype == want.dtype and np.array_equal(got, want)
@@ -165,7 +177,7 @@ def test_routing_matches_jax(graphs, hoist, spc):
     jm = JLINE(jg, seed=0)
     jm.init(dim=64, order=2)
     jm.train(**kw)
-    tm = TLINE(tg, seed=0)
+    tm = TLINE(tg, seed=0, device=CPU)
     tm.init(dim=64, order=2)
     tm.train(**kw)
     jd, td = jm.last_driver, tm.last_driver
@@ -184,7 +196,7 @@ def test_line_end_to_end_quality(graphs, tmp_path):
     kw = dict(banded=True, multiband=True, band_size=BAND, batch=128,
               hoist=4, sample_times=0.2, negative_samples=5, alpha=0.025,
               group=1, steps_per_call=32, verbose=False)
-    m = TLINE(tg, seed=0)
+    m = TLINE(tg, seed=0, device=CPU)
     m.init(dim=64, order=2)
     m.train(**kw)
     wv = m.state["vertex"].numpy()
@@ -209,29 +221,56 @@ def test_line_end_to_end_quality(graphs, tmp_path):
                                rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("route", [
-    "fused", "scatter_only", "band_hold", "neg_band", "order1",
-    "no_multiband", "mesh",
-])
+_BANDED_KW = dict(sample_times=0.01, batch=128, band_size=BAND, banded=True,
+                  multiband=True, verbose=False)
+
+
+@pytest.mark.parametrize("route", ["band_hold", "neg_band", "mesh"])
 def test_unported_routes_raise(graphs, route):
     _, tg = graphs
-    m = TLINE(tg, seed=0)
-    m.init(dim=64, order=1 if route == "order1" else 2)
-    kw = dict(sample_times=0.01, batch=128, band_size=BAND, banded=True,
-              multiband=True, verbose=False)
-    kw.update({
-        "fused": dict(multiband=False, use_pallas=True),
-        "scatter_only": dict(multiband=False, use_pallas=True, group=1,
-                             batch=100),
+    m = TLINE(tg, seed=0, device=CPU)
+    m.init(dim=64, order=2)
+    kw = dict(_BANDED_KW, **{
         "band_hold": dict(multiband=False, band_hold=True,
                           use_pallas=False),
         "neg_band": dict(neg_band=True),
-        "order1": {},
-        "no_multiband": dict(multiband=False, use_pallas=False),
         "mesh": dict(mesh=object()),
     }[route])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.train(**kw)
+
+
+@pytest.mark.parametrize("route,order,kw", [
+    ("fused", 2, dict(multiband=False, use_pallas=True)),
+    ("order1", 1, {}),
+    ("order1_scatter", 1, dict(use_pallas=True)),
+    ("no_multiband", 2, dict(multiband=False, use_pallas=False)),
+    ("scatter_group4", 2, dict(multiband=False, use_pallas=True, group=4)),
+])
+def test_banded_routes_train(graphs, route, order, kw):
+    """The routes that raised before the remaining banded routes were
+    ported: they train on band tables (1D for order 1, 2D for order 2)."""
+    _, tg = graphs
+    m = TLINE(tg, seed=0, device=CPU)
+    m.init(dim=64, order=order)
+    m.train(**dict(_BANDED_KW, **kw))
+    bt = m.banded_tables
+    assert bt is not None and bt.two_d == (order == 2)
+    assert m.last_driver.ctx is bt and m.last_driver.micro_steps == 8
+    assert m.last_driver.executed_samples >= 10_000
+    for v in m.state.values():
+        assert v.shape == (tg.n_vertices, 64) and torch.isfinite(v).all()
+
+
+def test_scatter_route_rejects_untiled_batch(graphs):
+    """batch 100 does not tile: smore_tpu routes it to its scatter kernel
+    and fails that kernel's assert; the port's K2 shape check raises."""
+    _, tg = graphs
+    m = TLINE(tg, seed=0, device=CPU)
+    m.init(dim=64, order=2)
+    with pytest.raises(ValueError, match="tile"):
+        m.train(**dict(_BANDED_KW, multiband=False, use_pallas=True, group=1,
+                       batch=100))
 
 
 @pytest.mark.parametrize("route", ["banded_false", "auto_small_graph",
@@ -241,7 +280,7 @@ def test_unbanded_routes_train(graphs, route):
     under 262,144 vertices (or banded=False) trains on SamplerTables, with
     orders 1 and 2."""
     _, tg = graphs
-    m = TLINE(tg, seed=0)
+    m = TLINE(tg, seed=0, device=CPU)
     m.init(dim=64, order=1 if route.startswith("order1") else 2)
     kw = dict(sample_times=0.01, batch=128, verbose=False)
     if route != "auto_small_graph":
@@ -258,3 +297,21 @@ def test_driver_checkpoint_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TDriver(lambda *a: None, ctx=None, samples_per_step=1, alpha=0.1,
                 total_samples=1, checkpoint_path="ckpt")
+
+
+def test_entry_points_default_to_the_card(graphs):
+    """No device given: the model and the driver are on the CUDA card.
+    Neither constructor allocates, so this holds without a card too."""
+    _, tg = graphs
+    assert TLINE(tg).device.type == "cuda"
+    d = TDriver(lambda *a: None, ctx=None, samples_per_step=1, alpha=0.1,
+                total_samples=1)
+    assert d.device.type == "cuda"
+    for fn in (SamplerTables.build, BandedTables.build, build_negative_table,
+               init_embedding, zeros_embedding):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():  # no fallback to the CPU
+        with pytest.raises((AssertionError, RuntimeError)):
+            TLINE(tg).init(dim=8, order=2)
+        with pytest.raises((AssertionError, RuntimeError)):
+            BandedTables.build(tg, band_size=BAND)

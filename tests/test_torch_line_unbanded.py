@@ -25,7 +25,13 @@ from smore_tpu_torch.models.line import LINE as TLINE
 from smore_tpu_torch.ops.sgns import sgns_shared_grads
 from smore_tpu_torch.sampling.tables import SamplerTables
 
+# one intra-op thread: test workers share the cores, and a thread pool
+# in each of them oversubscribes the CPU on these tiny shapes
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-5, 1e-6
+
+CPU = torch.device("cpu")  # the port defaults to the card
 
 
 def _comm_edges(seed=7, n_comm=4, size=50, e=3000):
@@ -124,7 +130,7 @@ def test_step_closure_matches_jax(graphs, case):
         jc = JLINE(jg, seed=1)
         jc.init(dim=D, order=1)
         jm.state["context"] = jc.state["vertex"]
-    tm = TLINE(tg, seed=0)
+    tm = TLINE(tg, seed=0, device=CPU)
     tm.load_state_numpy({k: np.asarray(v) for k, v in jm.state.items()})
     tm.order = order
 
@@ -182,7 +188,7 @@ def test_routing_matches_jax(graphs, route):
     jm = JLINE(jg, seed=0)
     jm.init(dim=16, order=order)
     jm.train(**kw)
-    tm = TLINE(tg, seed=0)
+    tm = TLINE(tg, seed=0, device=CPU)
     tm.init(dim=16, order=order)
     tm.train(**kw)
     jd, td = jm.last_driver, tm.last_driver
@@ -197,8 +203,8 @@ def test_routing_matches_jax(graphs, route):
 
 def test_batch_not_divisible_by_group_raises_like_jax(graphs):
     jg, tg = graphs
-    for cls, g in ((JLINE, jg), (TLINE, tg)):
-        m = cls(g, seed=0)
+    for cls, g, kw in ((JLINE, jg, {}), (TLINE, tg, dict(device=CPU))):
+        m = cls(g, seed=0, **kw)
         m.init(dim=8, order=2)
         with pytest.raises(ValueError, match="divisible"):
             m.train(sample_times=0.01, batch=100, group=8, verbose=False)
@@ -212,7 +218,7 @@ def test_use_pallas_on_cpu_runs_the_twin(graphs, order):
     out = {}
     before = sgns_shared_grads.launches
     for use_pallas in (False, True):
-        m = TLINE(tg, seed=0)
+        m = TLINE(tg, seed=0, device=CPU)
         m.init(dim=16, order=order)
         m.train(sample_times=0.02, batch=128, use_pallas=use_pallas,
                 verbose=False)
@@ -227,7 +233,7 @@ def test_use_pallas_on_cpu_runs_the_twin(graphs, order):
 def _toy_line(toy_net_path, order, dim=8):
     g = TGraph.load_edge_list(toy_net_path, undirected=True,
                               use_native=False)
-    m = TLINE(g, seed=0)
+    m = TLINE(g, seed=0, device=CPU)
     m.init(dim=dim, order=order)
     # tiny batch and modest alpha, as tests/test_line_e2e.py: on a
     # 6-vertex graph a large batch sums many colliding updates per row
@@ -293,7 +299,7 @@ def test_hoist_path_learns_communities(order):
     """The hoisted grouped route of test_line_hoist_path_learns_communities
     (tests/test_hoisted_draws.py), same arguments and margin."""
     g = _two_cliques()
-    m = TLINE(g, seed=0)
+    m = TLINE(g, seed=0, device=CPU)
     m.init(dim=16, order=order)
     m.train(sample_times=0.05, negative_samples=5, alpha=0.02, batch=16,
             group=8, hoist=8, steps_per_call=32, collision="mean",
@@ -328,7 +334,7 @@ def test_default_route_quality_matches_jax(graphs, order):
     jg, tg = graphs
     kw = dict(sample_times=0.2, negative_samples=5, alpha=0.025, batch=128,
               verbose=False)
-    m = TLINE(tg, seed=0)
+    m = TLINE(tg, seed=0, device=CPU)
     m.init(dim=32, order=order)
     m.train(**kw)
     auc = _auc(m.state["vertex"].numpy(), tg)

@@ -18,6 +18,11 @@ from smore_tpu.sampling.tables import SamplerTables as JTables
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.sampling.tables import SamplerTables
 
+# one intra-op thread: test workers share the cores, and a thread pool
+# in each of them oversubscribes the CPU on these tiny shapes
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")  # the port defaults to the card
 TOY = [("userA", "itemA", 3.0), ("userA", "itemC", 5.0),
        ("userB", "itemA", 1.0), ("userB", "itemB", 5.0),
        ("userC", "itemA", 4.0)]
@@ -43,7 +48,7 @@ def test_build_is_bit_equal(graph, vm, nm):
     want = JTables.build(JGraph.from_edges(edges), vertex_method=vm,
                          negative_method=nm)
     got = SamplerTables.build(Graph.from_edges(edges), vertex_method=vm,
-                              negative_method=nm)
+                              negative_method=nm, device=CPU)
     for f in ("vertex_pa", "neg_pa", "vert_meta", "ctx_pa", "edge_pa"):
         w, g = np.asarray(getattr(want, f)), getattr(got, f).numpy()
         assert g.dtype == w.dtype and g.shape == w.shape, f
@@ -67,7 +72,7 @@ def g():
 
 @pytest.fixture(scope="module")
 def t(g):
-    return SamplerTables.build(g)
+    return SamplerTables.build(g, device=CPU)
 
 
 def _gen(seed):

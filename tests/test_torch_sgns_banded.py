@@ -19,6 +19,10 @@ from smore_tpu.ops.pallas_sgns_banded import (
 )
 from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
 
+# one intra-op thread: test workers share the cores, and a thread pool
+# in each of them oversubscribes the CPU on these tiny shapes
+torch.set_num_threads(1)
+
 RTOL, ATOL = 2e-5, 1e-6
 
 

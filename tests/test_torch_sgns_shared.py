@@ -14,6 +14,10 @@ import torch
 from smore_tpu.ops.pallas_sgns import sgns_shared_grads_pallas
 from smore_tpu_torch.ops.sgns import sgns_shared_grads, sgns_shared_grads_ref
 
+# one intra-op thread: test workers share the cores, and a thread pool
+# in each of them oversubscribes the CPU on these tiny shapes
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 
 

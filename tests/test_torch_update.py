@@ -20,6 +20,10 @@ from smore_tpu.ops import update as J
 from smore_tpu_torch.ops import update as T
 from smore_tpu_torch.ops.sgns import sgns_shared_grads
 
+# one intra-op thread: test workers share the cores, and a thread pool
+# in each of them oversubscribes the CPU on these tiny shapes
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-5, 1e-6
 N, D = 300, 16
 
