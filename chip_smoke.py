@@ -11,39 +11,53 @@ Phases (any failure exits non-zero; there is no CPU path):
   3. K4 vs twin at the banded path's shapes (S=16 micro-steps, B=2048,
      band 16400, Ks=128, D=64, 68 x 16400 table rows): tables, d_neg and
      loss must agree, and both times are printed
-  4. K1 vs twin at the unbanded path's shapes (B=32768, Ks=128, D=64):
+  4. K5 vs twin at the same shapes with 3280-row negative windows, hot
+     duplicate rows in src, pos and the negatives, a window inside its own
+     step's context band, one inside the previous step's and a revisited
+     one: tables and loss must agree; both times and the bound are printed
+  5. K1 vs twin at the unbanded path's shapes (B=32768, Ks=128, D=64):
      d_src, d_pos and d_neg must agree, and both times are printed
-  5. K3 vs twin at the fused route's shapes (57 x 16392-row tables,
+  6. K3 vs twin at the fused route's shapes (57 x 16392-row tables,
      B=4096 and 32768, Ks=128, D=64): bands, d_neg and loss must agree;
      both times are printed
-  6. K2 vs twin and index_add_ at the order-1 route's shapes (B=32768,
+  7. K2 vs twin and index_add_ at the order-1 route's shapes (B=32768,
      band 32776 of a 29-band table, D=64), random and all-same rows: the
      three must agree; their times are printed
-  7. banded main path: the 1.1M-vertex Youtube-scale graph
+  8. banded main path: the 1.1M-vertex Youtube-scale graph
      (bench.make_youtube_graph) -> Graph.load_edge_list -> LINE(order 2,
      dim 64) -> train(40M samples, 5 negatives, alpha 0.025, every other
      argument at its default), all on the card; K4 must have been launched,
      the tables must be finite and the community AUC
      (bench.yt_community_auc) >= 0.58
-  8. the same graph on the unbanded route (banded=False, use_pallas=True),
-     40M samples: a measurement beside phase 7; K1 must have been launched
+  9. the same graph on the unbanded route (banded=False, use_pallas=True),
+     40M samples: a measurement beside phase 8; K1 must have been launched
      and the tables must be finite
-  9. the fused route: LINE o2 train(multiband=False), every other argument
+ 10. the fused route: LINE o2 train(multiband=False), every other argument
      at its default (band 16392, batch 4096, group 1, hoist 8); K3 must
      have been launched, the tables finite, the community AUC >= 0.57
- 10. LINE order 1 at its defaults (1D band tables at band 32776, group 8,
+ 11. LINE order 1 at its defaults (1D band tables at band 32776, group 8,
      hoist 8, batch 32768, the scatter-only route): K2 launched, a finite
      table; its AUC is printed
- 11. LINE o2 with multiband=False, use_pallas="scatter" (K2 on both 2D
+ 12. LINE o2 with multiband=False, use_pallas="scatter" (K2 on both 2D
      scatters, band 32776, batch 32768): K2 launched, finite tables; a
      measurement
- 12. unbanded main path: the 50k-vertex bench graph (bench.make_graph) ->
+ 13. the neg_band route: LINE o2 train(neg_band=True), every other
+     argument at its default (the multiblock route with 3280-row negative
+     windows): K5 launched once per superstep, K4 never, finite tables,
+     the community AUC >= 0.57
+ 14. the held fused route: train(multiband=False, band_hold=True) (band
+     16392, batch 4096, one stratum held for 8 micro-steps): K3 launched,
+     finite tables, the community AUC >= 0.55
+ 15. the held scatter-only route: train(multiband=False, band_hold=True,
+     use_pallas="scatter") (band 32776, batch 32768, hold 8): K2 launched,
+     finite tables; its AUC is printed beside the JAX package's
+ 16. unbanded main path: the 50k-vertex bench graph (bench.make_graph) ->
      LINE(order 2, dim 64) -> train(40M samples, 5 negatives, alpha 0.025,
      use_pallas=True, every other argument at its default: batch 32768,
      group 8, hoist 32); K1 must have been launched, the tables must be
      finite and the community AUC >= 0.99
- 13. the same with group=1 (per-step draws), same gates
- 14. order 1 with use_pallas=True, 40M samples: K1 launched, a finite
+ 17. the same with group=1 (per-step draws), same gates
+ 18. order 1 with use_pallas=True, 40M samples: K1 launched, a finite
      table; its AUC is printed
 Each path runs 1M samples first (tables, stream and warm-up), then every
 kernel's launch count is set to 0, read after the timed 40M run and
@@ -53,8 +67,9 @@ object. Files go to build/chip_smoke/ inside the checkout.
 
     python3 chip_smoke.py --profile DIR
 
-also profiles 4M more samples of the multiblock, fused, order-1 and
-unbanded main paths with torch.profiler and writes the kernel-time tables
+also profiles 4M more samples of the multiblock, fused, order-1,
+neg_band, held fused, held scatter-only and unbanded main paths with
+torch.profiler and writes the kernel-time tables
 and Chrome traces to DIR (a measurement aid, off by default so that the
 smoke does not depend on the profiler).
 """
@@ -75,8 +90,10 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "build", "chip_smoke")
 
-# banded shapes: LINE o2 multiblock defaults at Youtube scale
+# banded shapes: LINE o2 multiblock defaults at Youtube scale; neg_band
+# route's negative window
 S, B, BAND, N_BANDS, KS, D = 16, 2048, 16400, 68, 128, 64
+NB2 = 3280
 # unbanded shapes: LINE defaults on the 50k graph (batch 32768)
 B_UNBANDED = 32768
 # fused route: band 16392 (57 bands at Youtube scale), batch 4096 (two
@@ -92,6 +109,13 @@ AUC_MIN = 0.58  # JAX record 0.6106 +- 0.0068 less bench.py's 0.03 margin
 # fused route at 40M: JAX records 0.606 (PERF_NOTES.md:493) and 0.6022
 # (BASELINE.md:96) less bench.py's 0.03 margin
 AUC_MIN_FUSED = 0.57
+# neg_band route: JAX 0.6033 at window 3280 (smore_tpu/models/line.py:410-412)
+# less the 0.03 margin; held fused route: JAX 0.585 for "fused b=4096
+# hold=8" (PERF_NOTES.md:492) less 0.03. The held scatter-only route is
+# printed beside the JAX package's 0.557 at hold 8 (line.py:387), ungated.
+AUC_MIN_NB = 0.57
+AUC_MIN_HOLD = 0.55
+AUC_JAX_HOLD_SCATTER = 0.557
 # 50k bench graph: the JAX package reached 1.0000 at 40M with group 8 and
 # group 1 (PERF_NOTES.md), and sits near 0.57 at 20M
 AUC_MIN_50K = 0.99
@@ -136,17 +160,19 @@ def _counters():
     from smore_tpu_torch.ops.sgns_banded import (
         sgns_banded_fused,
         sgns_banded_multiblock,
+        sgns_banded_multiblock_nb,
     )
 
     return {f.__name__: f for f in (sgns_banded_multiblock, sgns_shared_grads,
-                                    sgns_banded_fused, band_scatter_add)}
+                                    sgns_banded_fused, band_scatter_add,
+                                    sgns_banded_multiblock_nb)}
 
 
 def phase_build() -> None:
     from smore_tpu_torch.ops import _build, scatter, sgns, sgns_banded
 
     loaders = (sgns_banded._load, sgns._load, sgns_banded._load_fused,
-               scatter._load)
+               scatter._load, sgns_banded._load_nb)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as ex:
         for f in [ex.submit(load) for load in loaders]:
@@ -154,7 +180,8 @@ def phase_build() -> None:
     log(f"build: {time.perf_counter() - t0:.2f} s for all {len(loaders)} "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name in ("sgns_banded_multiblock", "sgns_shared_grads",
-                 "sgns_banded_fused", "band_scatter_add"):
+                 "sgns_banded_fused", "band_scatter_add",
+                 "sgns_banded_multiblock_nb"):
         secs, report = _build.build_info[name]
         log(f"  {name}: {secs:.2f} s")
         for line in report.splitlines():
@@ -307,6 +334,73 @@ def phase_k4_vs_twin(device) -> dict:
                 library_ms=None)
 
 
+_NB_ARGS = ("wv", "wc", "sb", "db", "nb", "src_l", "pos_l", "negs_l",
+            "alpha")
+
+
+def _nb_superstep_inputs(seed: int, device):
+    """K4's superstep inputs with banded negatives in place of cn: per step
+    a 3280-row window and Ks window-local rows, half of them from 8 hot
+    rows of the window (duplicates). Step 3's window lies in its own
+    context band, step 4's in step 3's, step 9 revisits step 0's."""
+    x = _superstep_inputs(seed, device)
+    del x["cn"]
+    rng = np.random.default_rng(seed + 100)
+    ratio = BAND // NB2  # windows per band
+    db = x["db"].cpu().numpy()
+    nb = rng.integers(0, N_BANDS * ratio, S)
+    nb[3] = db[3] * ratio + 3  # inside its own context band
+    nb[4] = db[3] * ratio + 1  # inside the previous step's context band
+    nb[9] = nb[0]  # a revisited window
+    negs = rng.integers(0, NB2, (S, KS))
+    hot = rng.integers(0, NB2, 8)
+    negs = np.where(rng.random((S, KS)) < 0.5,
+                    hot[rng.integers(0, 8, (S, KS))], negs)
+    x["nb"] = torch.from_numpy(nb.astype(np.int32)).to(device)
+    x["negs_l"] = torch.from_numpy(negs.astype(np.int32)).to(device)
+    return x
+
+
+def phase_k5_vs_twin(device) -> dict:
+    from smore_tpu_torch.ops.sgns_banded import (
+        sgns_banded_multiblock_nb,
+        sgns_banded_multiblock_nb_ref,
+    )
+
+    x = _nb_superstep_inputs(0, device)
+    y = {k: v.clone() for k, v in x.items()}
+    kw = dict(band_size=BAND, nb2=NB2)
+    kv, kc, kl = sgns_banded_multiblock_nb(*(x[k] for k in _NB_ARGS), **kw)
+    rv, rc, rl = sgns_banded_multiblock_nb_ref(*(y[k] for k in _NB_ARGS),
+                                               **kw)
+    torch.cuda.synchronize()
+    err = max(_compare(name, got, want) for name, got, want in (
+        ("wv", kv, rv), ("wc", kc, rc)))
+    np.testing.assert_allclose(float(kl), float(rl), rtol=RTOL,
+                               err_msg="kernel vs twin: loss")
+    log(f"K5 vs twin (S={S} B={B} band={BAND} nb2={NB2} Ks={KS} D={D}): "
+        f"max |diff| {err:.3e} within rtol {RTOL} atol {ATOL}; "
+        f"loss {float(kl):.6f} vs {float(rl):.6f}")
+    ms, t_kern, plain_ms, t_plain = _alternate(
+        lambda: sgns_banded_multiblock_nb_ref(*(y[k] for k in _NB_ARGS),
+                                              **kw),
+        lambda: sgns_banded_multiblock_nb(*(x[k] for k in _NB_ARGS), **kw),
+        5, 20)
+    log(f"K5 superstep time: kernel {ms:.4f} ms {t_kern}, twin "
+        f"{plain_ms:.4f} ms {t_plain} ({S * B} samples each)")
+    h = {k: y[k].cpu().numpy() for k in ("sb", "db", "nb", "src_l",
+                                         "pos_l", "negs_l")}
+    # distinct rows of each table: source-band rows of wv; context-band
+    # and window rows of wc, each read and written once
+    rows = (_rows(h["sb"][:, None] * BAND + h["src_l"])
+            + _rows(h["db"][:, None] * BAND + h["pos_l"],
+                    h["nb"][:, None] * NB2 + h["negs_l"]))
+    nbytes = 2 * rows * D * 4 + S * (2 * B + KS + 4) * 4
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **_bound("K5", _sgns_flops(S * B, KS, D), nbytes),
+                library_ms=None)
+
+
 def phase_k1_vs_twin(device) -> dict:
     from smore_tpu_torch.ops.sgns import (
         sgns_shared_grads,
@@ -438,10 +532,11 @@ def phase_k2_vs_twin(device) -> dict:
     return out
 
 
-def _train_counted(m, counter, **kw):
+def _train_counted(m, counter, never=(), **kw):
     """1M samples (tables, stream, warm-up), fresh tables, then the timed
-    40M run with every kernel's launch count set to 0 just before it.
-    Returns (samples/s, launches of ``counter``)."""
+    40M run with every kernel's launch count set to 0 just before it; the
+    kernels in ``never`` must not launch. Returns (samples/s, launches of
+    ``counter``)."""
     t0 = time.perf_counter()
     m.train(sample_times=1, **TRAIN_KW, **kw)
     torch.cuda.synchronize()
@@ -462,6 +557,8 @@ def _train_counted(m, counter, **kw):
     log(f"  {executed:,} samples in {dt:.3f} s = {executed / dt:,.0f} "
         f"samples/s; launches {counts}")
     require(launches > 0, f"the path never launched {counter.__name__}")
+    for c in never:
+        require(counts[c.__name__] == 0, f"the path launched {c.__name__}")
     for k, t in m.state.items():
         require(tuple(t.shape) == (m.graph.n_vertices, D),
                 f"{k} table shape {tuple(t.shape)}")
@@ -528,33 +625,54 @@ def phase_youtube(device):
 
 
 def phase_youtube_routes(g, device) -> dict:
-    """The banded routes off the multiblock path on the Youtube-scale
-    graph: fused (K3, gated), order 1 (K2) and scatter-only o2 (K2)."""
+    """The other banded routes on the Youtube-scale graph: fused (K3,
+    gated), order 1 (K2), scatter-only o2 (K2), neg_band (K5 and never K4,
+    gated), held fused (K3, gated) and held scatter-only (K2)."""
     sys.path.insert(0, HERE)
     import bench
     from smore_tpu_torch.models.line import LINE
     from smore_tpu_torch.ops.scatter import band_scatter_add
-    from smore_tpu_torch.ops.sgns_banded import sgns_banded_fused
+    from smore_tpu_torch.ops.sgns_banded import (
+        sgns_banded_fused,
+        sgns_banded_multiblock,
+        sgns_banded_multiblock_nb,
+    )
 
     out = {}
-    for tag, order, kw, counter, gate in (
-        ("fused", 2, dict(multiband=False), sgns_banded_fused,
+    for tag, order, kw, counter, never, gate in (
+        ("fused", 2, dict(multiband=False), sgns_banded_fused, (),
          AUC_MIN_FUSED),
-        ("order 1", 1, {}, band_scatter_add, None),
+        ("order 1", 1, {}, band_scatter_add, (), None),
         ("scatter-only o2", 2, dict(multiband=False, use_pallas="scatter"),
-         band_scatter_add, None),
+         band_scatter_add, (), None),
+        ("neg_band", 2, dict(neg_band=True), sgns_banded_multiblock_nb,
+         (sgns_banded_multiblock,), AUC_MIN_NB),
+        ("held fused", 2, dict(multiband=False, band_hold=True),
+         sgns_banded_fused, (), AUC_MIN_HOLD),
+        ("held scatter-only", 2, dict(multiband=False, band_hold=True,
+                                      use_pallas="scatter"),
+         band_scatter_add, (), None),
     ):
         m = LINE(g, seed=0, device=device)
         m.init(dim=D, order=order)
         log(f"banded {tag} route at Youtube scale (LINE o{order}, {kw}):")
-        rate, launches = _train_counted(m, counter, **kw)
+        rate, launches = _train_counted(m, counter, never, **kw)
         bt = m.banded_tables
         log(f"  route: {_route(m)} band {bt.band_size} bands {bt.n_bands} "
-            f"{'2D' if bt.two_d else '1D'}")
+            f"{'2D' if bt.two_d else '1D'} step "
+            f"{m.last_driver.step_fn.__qualname__.split('.<')[0]}"
+            + (f" window {bt.nb2}" if bt.nb2 else ""))
+        if counter is sgns_banded_multiblock_nb:  # one per superstep
+            d = m.last_driver
+            require(launches * d.samples_per_step == d.executed_samples,
+                    f"K5 launched {launches} times for "
+                    f"{d.executed_samples} samples")
         auc = bench.yt_community_auc(m.state["vertex"].cpu().numpy(),
                                      g.names)
-        log(f"  community AUC at {SAMPLE_TIMES}M samples: {auc:.4f}"
-            + (f" (gate >= {gate})" if gate else " (no gate)"))
+        note = (f" (gate >= {gate})" if gate else
+                f" (no gate; JAX {AUC_JAX_HOLD_SCATTER} at hold 8)"
+                if "held" in tag else " (no gate)")
+        log(f"  community AUC at {SAMPLE_TIMES}M samples: {auc:.4f}{note}")
         if gate:
             require(auc >= gate, f"{tag}: community AUC {auc:.4f} < {gate}")
         out[tag] = (m, launches)
@@ -656,6 +774,7 @@ def main() -> None:
     device = phase_device()
     phase_build()
     k4 = phase_k4_vs_twin(device)
+    k5 = phase_k5_vs_twin(device)
     k1 = phase_k1_vs_twin(device)
     k3 = phase_k3_vs_twin(device)
     k2 = phase_k2_vs_twin(device)
@@ -663,6 +782,7 @@ def main() -> None:
     routes = phase_youtube_routes(g_yt, device)
     m_fused, k3_launches = routes["fused"]
     m_o1, k2_launches = routes["order 1"]
+    m_nb, k5_launches = routes["neg_band"]
     unbanded = phase_unbanded(device)
     m_50k, k1_launches = unbanded["group 8 (main path)"]
     if args.profile:
@@ -670,6 +790,12 @@ def main() -> None:
         phase_profile(m_fused, args.profile, "line_yt_fused",
                       multiband=False)
         phase_profile(m_o1, args.profile, "line_yt_order1")
+        phase_profile(m_nb, args.profile, "line_yt_neg_band", neg_band=True)
+        phase_profile(routes["held fused"][0], args.profile,
+                      "line_yt_held_fused", multiband=False, band_hold=True)
+        phase_profile(routes["held scatter-only"][0], args.profile,
+                      "line_yt_held_scatter", multiband=False,
+                      band_hold=True, use_pallas="scatter")
         phase_profile(m_50k, args.profile, "line_50k_unbanded",
                       use_pallas=True)
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -705,6 +831,14 @@ def main() -> None:
             "replaces": "smore_tpu/ops/pallas_scatter.py:50",
             "launches": k2_launches,
             **k2,
+        },
+        {
+            "name": "sgns_banded_multiblock_nb",
+            "route": "cuda",
+            "source": "smore_tpu_torch/csrc/sgns_banded_multiblock_nb.cu",
+            "replaces": "smore_tpu/ops/pallas_sgns_banded.py:802",
+            "launches": k5_launches,
+            **k5,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

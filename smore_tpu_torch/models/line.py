@@ -20,16 +20,20 @@ the caller asks for the CPU). The routes:
   vertices on its accelerator: order 2, group 1, dim % 64 == 0, batch 2048
   per stratum visit at band 16400, 16 micro-steps per superstep,
   pre-sampled edge streams, kernel ``ops/sgns_banded.sgns_banded_multiblock``;
+  with ``neg_band=True`` (and Ks % 8 == 0) each micro-step draws its
+  negatives from one nb2-row window of the context table instead
+  (``BandedTables.build_neg_bands``, window 3280 where it divides the
+  band), kernel ``ops/sgns_banded.sgns_banded_multiblock_nb``;
 - the other banded routes (``_make_banded_step``: order 1 on 1D band
   tables, order 2 on 2D ones, grouped or not, hoisted or per-step draws,
   update ``ops.update.sgns_shared_negs_step_banded``): fused through kernel
   ``ops/sgns_banded.sgns_banded_fused`` (order 2, group 1, ``use_pallas``
   True, or "auto" on the card), scatter-only through kernel
   ``ops/scatter.band_scatter_add`` (``use_pallas`` True otherwise, or
-  "auto" / "scatter" on the card when the batches tile), else plain.
-
-``band_hold`` and ``neg_band`` raise ``NotImplementedError`` naming their
-ROADMAP item.
+  "auto" / "scatter" on the card when the batches tile), else plain;
+  with ``band_hold=True`` (order 2, hoist > 1) one stratum is held for the
+  whole hoisted block (``_make_banded_block_step``, update
+  ``ops.update.sgns_banded_block``), fused, scatter-only or plain alike.
 """
 
 from __future__ import annotations
@@ -45,8 +49,12 @@ from smore_tpu_torch.models.base import (
     init_embedding,
     zeros_embedding,
 )
-from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
+from smore_tpu_torch.ops.sgns_banded import (
+    sgns_banded_multiblock,
+    sgns_banded_multiblock_nb,
+)
 from smore_tpu_torch.ops.update import (
+    sgns_banded_block,
     sgns_shared_negs_step,
     sgns_shared_negs_step_banded,
     sgns_step,
@@ -68,19 +76,16 @@ BANDED_AUTO_THRESHOLD = 262_144
 _INIT, _TRAIN = 0, 1  # generator streams of a model seed
 
 
-def _unported(route: str, item: str):
-    return NotImplementedError(
-        f"LINE route not ported to PyTorch yet: {route} (ROADMAP {item})")
-
-
 def multiblock_draw(bt: BandedTables, gen: torch.Generator, batch: int,
                     n_negs: int, steps: int):
     """The draws of one multiblock superstep: (sb, db, src_l, pos_l, negs),
     sb/db the band START rows (steps,), src_l/pos_l BAND-LOCAL (steps,
     batch), negs GLOBAL (steps, n_negs). From the edge stream when one is
-    built, else by per-sample alias draws."""
+    built (n_negs 0: no negative draw, negs None), else by per-sample alias
+    draws."""
     if bt.stream is not None:
-        return bt.draw_banded_stream(gen, batch, n_negs, steps)
+        return bt.draw_banded_stream(gen, batch, n_negs, steps,
+                                     with_negs=n_negs > 0)
     sb, db, src, pos, negs = bt.draw_banded_batches_hoisted(
         gen, batch, 1, n_negs, steps)
     return sb, db, src - sb[:, None], pos - db[:, None], negs
@@ -240,6 +245,46 @@ class LINE(PairModelBase):
 
         return step
 
+    def _make_banded_multiblock_nb_step(self, batch, negatives,
+                                        shared_negatives, hoist):
+        """One multiblock superstep with banded negatives: ``hoist``
+        micro-steps, each on its own band pair and with its Ks negatives
+        drawn from one window of the context table (``draw_neg_banded``),
+        through kernel K5, which updates those rows itself."""
+        band_size = self.banded_tables.band_size
+
+        def step(state, bt, gen, alphas):
+            sb, db, src_l, pos_l, _ = multiblock_draw(bt, gen, batch, 0,
+                                                      hoist)
+            nb, negs_l = bt.draw_neg_banded(gen, shared_negatives, hoist)
+            _, _, loss_sum = sgns_banded_multiblock_nb(
+                state["vertex"], state["context"], sb // band_size,
+                db // band_size, nb, src_l, pos_l, negs_l, alphas,
+                band_size=band_size, nb2=bt.nb2, k_equiv=negatives)
+            return state, loss_sum / (hoist * batch)
+
+        return step
+
+    def _make_banded_block_step(self, batch, negatives, shared_negatives,
+                                group, hold, pallas_scatter=False,
+                                fused=False):
+        """The band-persistent superstep (order 2): one stratum held for
+        ``hold`` micro-batches (``draw_banded_block``, the per-sample law
+        unchanged), update ``sgns_banded_block``, fused through K3 or
+        scatter-only through K2 as on the per-step route."""
+        band_size = self.banded_tables.band_size
+
+        def step(state, bt, gen, alphas):
+            sb, db, src, pos, negs = bt.draw_banded_block(
+                gen, batch, group, shared_negatives, hold)
+            wv, wc, loss = sgns_banded_block(
+                state["vertex"], state["context"], sb, db, band_size, src,
+                pos, negs, alphas, k_equiv=negatives, src_group=group,
+                pallas_scatter=pallas_scatter, fused=fused)
+            return {"vertex": wv, "context": wc}, loss
+
+        return step
+
     def train(
         self,
         sample_times: float = 10,
@@ -385,11 +430,6 @@ class LINE(PairModelBase):
             # is the largest fused batch that held the gate in the JAX
             # package; re-clamped so a small graph is not overshot
             batch = clamp_batch(n, 4096, group=group)
-        if use_multi and neg_band is True and shared_negatives % 8 == 0:
-            raise _unported("neg_band (kernel K5)", "Queue 1 item 14")
-        if (not use_multi and band_hold is True and self.order == 2
-                and hoist > 1):
-            raise _unported("band_hold", "Queue 1 item 14")
 
         two_d = self.order == 2
         bt = self.banded_tables
@@ -412,8 +452,23 @@ class LINE(PairModelBase):
                 mult = (edge_stream if isinstance(edge_stream, int)
                         and edge_stream > 1 else 32)
                 bt.build_stream(mult=mult, seed=self.seed)
-            step_fn = self._make_banded_multiblock_step(
-                batch, negative_samples, shared_negatives, hoist)
+            if neg_band is True and shared_negatives % 8 == 0:
+                if bt.neg_band_pa is None:
+                    # 3280-row windows where they divide the band (16400
+                    # does: the JAX package's best quality/speed point),
+                    # else whole-band windows (small test graphs)
+                    bt.build_neg_bands(
+                        self.graph, negative_method=self.negative_method,
+                        nb2=3280 if band_size % 3280 == 0 else band_size)
+                step_fn = self._make_banded_multiblock_nb_step(
+                    batch, negative_samples, shared_negatives, hoist)
+            else:
+                step_fn = self._make_banded_multiblock_step(
+                    batch, negative_samples, shared_negatives, hoist)
+        elif band_hold is True and self.order == 2 and hoist > 1:
+            step_fn = self._make_banded_block_step(
+                batch, negative_samples, shared_negatives, group, hoist,
+                pallas_scatter=pallas_scat, fused=fused)
         else:
             step_fn = self._make_banded_step(
                 batch, negative_samples, shared_negatives, group, hoist,

@@ -1,5 +1,6 @@
-"""Banded SGNS kernels: the multiblock superstep (K4, LINE's main path) and
-the fused micro-step (K3, the fused banded route).
+"""Banded SGNS kernels: the multiblock superstep (K4, LINE's main path), its
+banded-negative form (K5, the ``neg_band`` route) and the fused micro-step
+(K3, the fused banded route).
 
 Port of ``smore_tpu/ops/pallas_sgns_banded.py::sgns_banded_multiblock``.
 S micro-steps run in order; micro-step s updates source band ``sb[s]`` of
@@ -21,11 +22,20 @@ same order, returning ``d_neg`` and the loss SUM over all B rows. Band
 starts stay on the device (the TPU sliced the bands at traced starts; here
 kernel and twin add them to the local ids), so no step reads them back.
 
+Port of ``sgns_banded_multiblock_nb`` from the same file: K4's superstep
+where micro-step s draws its Ks negatives from its own nb2-row WINDOW
+``nb[s]`` of the context table. Their rows are gathered from the current
+table before the step's first tile and their summed deltas added back after
+its last tile, so there is no caller snapshot and no deferred ``d_neg``.
+The TPU's third slab stream and its conflict flags (which kept overlapping
+VMEM copies of one HBM row from losing writes) have no counterpart: stream
+order gives the same update order.
+
 Each wrapper runs its plain PyTorch twin (``*_ref``) for CPU tensors and
 launches its CUDA kernel (``csrc/sgns_banded_multiblock.cu``,
-``csrc/sgns_banded_fused.cu``, both on the tile of
-``csrc/sgns_banded_tile.cuh``) for CUDA tensors, or raises; it never falls
-back. ``<wrapper>.launches`` counts kernel launches.
+``csrc/sgns_banded_multiblock_nb.cu``, ``csrc/sgns_banded_fused.cu``, all on
+the tile of ``csrc/sgns_banded_tile.cuh``) for CUDA tensors, or raises; it
+never falls back. ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -74,6 +84,12 @@ def _load():
                      [i] + [p] * 8 + [i] * 6 + [ctypes.c_float] + [p] * 7)
 
 
+def _load_nb():
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _load_lib("sgns_banded_multiblock_nb", "sgns_nb",
+                     [i] + [p] * 9 + [i] * 7 + [ctypes.c_float] + [p] * 8)
+
+
 def _load_fused():
     p, i = ctypes.c_void_p, ctypes.c_int
     return _load_lib("sgns_banded_fused", "sgns_bf",
@@ -105,6 +121,21 @@ def _tile_ref(wv, wc, rv, rc, cn, a, kscale):
     return d_neg, loss
 
 
+def _check_tables(wv, wc, D: int) -> None:
+    for name, t in (("wv", wv), ("wc", wc)):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != D:
+            raise ValueError(f"{name} must be (rows, {D}) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (updated in place)")
+
+
+def _check_device(*tensors) -> None:
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"all tensors must share one device, got {devs}")
+
+
 def _check(wv, wc, sb, db, src_l, pos_l, cn, alpha):
     if src_l.dim() != 2 or pos_l.shape != src_l.shape:
         raise ValueError(f"src_l/pos_l must be (S, B), got "
@@ -113,12 +144,7 @@ def _check(wv, wc, sb, db, src_l, pos_l, cn, alpha):
     if cn.dim() != 3 or cn.shape[0] != S:
         raise ValueError(f"cn must be (S={S}, Ks, D), got {tuple(cn.shape)}")
     D = cn.shape[2]
-    for name, t in (("wv", wv), ("wc", wc)):
-        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != D:
-            raise ValueError(f"{name} must be (rows, {D}) float32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous (updated in place)")
+    _check_tables(wv, wc, D)
     if cn.dtype != torch.float32:
         raise ValueError(f"cn must be float32, got {cn.dtype}")
     for name, t in (("sb", sb), ("db", db), ("alpha", alpha)):
@@ -127,9 +153,7 @@ def _check(wv, wc, sb, db, src_l, pos_l, cn, alpha):
     if B % _tile(B) or _tile(B) % 8:
         raise ValueError(f"batch {B} must tile by min(1024, B), a multiple "
                          "of 8")
-    devs = {t.device for t in (wv, wc, sb, db, src_l, pos_l, cn, alpha)}
-    if len(devs) != 1:
-        raise ValueError(f"all tensors must share one device, got {devs}")
+    _check_device(wv, wc, sb, db, src_l, pos_l, cn, alpha)
 
 
 def sgns_banded_multiblock_ref(wv, wc, sb, db, src_l, pos_l, cn, alpha,
@@ -209,6 +233,113 @@ def sgns_banded_multiblock(wv, wc, sb, db, src_l, pos_l, cn, alpha,
 sgns_banded_multiblock.launches = 0
 
 
+def _check_nb(wv, wc, sb, db, nb, src_l, pos_l, negs_l, alpha):
+    if src_l.dim() != 2 or pos_l.shape != src_l.shape:
+        raise ValueError(f"src_l/pos_l must be (S, B), got "
+                         f"{tuple(src_l.shape)} / {tuple(pos_l.shape)}")
+    S, B = src_l.shape
+    if negs_l.dim() != 2 or negs_l.shape[0] != S or negs_l.shape[1] < 1:
+        raise ValueError(f"negs_l must be (S={S}, Ks), got "
+                         f"{tuple(negs_l.shape)}")
+    D = wv.shape[-1]
+    _check_tables(wv, wc, D)
+    for name, t in (("sb", sb), ("db", db), ("nb", nb), ("alpha", alpha)):
+        if tuple(t.shape) != (S,):
+            raise ValueError(f"{name} must be ({S},), got {tuple(t.shape)}")
+    if B % _tile(B) or _tile(B) % 8:
+        raise ValueError(f"batch {B} must tile by min(1024, B), a multiple "
+                         "of 8")
+    _check_device(wv, wc, sb, db, nb, src_l, pos_l, negs_l, alpha)
+
+
+def sgns_banded_multiblock_nb_ref(wv, wc, sb, db, nb, src_l, pos_l, negs_l,
+                                  alpha, band_size: int, nb2: int,
+                                  k_equiv: int = 5):
+    """Plain PyTorch twin of K5: K4's loop over micro-steps and 1024-row
+    tiles, with micro-step s's negatives ``wc[nb[s] * nb2 + negs_l[s]]``
+    gathered before its first tile and their deltas added (duplicates
+    summed) after its last. Updates wv, wc in place; returns (wv, wc,
+    loss_sum ()) with the loss summed over all S * B rows."""
+    S, B = src_l.shape
+    Ks = negs_l.shape[1]
+    TB = _tile(B)
+    alpha = alpha.to(torch.float32)
+    loss = torch.zeros((), dtype=torch.float32, device=wv.device)
+    for s in range(S):
+        rows = (nb[s] * nb2 + negs_l[s]).long()
+        cn = wc[rows]
+        d_neg = torch.zeros_like(cn)
+        for t0 in range(0, B, TB):
+            rv = (sb[s] * band_size + src_l[s, t0:t0 + TB]).long()
+            rc = (db[s] * band_size + pos_l[s, t0:t0 + TB]).long()
+            dn, ls = _tile_ref(wv, wc, rv, rc, cn, alpha[s], k_equiv / Ks)
+            d_neg += dn
+            loss += ls
+        wc.index_add_(0, rows, d_neg)
+    return wv, wc, loss
+
+
+def sgns_banded_multiblock_nb(wv, wc, sb, db, nb, src_l, pos_l, negs_l,
+                              alpha, band_size: int, nb2: int,
+                              k_equiv: int = 5):
+    """One superstep with banded negatives (K5, see the module docstring).
+
+    wv, wc: (Np, D) f32 contiguous tables, updated in place.
+    sb, db: (S,) source / context BAND INDICES; nb: (S,) negative WINDOW
+    indices (window w is rows [w * nb2, (w + 1) * nb2) of wc).
+    src_l, pos_l: (S, B) BAND-LOCAL rows; negs_l: (S, Ks) WINDOW-LOCAL
+    rows, in [0, nb2). alpha: (S,) f32 rates.
+    Returns (wv, wc, loss_sum ()). Indices are not bounds-checked on the
+    card (that would synchronise), as on the TPU.
+    """
+    _check_nb(wv, wc, sb, db, nb, src_l, pos_l, negs_l, alpha)
+    if wv.device.type == "cpu":
+        return sgns_banded_multiblock_nb_ref(wv, wc, sb, db, nb, src_l,
+                                             pos_l, negs_l, alpha, band_size,
+                                             nb2, k_equiv)
+    if wv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {wv.device}")
+    lib = _load_nb()
+    S, B = src_l.shape
+    Ks, D = negs_l.shape[1], wv.shape[1]
+    TB = _tile(B)
+    _smem(lib, "sgns_nb", Ks, D)
+    # Tensors made here are freed when this returns, while the launches may
+    # still run: the caching allocator hands their memory only to later work
+    # on the same stream, which runs after them.
+    i32 = [t.to(torch.int32).contiguous()
+           for t in (sb, db, nb, src_l, pos_l, negs_l)]
+    alpha = alpha.to(torch.float32).contiguous()
+    dev = wv.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    # one micro-step's negative rows and their summed deltas, reused step
+    # after step (stream order)
+    cn = torch.empty(Ks, D, **f32)
+    d_neg = torch.empty(Ks, D, **f32)
+    vbuf = torch.empty(TB, D, **f32)
+    dsrc = torch.empty(TB, D, **f32)
+    dpos = torch.empty(TB, D, **f32)
+    gneg = torch.empty(TB, Ks, **f32)
+    loss_rows = torch.empty(S, B, **f32)
+    rc = lib.sgns_banded_multiblock_nb_launch(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        wv.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in i32),
+        alpha.data_ptr(), S, B, TB, Ks, D, band_size, nb2, k_equiv / Ks,
+        cn.data_ptr(), vbuf.data_ptr(), gneg.data_ptr(), dsrc.data_ptr(),
+        dpos.data_ptr(), d_neg.data_ptr(), loss_rows.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"sgns_banded_multiblock_nb launch failed: CUDA error {rc} "
+            f"({lib.sgns_nb_error_string(rc).decode()})")
+    sgns_banded_multiblock_nb.launches += 1
+    return wv, wc, loss_rows.sum()
+
+
+sgns_banded_multiblock_nb.launches = 0
+
+
 def _check_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha):
     if src_l.dim() != 1 or pos_l.shape != src_l.shape:
         raise ValueError(f"src_l/pos_l must be (B,), got "
@@ -218,12 +349,7 @@ def _check_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha):
         raise ValueError(f"cn must be (Ks, D) float32, got "
                          f"{tuple(cn.shape)} {cn.dtype}")
     D = cn.shape[1]
-    for name, t in (("wv", wv), ("wc", wc)):
-        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != D:
-            raise ValueError(f"{name} must be (rows, {D}) float32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous (updated in place)")
+    _check_tables(wv, wc, D)
     for name, t in (("sb", sb), ("db", db), ("alpha", alpha)):
         if t.numel() != 1:
             raise ValueError(f"{name} must hold one value, got "
@@ -232,9 +358,7 @@ def _check_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha):
     if B < 1 or B % _fused_tile(B) or _fused_tile(B) % 8:
         raise ValueError(f"batch {B} must tile by min(2048, B), a multiple "
                          "of 8")
-    devs = {t.device for t in (wv, wc, sb, db, src_l, pos_l, cn, alpha)}
-    if len(devs) != 1:
-        raise ValueError(f"all tensors must share one device, got {devs}")
+    _check_device(wv, wc, sb, db, src_l, pos_l, cn, alpha)
 
 
 def sgns_banded_fused_ref(wv, wc, sb, db, src_l, pos_l, cn, alpha,

@@ -3,9 +3,9 @@
 Port of the SGNS part of ``smore_tpu/ops/update.py`` (``scatter_apply``,
 ``apply_two_tables``, ``sgns_grads``, ``sgns_step``, ``sgns_step_shared``,
 ``sgns_shared_negs_step``, and the banded large-table forms
-``sgns_shared_negs_step_banded`` / ``_sgns_banded_step_fused``). A batched
-step applies every sample against
-the batch-start snapshot of the tables; duplicate rows in a batch sum
+``sgns_shared_negs_step_banded`` / ``_sgns_banded_step_fused`` and the
+band-persistent block ``sgns_banded_block``). A batched step applies every
+sample against the batch-start snapshot of the tables; duplicate rows in a batch sum
 their contributions (collision "sum"), or are divided by their occurrence
 count (collision "mean").
 
@@ -329,3 +329,89 @@ def _sgns_banded_step_fused(w_vertex, w_context, band_start, src, pos, negs,
         src - src_band_start, pos - band_start, cn, alpha, k_equiv=k_equiv)
     w_context.index_add_(0, negs, d_neg)
     return w_vertex, w_context, loss_sum / src.shape[0]
+
+
+# --------------------------------------------------------------------- #
+# Band-PERSISTENT block: the held route. S micro-batches share ONE (source
+# band, context band) stratum (``BandedTables.draw_banded_block``). The TPU
+# sliced both bands once per block, scanned the S updates against the
+# carried slices and wrote them back once; its deviation from S independent
+# banded steps is part of the function and is kept here:
+#   - negatives OUTSIDE the context band read the block-start table and
+#     their deltas apply once, at block end;
+#   - in-band negatives stay fresh and their deltas apply per micro-step;
+#   - in the fused form EVERY negative reads the block-start snapshot and
+#     every d_neg applies at block end.
+# The port updates the tables in place at global rows, with the band starts
+# on the device, so the block-start snapshot is an explicit gather and the
+# in-band test ``0 <= negs - band_start < band_size`` a device mask.
+# --------------------------------------------------------------------- #
+def sgns_banded_block(
+    w_vertex: torch.Tensor,  # (Np, D) order-2 vertex table
+    w_context: torch.Tensor,  # (Np, D), Np padded to a band multiple
+    src_band_start: torch.Tensor,  # () int: every src lies in this band
+    band_start: torch.Tensor,  # () int: every pos lies in this band
+    band_size: int,
+    src: torch.Tensor,  # (S, B) GLOBAL vids, repeat layout if grouped
+    pos: torch.Tensor,  # (S, B) GLOBAL vids inside the context band
+    negs: torch.Tensor,  # (S, Ks) global shared negative pools
+    alphas: torch.Tensor,  # (S,) per-micro-step rates
+    k_equiv: int = 5,
+    src_group: int = 1,
+    pallas_scatter: bool = False,  # the in-band scatters through K2
+    fused: bool = False,  # each micro-step through K3 (group 1 only)
+):
+    """S held micro-steps (see the block comment above). Updates the tables
+    in place; returns (w_vertex, w_context, loss): the mean over steps of
+    the 1024-row cross-entropy (fused: of loss_sum / B)."""
+    S, Ks = negs.shape
+    B, G = src.shape[1], src_group
+    D = w_context.shape[1]
+    negs_rows = negs.reshape(-1)
+    if fused:
+        if G != 1:
+            raise ValueError("the fused block is for the ungrouped path")
+        cn = w_context[negs_rows].reshape(S, Ks, D)  # block-start snapshot
+        src_l, pos_l = src - src_band_start, pos - band_start
+        d_negs, losses = [], []
+        for s in range(S):
+            _, _, d_neg, loss_sum = sgns_banded_fused(
+                w_vertex, w_context, src_band_start, band_start, src_l[s],
+                pos_l[s], cn[s], alphas[s], k_equiv=k_equiv)
+            d_negs.append(d_neg)
+            losses.append(loss_sum / B)
+        w_context.index_add_(0, negs_rows, torch.cat(d_negs))
+        return w_vertex, w_context, torch.stack(losses).mean()
+
+    if B % G:
+        raise ValueError(f"batch {B} not divisible by src_group {G}")
+    negs_l = negs - band_start
+    in_band = ((negs_l >= 0) & (negs_l < band_size)).to(torch.float32)
+    src_x = src[:, ::G] if G > 1 else src  # (S, B / G)
+    if pallas_scatter:
+        src_xl, pos_l = src_x - src_band_start, pos - band_start
+    d_negs, losses = [], []
+    for s in range(S):
+        v = w_vertex[src_x[s]]
+        if G > 1:
+            v = v.repeat_interleave(G, dim=0)
+        # Out-of-band context rows are written only at block end, so this
+        # gather reads them as the block-start snapshot; in-band rows as
+        # the earlier micro-steps left them.
+        d_src, d_pos, d_neg, loss = _shared_negs_deltas(
+            v, w_context[pos[s]], w_context[negs[s]], alphas[s], k_equiv)
+        if G > 1:
+            d_src = d_src.reshape(B // G, G, -1).sum(1)
+        if pallas_scatter:
+            band_scatter_add(w_context, band_start, pos_l[s], d_pos)
+            band_scatter_add(w_vertex, src_band_start, src_xl[s], d_src)
+        else:
+            w_context.index_add_(0, pos[s], d_pos)
+            w_vertex.index_add_(0, src_x[s], d_src)
+        # in-band negative deltas now (out-of-band rows get + 0)
+        w_context.index_add_(0, negs[s], d_neg * in_band[s, :, None])
+        d_negs.append(d_neg)
+        losses.append(loss)
+    out_band = (1.0 - in_band).reshape(-1, 1)
+    w_context.index_add_(0, negs_rows, torch.cat(d_negs) * out_band)
+    return w_vertex, w_context, torch.stack(losses).mean()

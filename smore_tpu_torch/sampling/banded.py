@@ -8,12 +8,12 @@ step's updates touch one band of each table. ``P(stratum) * P(pair |
 stratum)`` telescopes to the reference's joint edge law, so the per-sample
 law is exact; only which samples share a step changes.
 
-``BandedTables.build`` and ``build_stream`` are host numpy, bit-equal to
-the JAX package's; their arrays then live on ``device`` as tensors. The
-draws (``draw_banded_stream``, ``draw_banded_batches_hoisted``,
-``draw_banded_batch``) run on the device from a ``torch.Generator``: its
-numbers differ from JAX's threefry, so they are held to the law, not to
-the bits.
+``BandedTables.build``, ``build_stream`` and ``build_neg_bands`` are host
+numpy, bit-equal to the JAX package's; their arrays then live on ``device``
+as tensors. The draws (``draw_banded_stream``, ``draw_banded_batches_hoisted``,
+``draw_banded_batch``, ``draw_banded_block``, ``draw_neg_banded``) run on the
+device from a ``torch.Generator``: its numbers differ from JAX's threefry,
+so they are held to the law, not to the bits.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ import torch
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.sampling.alias import build_alias, build_alias_segmented
 from smore_tpu_torch.sampling.tables import (
+    _negative_distribution,
     _vertex_distribution,
     build_negative_table,
 )
@@ -58,6 +59,11 @@ class BandedTables:
     neg_pa    (N, 2) f32: the global (unbanded) negative alias table
     stream / stream_meta: optional pre-sampled per-stratum edge stream
               (``build_stream``), entries packed (src_l << 16) | pos_l
+    neg_band_pa / neg_local_pa / nb2: optional banded negative law
+              (``build_neg_bands``): (Np / nb2, 2) f32 [prob, alias] over
+              nb2-row WINDOWS by their deg^0.75 mass, and (Np, 2) f32
+              [prob, window-local alias] per window (padded rows carry no
+              mass)
     """
 
     band_pa: torch.Tensor
@@ -72,6 +78,9 @@ class BandedTables:
     two_d: bool
     stream: torch.Tensor | None = None
     stream_meta: torch.Tensor | None = None
+    neg_band_pa: torch.Tensor | None = None
+    neg_local_pa: torch.Tensor | None = None
+    nb2: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -222,7 +231,58 @@ class BandedTables:
             np.stack([soff, L], 1).astype(np.int32)).to(self.device)
         return self
 
+    def build_neg_bands(self, g: Graph, negative_method: str = "degrees",
+                        power: float = 0.75,
+                        nb2: int = 400) -> "BandedTables":
+        """Stratify the global negative law by nb2-row WINDOWS (host numpy,
+        bit-equal to the JAX package): P(neg = v) = deg(v)^0.75 / Z is
+        P(window) * P(v | window), P(window) the window's share of the
+        mass, so a micro-step that draws all its negatives from one window
+        keeps the exact per-sample law (only which negatives share a step
+        changes). nb2 divides band_size, so a window lies inside one
+        context band, and is a multiple of 16, as the TPU kernel needed."""
+        if self.band_size % nb2 or nb2 % 16:
+            raise ValueError(f"nb2 {nb2} must divide band_size "
+                             f"{self.band_size} and be a multiple of 16")
+        mass = _negative_distribution(g, negative_method).astype(np.float64)
+        mass = np.where(mass > 0, mass**power, 0.0)
+        pad = np.zeros(self.n_rows_padded, dtype=np.float64)
+        pad[: len(mass)] = mass
+        n_win = self.n_rows_padded // nb2
+        win_mass = pad.reshape(n_win, nb2).sum(1)
+        bp, ba = build_alias(win_mass, power=1.0)
+        ba = np.where(ba < 0, np.arange(n_win), ba)
+        indptr = np.arange(n_win + 1, dtype=np.int64) * nb2
+        lp, la = build_alias_segmented(pad, indptr, power=1.0)
+        slot_local = np.arange(self.n_rows_padded, dtype=np.int64) % nb2
+        la = np.where(la >= 0, la, slot_local)  # window-local alias ids
+        self.neg_band_pa = torch.from_numpy(
+            np.stack([bp, ba], 1).astype(np.float32)).to(self.device)
+        self.neg_local_pa = torch.from_numpy(
+            np.stack([lp, la], 1).astype(np.float32)).to(self.device)
+        self.nb2 = nb2
+        return self
+
     # ------------------------------------------------------------------ #
+    def draw_neg_banded(self, gen: torch.Generator, n_negs: int,
+                        steps: int):
+        """Per micro-step one negative WINDOW by its mass share, then n_negs
+        iid window-local draws from its conditional law
+        (``build_neg_bands``). Returns (nb (steps,) window indices, negs_l
+        (steps, n_negs) window-LOCAL rows), both i32."""
+        ub = torch.rand(steps, 2, generator=gen, device=self.device)
+        nw = self.neg_band_pa.shape[0]
+        i = torch.clamp((ub[:, 0] * nw).to(torch.int32), max=nw - 1)
+        brow = self.neg_band_pa[i]
+        nb = torch.where(ub[:, 1] < brow[:, 0], i, brow[:, 1].to(torch.int32))
+        ul = torch.rand(steps, n_negs, 2, generator=gen, device=self.device)
+        r = torch.clamp((ul[..., 0] * self.nb2).to(torch.int32),
+                        max=self.nb2 - 1)
+        rows = self.neg_local_pa[nb[:, None] * self.nb2 + r]
+        negs_l = torch.where(ul[..., 1] < rows[..., 0], r,
+                             rows[..., 1].to(torch.int32))
+        return nb, negs_l
+
     def _draw_strata(self, gen: torch.Generator, steps: int):
         """One stratum alias draw per micro-step -> (stratum, sb, db), the
         band START rows of the source and context sides."""
@@ -251,12 +311,14 @@ class BandedTables:
                            nrow[..., 1].to(torch.int32))
 
     def draw_banded_stream(self, gen: torch.Generator, batch: int,
-                           n_negs: int, steps: int):
+                           n_negs: int, steps: int, with_negs: bool = True):
         """Stream-backed draw: per micro-step one stratum alias draw and one
         contiguous window of its pre-sampled stream. Returns (sb, db,
         src_l, pos_l, negs) shaped (steps,), (steps,), (steps, batch),
         (steps, batch), (steps, n_negs), all i32; src_l and pos_l are
-        BAND-LOCAL rows."""
+        BAND-LOCAL rows. with_negs=False draws no global negatives and
+        returns negs=None (the banded-negative route draws its own with
+        ``draw_neg_banded``)."""
         s, sb, db = self._draw_strata(gen, steps)
         meta = self.stream_meta[s]
         soff, slen = meta[:, 0], meta[:, 1]
@@ -272,7 +334,42 @@ class BandedTables:
         packed = self.stream[win]
         src_l = packed >> 16
         pos_l = packed & 0xFFFF
+        if not with_negs:
+            return sb, db, src_l, pos_l, None
         return sb, db, src_l, pos_l, self._draw_negatives(gen, steps, n_negs)
+
+    def _draw_pairs(self, gen: torch.Generator, s: torch.Tensor,
+                    batch: int, group: int, steps: int):
+        """(src, pos) (steps, batch) i32 GLOBAL vids drawn inside stratum
+        ``s`` ((steps,), or (1,) for one stratum shared by every
+        micro-step): per source one within-stratum alias draw over the edge
+        slots; group > 1 as in ``draw_banded_batches_hoisted``."""
+        bg = batch // group
+        meta = self.band_meta[s]
+        off, cnt = meta[:, 0], meta[:, 1]
+        u = torch.rand(steps, batch, 2 if group == 1 else 4, generator=gen,
+                       device=self.device)
+        r = (u[:, :bg, 0] * cnt[:, None].to(torch.float32)).to(torch.int32)
+        slot = off[:, None] + torch.minimum(
+            r, torch.clamp(cnt[:, None] - 1, min=0))
+        row = self.edge_pa[slot]
+        take = (u[:, :bg, 1] < row[..., 0])[..., None]
+        picked = torch.where(take, row[..., 1:3], row[..., 3:5]).to(
+            torch.int32)
+        src, pos0 = picked[..., 0], picked[..., 1]
+        if group == 1:
+            return src, pos0
+        seg = self.edge_seg[slot]
+        segp = torch.where(take, seg[..., 0:2], seg[..., 2:4]).to(
+            torch.int32).repeat_interleave(group, dim=1)
+        so, sd = segp[..., 0], segp[..., 1]
+        src = src.repeat_interleave(group, dim=1)
+        rr = (u[..., 2] * sd.to(torch.float32)).to(torch.int32)
+        crow = self.ctx_pa[so + torch.minimum(rr, torch.clamp(sd - 1, min=0))]
+        pos = torch.where(u[..., 3] < crow[..., 0], crow[..., 1],
+                          crow[..., 2]).to(torch.int32)
+        pos[:, ::group] = pos0
+        return src, pos
 
     def draw_banded_batches_hoisted(self, gen: torch.Generator, batch: int,
                                     group: int, n_negs: int, steps: int):
@@ -288,35 +385,23 @@ class BandedTables:
         first context of each group is the slot's own and the other
         ``group - 1`` are drawn from the source's (src, stratum) segment by
         its within-segment context law."""
-        bg = batch // group
         s, sb, db = self._draw_strata(gen, steps)
-        meta = self.band_meta[s]
-        off, cnt = meta[:, 0], meta[:, 1]
-        u = torch.rand(steps, batch, 2 if group == 1 else 4, generator=gen,
-                       device=self.device)
-        r = (u[:, :bg, 0] * cnt[:, None].to(torch.float32)).to(torch.int32)
-        slot = off[:, None] + torch.minimum(
-            r, torch.clamp(cnt[:, None] - 1, min=0))
-        row = self.edge_pa[slot]
-        take = (u[:, :bg, 1] < row[..., 0])[..., None]
-        picked = torch.where(take, row[..., 1:3], row[..., 3:5]).to(
-            torch.int32)
-        src, pos0 = picked[..., 0], picked[..., 1]
-        if group > 1:
-            seg = self.edge_seg[slot]
-            segp = torch.where(take, seg[..., 0:2], seg[..., 2:4]).to(
-                torch.int32).repeat_interleave(group, dim=1)
-            so, sd = segp[..., 0], segp[..., 1]
-            src = src.repeat_interleave(group, dim=1)
-            rr = (u[..., 2] * sd.to(torch.float32)).to(torch.int32)
-            crow = self.ctx_pa[so + torch.minimum(
-                rr, torch.clamp(sd - 1, min=0))]
-            pos = torch.where(u[..., 3] < crow[..., 0], crow[..., 1],
-                              crow[..., 2]).to(torch.int32)
-            pos[:, ::group] = pos0
-        else:
-            pos = pos0
+        src, pos = self._draw_pairs(gen, s, batch, group, steps)
         return sb, db, src, pos, self._draw_negatives(gen, steps, n_negs)
+
+    def draw_banded_block(self, gen: torch.Generator, batch: int, group: int,
+                          n_negs: int, steps: int):
+        """Band-PERSISTENT block draw: ONE stratum for ``steps`` consecutive
+        micro-batches (the held route). Each sample's marginal is still the
+        exact joint edge law; only more samples share a stratum. Returns
+        (sb, db, src, pos, negs) shaped (), (), (steps, batch), (steps,
+        batch), (steps, n_negs), all i32: the band starts stay device
+        tensors, shared by every micro-batch; row i is micro-step i's
+        draw, laid out as ``draw_banded_batches_hoisted``'s."""
+        s, sb, db = self._draw_strata(gen, 1)
+        src, pos = self._draw_pairs(gen, s, batch, group, steps)
+        return (sb[0], db[0], src, pos,
+                self._draw_negatives(gen, steps, n_negs))
 
     def draw_banded_batch(self, gen: torch.Generator, batch: int, group: int,
                           n_negs: int):

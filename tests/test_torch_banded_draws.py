@@ -9,7 +9,11 @@ conditional pair law inside a stratum, and the negatives against deg^0.75.
 The grouped and per-step draws of the other banded routes, on 2D and 1D
 tables: the repeat layout of src, sb == 0 on 1D tables, the stratum mass,
 the joint law of each group's first pair and the within-(src, stratum)
-context law of its other pairs."""
+context law of its other pairs. The held route's block draw (one stratum
+for every micro-step of a block), and the banded negatives of the
+``neg_band`` route: window frequencies against window mass, the
+window-local draws against deg^0.75 within the window, and the stream draw
+without global negatives."""
 
 import numpy as np
 import pytest
@@ -249,3 +253,118 @@ def test_grouped_pair_laws_in_a_stratum(graph, two_d):
               src_marg[esrc[sel]] * w / z[esrc[sel]])
     tv = 0.5 * np.abs(emp / emp.sum() - want / want.sum()).sum()
     assert tv < _tv_bound(want, emp.sum()), f"extra-context TV {tv:.4f}"
+
+
+# ----------------------------------------------------- held-block draws
+@pytest.mark.parametrize("group", [1, 4])
+def test_banded_block_draw_law(graph, group):
+    """tests/test_banded.py's block-draw law: one stratum per block, the
+    stratum marginal, in-band rows, and the pair law inside the most drawn
+    stratum (every pair of a group, the extra contexts included, follows
+    the stratum's joint edge law)."""
+    g = graph
+    bt = BandedTables.build(g, band_size=BAND, two_d=True, device=CPU)
+    nb, n = bt.n_bands, g.n_vertices
+    esrc, edst, jw = _joint_law(g)
+    estrat = (esrc // BAND) * nb + edst // BAND
+    strat_p = np.zeros(nb * nb)
+    np.add.at(strat_p, estrat, jw)
+    B, S, reps = 1024, 4, 150
+    gen = _gen(7 + group)
+    strat_n = np.zeros(nb * nb)
+    counts = {}
+    for _ in range(reps):
+        sb, db, src, pos, negs = bt.draw_banded_block(gen, B, group, 8, S)
+        assert sb.shape == db.shape == () and sb.dtype == torch.int32
+        assert src.shape == pos.shape == (S, B) and negs.shape == (S, 8)
+        assert torch.equal(src, src[:, ::group].repeat_interleave(group, 1))
+        src, pos = src.numpy(), pos.numpy()
+        s = (int(sb) // BAND) * nb + int(db) // BAND
+        strat_n[s] += 1
+        assert ((pos >= int(db)) & (pos < int(db) + BAND)).all()
+        assert ((src >= int(sb)) & (src < int(sb) + BAND)).all()
+        counts.setdefault(s, np.zeros(n * n))
+        np.add.at(counts[s], src.ravel() * n + pos.ravel(), 1.0)
+    sd = np.sqrt(strat_p * (1 - strat_p) / reps)
+    assert (np.abs(strat_n / reps - strat_p) < 4 * sd + 1e-12).all()
+    top = int(strat_n.argmax())
+    want = np.zeros(n * n)
+    sel = estrat == top
+    np.add.at(want, esrc[sel] * n + edst[sel], jw[sel])
+    emp = counts[top]
+    tv = 0.5 * np.abs(emp / emp.sum() - want / want.sum()).sum()
+    assert tv < 0.05, f"pair TV {tv:.4f} in stratum {top}"
+
+
+# ---------------------------------------------------- banded negatives
+NB2 = 16
+
+
+def _neg_tables(g):
+    return BandedTables.build(g, band_size=BAND, two_d=True,
+                              device=CPU).build_neg_bands(g, nb2=NB2)
+
+
+def _neg_mass(g, n_pad):
+    p = np.zeros(n_pad)
+    p[:g.n_vertices] = (g.out_degree + g.in_degree) ** 0.75
+    return p / p.sum()
+
+
+def test_neg_window_frequencies_match_mass(graph):
+    g = graph
+    bt = _neg_tables(g)
+    steps = 20000
+    nb, negs_l = bt.draw_neg_banded(_gen(8), 4, steps)
+    assert nb.shape == (steps,) and negs_l.shape == (steps, 4)
+    assert nb.dtype == negs_l.dtype == torch.int32
+    assert int(negs_l.min()) >= 0 and int(negs_l.max()) < NB2
+    win_p = _neg_mass(g, bt.n_rows_padded).reshape(-1, NB2).sum(1)
+    emp = np.bincount(nb.numpy(), minlength=len(win_p)) / steps
+    sd = np.sqrt(win_p * (1 - win_p) / steps)
+    assert (np.abs(emp - win_p) < 4 * sd + 1e-12).all()
+    assert emp[win_p == 0].sum() == 0  # padded windows are never drawn
+
+
+def test_neg_window_conditional_follows_degree_law(graph):
+    """Within the most drawn window, chi-squared of the window-local rows
+    against deg^0.75 restricted to the window (bound: the statistic's mean
+    plus 5 standard deviations); and, one negative per step so that the
+    draws are iid, the lifted global rows against the global law, which
+    the window law telescopes to."""
+    g = graph
+    bt = _neg_tables(g)
+    nb, negs_l = bt.draw_neg_banded(_gen(9), 64, 4000)
+    nb, negs_l = nb.numpy(), negs_l.numpy()
+    p = _neg_mass(g, bt.n_rows_padded)
+    top = int(np.bincount(nb).argmax())
+    counts = np.bincount(negs_l[nb == top].ravel(), minlength=NB2)
+    q = p[top * NB2:(top + 1) * NB2]
+    q = q / q.sum()
+    live = q > 0
+    assert counts[~live].sum() == 0
+    exp = q[live] * counts.sum()
+    chi2 = ((counts[live] - exp) ** 2 / exp).sum()
+    dof = int(live.sum()) - 1
+    assert chi2 < dof + 5 * np.sqrt(2 * dof), chi2
+
+    nb, negs_l = bt.draw_neg_banded(_gen(10), 1, 40000)
+    rows = (nb[:, None] * NB2 + negs_l).numpy().ravel()
+    counts = np.bincount(rows, minlength=g.n_vertices)[:g.n_vertices]
+    exp = p[:g.n_vertices] * counts.sum()
+    chi2 = ((counts - exp) ** 2 / exp).sum()
+    dof = g.n_vertices - 1
+    assert chi2 < dof + 5 * np.sqrt(2 * dof), chi2
+
+
+def test_stream_draw_without_negatives(graph):
+    """with_negs=False returns negs None and the same pairs and strata as
+    the draw with negatives from the same generator state."""
+    bt = _tables(graph, True)
+    a = bt.draw_banded_stream(_gen(11), 64, 16, 8)
+    b = bt.draw_banded_stream(_gen(11), 64, 16, 8, with_negs=False)
+    assert a[4].shape == (8, 16) and b[4] is None
+    for x, y in zip(a[:4], b[:4]):
+        assert torch.equal(x, y)
+    sb, db, src_l, pos_l, negs = multiblock_draw(bt, _gen(11), 64, 0, 8)
+    assert negs is None and torch.equal(src_l, a[2])

@@ -18,6 +18,8 @@ from smore_tpu_torch.ops.sgns_banded import (
     sgns_banded_fused,
     sgns_banded_fused_ref,
     sgns_banded_multiblock,
+    sgns_banded_multiblock_nb,
+    sgns_banded_multiblock_nb_ref,
     sgns_banded_multiblock_ref,
 )
 
@@ -249,4 +251,81 @@ def test_line_banded_routes_train_through_k3_k2(cuda, order, kw, counter):
             steps_per_call=32, verbose=False, **kw)
     assert counter.launches > before
     assert m.banded_tables.two_d == (order == 2)
+    assert _link_auc(m, g) > 0.8
+
+
+# K5: (S, B, band, n_bands, nb2, Ks, D, idx_hi): a small case with heavy
+# duplicates, and the neg_band route's shapes (16 micro-steps of two
+# 1024-row tiles, band 16400, window 3280) on a 6-band table
+K5_CASES = [(4, 128, 64, 4, 16, 16, 64, 16),
+            (16, 2048, 16400, 6, 3280, 128, 64, 16400)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,B,band,n_bands,nb2,Ks,D,idx_hi", K5_CASES)
+def test_k5_kernel_matches_twin(cuda, S, B, band, n_bands, nb2, Ks, D,
+                                idx_hi):
+    rng = np.random.default_rng(S + B)
+    n = band * n_bands
+    ratio = band // nb2
+    db = rng.integers(0, n_bands, S)
+    nb = rng.integers(0, n // nb2, S)
+    nb[1] = db[1] * ratio + 1  # the window inside its own context band
+    nb[2] = db[1] * ratio  # inside the previous step's context band
+    nb[3] = nb[0]  # a window revisited
+    x = dict(
+        wv=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        wc=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        sb=rng.integers(0, n_bands, S), db=db, nb=nb,
+        src_l=rng.integers(0, idx_hi, (S, B)),
+        pos_l=rng.integers(0, idx_hi, (S, B)),
+        negs_l=rng.integers(0, min(nb2, 64), (S, Ks)),
+        alpha=np.linspace(0.05, 0.03, S).astype(np.float32),
+    )
+    args = ("wv", "wc", "sb", "db", "nb", "src_l", "pos_l", "negs_l",
+            "alpha")
+    a = {k: torch.from_numpy(np.asarray(
+        v, np.float32 if v.dtype.kind == "f" else np.int32)).to(cuda)
+        for k, v in x.items()}
+    b = {k: v.clone() for k, v in a.items()}
+    before = sgns_banded_multiblock_nb.launches
+    kv, kc, kl = sgns_banded_multiblock_nb(*(a[k] for k in args),
+                                           band_size=band, nb2=nb2)
+    assert sgns_banded_multiblock_nb.launches == before + 1
+    assert kv is a["wv"] and kc is a["wc"]
+    rv, rc, rl = sgns_banded_multiblock_nb_ref(*(b[k] for k in args),
+                                               band_size=band, nb2=nb2)
+    torch.cuda.synchronize()
+    for got, want in ((kv, rv), (kc, rc)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(kl), float(rl), rtol=RTOL)
+    rows = (x["nb"][:, None] * nb2 + x["negs_l"]).ravel()
+    assert not np.allclose(kc.cpu().numpy()[rows], x["wc"][rows])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw,counter", [
+    (dict(neg_band=True), sgns_banded_multiblock_nb),
+    (dict(multiband=False, band_hold=True, hoist=4), sgns_banded_fused),
+    (dict(multiband=False, band_hold=True, hoist=4, use_pallas="scatter"),
+     band_scatter_add),
+])
+def test_line_neg_band_and_band_hold_train(cuda, kw, counter):
+    """On a CUDA device LINE o2 with neg_band=True takes the multiblock
+    route with banded negatives (K5, not K4); band_hold=True off it holds
+    one stratum per block, through K3 ("auto") or K2 ("scatter"). Each
+    learns the communities."""
+    g = _toy_graph()
+    m = LINE(g, seed=0, device=cuda)
+    m.init(dim=64, order=2)
+    before = counter.launches, sgns_banded_multiblock.launches
+    m.train(banded=True, band_size=64, batch=128, sample_times=0.2,
+            steps_per_call=32, verbose=False, **kw)
+    assert counter.launches > before[0]
+    if counter is sgns_banded_multiblock_nb:
+        assert sgns_banded_multiblock.launches == before[1]
+        assert m.banded_tables.nb2 == 64
+    else:
+        assert m.last_driver.micro_steps == 4
     assert _link_auc(m, g) > 0.8

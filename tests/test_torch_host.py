@@ -1,8 +1,9 @@
 """Host layer of the PyTorch port against smore_tpu: bit-equal.
 
 CSR and names, alias tables, the negative table, every array of the banded
-tables and of the pre-sampled edge stream, and the embedding text are all
-host numpy in both packages and must agree exactly."""
+tables, of the pre-sampled edge stream and of the banded negative law, and
+the embedding text are all host numpy in both packages and must agree
+exactly."""
 
 import os
 
@@ -141,6 +142,31 @@ def test_edge_stream_bit_equal(two_d):
     for f in ("stream", "stream_meta"):
         a, b = np.asarray(getattr(jb, f)), getattr(tb, f).numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+@pytest.mark.parametrize("method", ["degrees", "in_degrees"])
+@pytest.mark.parametrize("nb2", [16, 64])
+def test_neg_bands_bit_equal(nb2, method):
+    """The window and window-local negative alias tables, whole-band (64)
+    and finer (16) windows, padded rows included."""
+    jg, tg = _pair("comm")
+    jb = JBanded.build(jg, band_size=64).build_neg_bands(
+        jg, negative_method=method, nb2=nb2)
+    tb = TBanded.build(tg, band_size=64, device=CPU).build_neg_bands(
+        tg, negative_method=method, nb2=nb2)
+    assert jb.nb2 == tb.nb2 == nb2
+    for f in ("neg_band_pa", "neg_local_pa"):
+        a, b = np.asarray(getattr(jb, f)), getattr(tb, f).numpy()
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+    assert tb.neg_band_pa.shape == (tb.n_rows_padded // nb2, 2)
+
+
+def test_neg_bands_reject_bad_window():
+    _, tg = _pair("comm")
+    tb = TBanded.build(tg, band_size=64, device=CPU)
+    for nb2 in (24, 8):  # does not divide the band / not a multiple of 16
+        with pytest.raises(ValueError, match="nb2"):
+            tb.build_neg_bands(tg, nb2=nb2)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

@@ -4,9 +4,9 @@ smore_tpu.
 One superstep on injected draws (rtol 2e-5, atol 1e-6: f32 on both sides,
 differing only in sum order), TrainDriver's alpha schedule (bit-equal in
 f32), the routing (same batch, band, micro-steps and steps per call), end
-to end quality on a toy community graph, the routes not ported yet, the
-unbanded and the other banded routes that now train, and the entry points'
-default device (the card)."""
+to end quality on a toy community graph, the route not ported yet
+(``mesh``), the unbanded and the other banded routes that now train, and
+the entry points' default device (the card)."""
 
 import inspect
 
@@ -225,15 +225,12 @@ _BANDED_KW = dict(sample_times=0.01, batch=128, band_size=BAND, banded=True,
                   multiband=True, verbose=False)
 
 
-@pytest.mark.parametrize("route", ["band_hold", "neg_band", "mesh"])
+@pytest.mark.parametrize("route", ["mesh"])
 def test_unported_routes_raise(graphs, route):
     _, tg = graphs
     m = TLINE(tg, seed=0, device=CPU)
     m.init(dim=64, order=2)
     kw = dict(_BANDED_KW, **{
-        "band_hold": dict(multiband=False, band_hold=True,
-                          use_pallas=False),
-        "neg_band": dict(neg_band=True),
         "mesh": dict(mesh=object()),
     }[route])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -246,17 +243,21 @@ def test_unported_routes_raise(graphs, route):
     ("order1_scatter", 1, dict(use_pallas=True)),
     ("no_multiband", 2, dict(multiband=False, use_pallas=False)),
     ("scatter_group4", 2, dict(multiband=False, use_pallas=True, group=4)),
+    ("band_hold", 2, dict(multiband=False, band_hold=True, use_pallas=False)),
+    ("neg_band", 2, dict(neg_band=True)),
 ])
 def test_banded_routes_train(graphs, route, order, kw):
-    """The routes that raised before the remaining banded routes were
-    ported: they train on band tables (1D for order 1, 2D for order 2)."""
+    """The routes that raised before the banded routes were ported: they
+    train on band tables (1D for order 1, 2D for order 2); neg_band on the
+    multiblock route's 16 micro-steps per superstep."""
     _, tg = graphs
     m = TLINE(tg, seed=0, device=CPU)
     m.init(dim=64, order=order)
     m.train(**dict(_BANDED_KW, **kw))
     bt = m.banded_tables
     assert bt is not None and bt.two_d == (order == 2)
-    assert m.last_driver.ctx is bt and m.last_driver.micro_steps == 8
+    assert m.last_driver.ctx is bt
+    assert m.last_driver.micro_steps == (16 if route == "neg_band" else 8)
     assert m.last_driver.executed_samples >= 10_000
     for v in m.state.values():
         assert v.shape == (tg.n_vertices, 64) and torch.isfinite(v).all()
