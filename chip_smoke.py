@@ -9,12 +9,18 @@ Phases (any failure exits non-zero; there is no CPU path):
   2. build: compiles smore_tpu_torch/csrc/*.cu with nvcc, one process per
      source, all started together (first use)
   3. K4 vs twin at the banded path's shapes (S=16 micro-steps, B=2048,
-     band 16400, Ks=128, D=64, 68 x 16400 table rows): tables, d_neg and
-     loss must agree, and both times are printed
+     band 16400, Ks=128, D=64, 68 x 16400 table rows) and on the
+     all-collide inputs of tests/torch_superstep_inputs.py (every source
+     and positive row one vertex): tables, d_neg and loss must agree. One
+     call must be ONE CUDA kernel launch as torch.profiler counts them (the
+     persistent superstep kernel); its co-resident grid, ptxas registers
+     and spills, both times, the bound and the share of it are printed
   4. K5 vs twin at the same shapes with 3280-row negative windows, hot
      duplicate rows in src, pos and the negatives, a window inside its own
      step's context band, one inside the previous step's and a revisited
-     one: tables and loss must agree; both times and the bound are printed
+     one, and on the all-collide inputs (negatives in a window of the
+     collided band): tables and loss must agree; the same launch count and
+     prints
   5. K1 vs twin at the unbanded path's shapes (B=32768, Ks=128, D=64):
      d_src, d_pos and d_neg must agree, and both times are printed
   6. K3 vs twin at the fused route's shapes (57 x 16392-row tables,
@@ -89,6 +95,15 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "build", "chip_smoke")
+# the all-collide superstep inputs that the tests hold the twins to the
+# Pallas kernels with (numpy only)
+sys.path.append(os.path.join(HERE, "tests"))
+from torch_superstep_inputs import (  # noqa: E402
+    ALL_COLLIDE,
+    ALL_COLLIDE_NB,
+    multiblock_inputs,
+    multiblock_nb_inputs,
+)
 
 # banded shapes: LINE o2 multiblock defaults at Youtube scale; neg_band
 # route's negative window
@@ -269,6 +284,70 @@ def _compare(name, got, want) -> float:
     return float(np.abs(g - w).max())
 
 
+# host calls that put work on the card, as torch.profiler names them
+_RUNTIME_WORK = ("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy")
+
+
+def _cuda_work(call, calls: int = 3) -> tuple:
+    """What ``calls`` calls of ``call`` put on the card, as torch.profiler
+    records it (after a warm-up call): the host's launch, memset and copy
+    calls, and the names of the device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    events = prof.events()
+    host = [e.name for e in events if e.name.startswith(_RUNTIME_WORK)]
+    kernels = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    return host, kernels
+
+
+def _superstep_report(tag: str, name: str, prefix: str, kernel) -> None:
+    """The persistent superstep kernel's CUDA launches per call (must be 1:
+    the host's launch calls; the device may record fewer kernels, never
+    another kernel), its grid and its ptxas report."""
+    from smore_tpu_torch.ops import _build, sgns_banded
+
+    host, kernels = _cuda_work(kernel, calls=3)
+    log(f"{tag} CUDA launches per call (profiler, 3 calls): host "
+        f"{len(host) / 3:g} {sorted(set(host))}, device kernels recorded "
+        f"{len(kernels)} {sorted(set(kernels))}")
+    require(len(host) == 3 and 0 < len(kernels) <= 3
+            and all("superstep" in k for k in kernels),
+            f"{tag}: 3 calls put {host} / {kernels} on the card, not 3 "
+            "launches of the superstep kernel")
+    lib = sgns_banded._libs[name]
+    log(f"{tag} grid: {getattr(lib, f'{prefix}_grid_size')(0, KS, D)} "
+        f"co-resident blocks of 256 threads, "
+        f"{getattr(lib, f'{prefix}_smem_bytes')(KS, D)} B of shared memory "
+        "each")
+    for line in _build.build_info[name][1].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+
+def _all_collide_check(tag: str, kernel, twin, x: dict, args, **kw) -> None:
+    """Kernel against twin on the all-collide inputs (numpy ``x``)."""
+    a = {k: torch.from_numpy(v.copy()).cuda() for k, v in x.items()}
+    b = {k: v.clone() for k, v in a.items()}
+    got = kernel(*(a[k] for k in args), **kw)
+    want = twin(*(b[k] for k in args), **kw)
+    torch.cuda.synchronize()
+    err = max(_compare(f"{tag} all-collide {i}", g, w)
+              for i, (g, w) in enumerate(zip(got[:-1], want[:-1])))
+    np.testing.assert_allclose(float(got[-1]), float(want[-1]), rtol=RTOL,
+                               err_msg=f"kernel vs twin: {tag} loss")
+    log(f"{tag} vs twin, all-collide (S={x['src_l'].shape[0]} "
+        f"B={x['src_l'].shape[1]}): max |diff| {err:.3e} within rtol {RTOL} "
+        f"atol {ATOL}; loss {float(got[-1]):.4f} vs {float(want[-1]):.4f}")
+
+
 def _superstep_inputs(seed: int, device):
     """Random inputs at the banded path's shapes, with duplicate rows: half
     of each step's indices come from 64 hot rows of its band."""
@@ -318,6 +397,13 @@ def phase_k4_vs_twin(device) -> dict:
     log(f"K4 vs twin (S={S} B={B} band={BAND} Ks={KS} D={D}): "
         f"max |diff| {err:.3e} within rtol {RTOL} atol {ATOL}; "
         f"loss {float(kl):.6f} vs {float(rl):.6f}")
+    c = ALL_COLLIDE
+    _all_collide_check("K4", sgns_banded_multiblock,
+                       sgns_banded_multiblock_ref, multiblock_inputs(**c),
+                       _ARGS, band_size=c["band"])
+    _superstep_report("K4", "sgns_banded_multiblock", "sgns_mb",
+                      lambda: sgns_banded_multiblock(*(x[k] for k in _ARGS),
+                                                     band_size=BAND))
     ms, t_kern, plain_ms, t_plain = _alternate(
         lambda: sgns_banded_multiblock_ref(*(y[k] for k in _ARGS),
                                            band_size=BAND),
@@ -329,8 +415,9 @@ def phase_k4_vs_twin(device) -> dict:
     rows = (_rows(h["sb"][:, None] * BAND + h["src_l"])
             + _rows(h["db"][:, None] * BAND + h["pos_l"]))
     nbytes = (2 * rows * D + 2 * S * KS * D) * 4 + S * (2 * B + 3) * 4
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **_bound("K4", _sgns_flops(S * B, KS, D), nbytes),
+    bound = _bound("K4", _sgns_flops(S * B, KS, D), nbytes)
+    log(f"K4 at {100 * bound['bound_ms'] / ms:.1f}% of its bound")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
                 library_ms=None)
 
 
@@ -381,6 +468,14 @@ def phase_k5_vs_twin(device) -> dict:
     log(f"K5 vs twin (S={S} B={B} band={BAND} nb2={NB2} Ks={KS} D={D}): "
         f"max |diff| {err:.3e} within rtol {RTOL} atol {ATOL}; "
         f"loss {float(kl):.6f} vs {float(rl):.6f}")
+    c = ALL_COLLIDE_NB
+    _all_collide_check("K5", sgns_banded_multiblock_nb,
+                       sgns_banded_multiblock_nb_ref,
+                       multiblock_nb_inputs(**c), _NB_ARGS,
+                       band_size=c["band"], nb2=c["nb2"])
+    _superstep_report("K5", "sgns_banded_multiblock_nb", "sgns_nb",
+                      lambda: sgns_banded_multiblock_nb(
+                          *(x[k] for k in _NB_ARGS), **kw))
     ms, t_kern, plain_ms, t_plain = _alternate(
         lambda: sgns_banded_multiblock_nb_ref(*(y[k] for k in _NB_ARGS),
                                               **kw),
@@ -396,8 +491,9 @@ def phase_k5_vs_twin(device) -> dict:
             + _rows(h["db"][:, None] * BAND + h["pos_l"],
                     h["nb"][:, None] * NB2 + h["negs_l"]))
     nbytes = 2 * rows * D * 4 + S * (2 * B + KS + 4) * 4
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **_bound("K5", _sgns_flops(S * B, KS, D), nbytes),
+    bound = _bound("K5", _sgns_flops(S * B, KS, D), nbytes)
+    log(f"K5 at {100 * bound['bound_ms'] / ms:.1f}% of its bound")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
                 library_ms=None)
 
 

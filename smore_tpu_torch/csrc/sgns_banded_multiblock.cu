@@ -5,59 +5,75 @@
 // S micro-steps run in order; micro-step s works source band sb[s] of the
 // vertex table Wv and context band db[s] of the context table Wc, and its
 // batch of B samples is cut into tiles of TB rows that also run in order.
-// Each tile is one banded SGNS tile (sgns_banded_tile.cuh: the math, what
-// bounds it and the two launches).
 //
 // cn (S, Ks, D) is the caller's snapshot of the shared negatives; d_neg is
 // applied by the caller after the superstep. Every gather sees the writes of
 // earlier tiles and steps; duplicates inside a tile sum.
 //
-// The TPU's band slabs, 2-row table fold and 128-lane layout existed for
-// VMEM and Mosaic; here the tables are plain (Np, D) f32 and the L2 does the
-// slab's work. The host loop below launches A then B per tile and per
-// micro-step on the caller's stream: stream order gives the TPU kernel's
-// tile-serial and step-serial update order.
+// The whole superstep is ONE cooperative launch of the persistent kernel in
+// sgns_banded_superstep.cuh (the math, what bounds it and the design): two
+// grid-wide phases per tile, and d_neg of all S steps reduced beside the
+// last tile's scatters. The TPU's band slabs, 2-row table fold and 128-lane
+// layout existed for VMEM and Mosaic; here the tables are plain (Np, D) f32
+// and the L2 does the slab's work.
 
-#include "sgns_banded_tile.cuh"
+#include "sgns_banded_superstep.cuh"
 
 extern "C" {
 
-size_t sgns_mb_grads_smem_bytes(int Ks, int D) {
-  return sgns_tile::grads_smem_bytes(Ks, D);
+// Dynamic shared memory of one block (0 when (Ks, D) are not supported).
+size_t sgns_mb_smem_bytes(int Ks, int D) {
+  return sgns_ss::supported<false>(Ks, D) ? sgns_ss::plan<false>(Ks, D).smem
+                                                   : 0;
 }
 
-size_t sgns_mb_scatter_smem_bytes(int Ks, int D) {
-  return sgns_tile::scatter_smem_bytes(Ks, D);
+// Floats of the scratch buffer one launch needs.
+size_t sgns_mb_scratch_floats(int S, int B, int tb, int Ks, int D) {
+  return sgns_ss::scratch_floats(S * B, tb, Ks, D);
+}
+
+// The grid one launch uses (one block on each SM), or minus the
+// cudaError_t that prevents it.
+int sgns_mb_grid_size(int device, int Ks, int D) {
+  int grid = 0;
+  const cudaError_t err = sgns_ss::grid_size<false>(device, Ks, D, &grid);
+  return err == cudaSuccess ? grid : -(int)err;
 }
 
 const char* sgns_mb_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// One superstep: S micro-steps of B samples, tiles of tb rows (B % tb == 0).
-// Index arrays are int32 and row-major (S, B); cn and d_neg are (S, Ks, D);
-// scratch: vbuf, dsrc, dpos (tb, D), gneg (tb, Ks); loss_rows (S, B).
-// Returns the first cudaError_t of any launch (0 when all were accepted).
+// One superstep: S micro-steps of B samples, tiles of tb rows (B % tb == 0,
+// tb % 8 == 0, D % 4 == 0). Index arrays are int32 and row-major (S, B); cn
+// and d_neg are (S, Ks, D); scratch holds sgns_mb_scratch_floats floats;
+// loss receives the loss sum over all S * B rows. Returns the launch's
+// cudaError_t (0 when it was accepted).
 int sgns_banded_multiblock_launch(
     int device, float* wv, float* wc, const int* sb, const int* db,
     const int* src_l, const int* pos_l, const float* cn, const float* alpha,
     int S, int B, int tb, int Ks, int D, int band, float kscale,
-    float* vbuf, float* gneg, float* dsrc, float* dpos, float* d_neg,
-    float* loss_rows, void* stream_handle) {
-  cudaError_t err = sgns_tile::prepare(device, Ks, D);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t stream = (cudaStream_t)stream_handle;
-  for (int s = 0; s < S; ++s) {
-    for (int row0 = 0; row0 < B; row0 += tb) {
-      const size_t off = (size_t)s * B + row0;
-      err = sgns_tile::launch_tile(
-          stream, wv, wc, sb + s, db + s, src_l + off, pos_l + off,
-          cn + (size_t)s * Ks * D, alpha + s, tb, Ks, D, band, kscale, vbuf,
-          gneg, dsrc, dpos, d_neg + (size_t)s * Ks * D, loss_rows + off);
-      if (err != cudaSuccess) return (int)err;
-    }
-  }
-  return 0;
+    float* scratch, float* d_neg, float* loss, void* stream_handle) {
+  sgns_ss::Params p = {};
+  p.wv = wv;
+  p.wc = wc;
+  p.sb = sb;
+  p.db = db;
+  p.src = src_l;
+  p.pos = pos_l;
+  p.cn = cn;
+  p.alpha = alpha;
+  p.S = S;
+  p.B = B;
+  p.tb = tb;
+  p.Ks = Ks;
+  p.D = D;
+  p.band = band;
+  p.kscale = kscale;
+  p.d_neg = d_neg;
+  p.loss = loss;
+  return (int)sgns_ss::launch<false>(device, p, scratch,
+                                     (cudaStream_t)stream_handle);
 }
 
 }  // extern "C"

@@ -4,108 +4,84 @@
 // sgns_banded_multiblock_nb (body _make_multi_kernel_nb): K4's superstep
 // (sgns_banded_multiblock.cu) where micro-step s takes its Ks shared
 // negatives from its own window of nb2 context rows, starting at row
-// nb[s] * nb2. Per micro-step, in stream order:
+// nb[s] * nb2. Per micro-step, inside the one cooperative launch of
+// sgns_banded_superstep.cuh:
 //
-//   (a) nb_gather: cn = Wc[nb[s] * nb2 + negs[s, :]] from the CURRENT table,
-//       and d_neg = 0;
-//   (b) the step's tiles, as in K4 (sgns_banded_tile.cuh), against that cn,
-//       accumulating d_neg;
-//   (c) nb_scatter: Wc[nb[s] * nb2 + negs[s, j]] += d_neg[j] with atomicAdd,
-//       so duplicate negatives sum.
+//   (a) every block stages cn = Wc[nb[s] * nb2 + negs[s, :]] from the
+//       CURRENT table into its shared memory when the step starts;
+//   (b) the step's tiles run against that cn, as in K4;
+//   (c) beside the last tile's scatters, the step's d_neg is reduced from
+//       the kept v and g_neg rows and added into those window rows with
+//       atomics, so duplicate negatives sum; a grid barrier follows.
 //
 // So every gather sees every write of earlier steps (their band scatters and
-// their negative deltas), and a step's negative deltas land after its own
-// positive and source scatters: the TPU kernel's update order. The TPU also
-// staged the window through a third VMEM slab and carried conflict flags
-// (conf, confn, ninc, noff, wbi) and a parity mask for its 2-row table fold,
-// all to keep two VMEM copies of one HBM row from losing writes at
-// write-back; the tables here are plain (Np, D) f32 in device memory and L2,
-// and none of that has a counterpart.
-//
-// What bounds it: K4's tile (row gathers and atomics into L2-resident bands,
-// and the launch rate). (a) and (c) move Ks rows each (32 KB at Ks = 128,
-// D = 64): one thread per element, Ks * D / 256 blocks. That is six launches
-// per micro-step at B = 2048; folding (a) and (c) into the tile kernels is
-// later work.
+// their negative deltas), and a step's negative deltas land with its own
+// last positive and source scatters, before the next step: the TPU kernel's
+// update order. The TPU also staged the window through a third VMEM slab
+// and carried conflict flags (conf, confn, ninc, noff, wbi) and a parity
+// mask for its 2-row table fold, all to keep two VMEM copies of one HBM row
+// from losing writes at write-back; the tables here are plain (Np, D) f32 in
+// device memory and L2, and none of that has a counterpart.
 
-#include "sgns_banded_tile.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads) nb_gather(
-    const float* __restrict__ wc, const int* __restrict__ nb,
-    const int* __restrict__ negs, int Ks, int D, int nb2,
-    float* __restrict__ cn, float* __restrict__ d_neg) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= Ks * D) return;
-  const int64_t row = (int64_t)(*nb) * nb2 + negs[i / D];
-  cn[i] = wc[row * D + i % D];
-  d_neg[i] = 0.f;
-}
-
-__global__ void __launch_bounds__(kThreads) nb_scatter(
-    float* __restrict__ wc, const int* __restrict__ nb,
-    const int* __restrict__ negs, int Ks, int D, int nb2,
-    const float* __restrict__ d_neg) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= Ks * D) return;
-  const int64_t row = (int64_t)(*nb) * nb2 + negs[i / D];
-  atomicAdd(wc + row * D + i % D, d_neg[i]);
-}
-
-}  // namespace
+#include "sgns_banded_superstep.cuh"
 
 extern "C" {
 
-size_t sgns_nb_grads_smem_bytes(int Ks, int D) {
-  return sgns_tile::grads_smem_bytes(Ks, D);
+// Dynamic shared memory of one block (0 when (Ks, D) are not supported).
+size_t sgns_nb_smem_bytes(int Ks, int D) {
+  return sgns_ss::supported<true>(Ks, D) ? sgns_ss::plan<true>(Ks, D).smem
+                                                   : 0;
 }
 
-size_t sgns_nb_scatter_smem_bytes(int Ks, int D) {
-  return sgns_tile::scatter_smem_bytes(Ks, D);
+// Floats of the scratch buffer one launch needs.
+size_t sgns_nb_scratch_floats(int S, int B, int tb, int Ks, int D) {
+  return sgns_ss::scratch_floats(B, tb, Ks, D);
+}
+
+// The grid one launch uses (one block on each SM), or minus the
+// cudaError_t that prevents it.
+int sgns_nb_grid_size(int device, int Ks, int D) {
+  int grid = 0;
+  const cudaError_t err = sgns_ss::grid_size<true>(device, Ks, D, &grid);
+  return err == cudaSuccess ? grid : -(int)err;
 }
 
 const char* sgns_nb_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// One superstep: S micro-steps of B samples, tiles of tb rows (B % tb == 0).
-// Index arrays are int32 and row-major: sb, db, nb (S,), src_l, pos_l (S, B),
-// negs_l (S, Ks) window-local. Scratch: cn, d_neg (Ks, D), reused step after
-// step; vbuf, dsrc, dpos (tb, D), gneg (tb, Ks); loss_rows (S, B).
-// Returns the first cudaError_t of any launch (0 when all were accepted).
+// One superstep: S micro-steps of B samples, tiles of tb rows (B % tb == 0,
+// tb % 8 == 0, D % 4 == 0). Index arrays are int32 and row-major: sb, db,
+// nb (S,), src_l, pos_l (S, B), negs_l (S, Ks) window-local. scratch holds
+// sgns_nb_scratch_floats floats; loss receives the loss sum over all S * B
+// rows. Returns the launch's cudaError_t (0 when it was accepted).
 int sgns_banded_multiblock_nb_launch(
     int device, float* wv, float* wc, const int* sb, const int* db,
     const int* nb, const int* src_l, const int* pos_l, const int* negs_l,
     const float* alpha, int S, int B, int tb, int Ks, int D, int band,
-    int nb2, float kscale, float* cn, float* vbuf, float* gneg, float* dsrc,
-    float* dpos, float* d_neg, float* loss_rows, void* stream_handle) {
-  cudaError_t err = sgns_tile::prepare(device, Ks, D);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t stream = (cudaStream_t)stream_handle;
-  const int blocks = (Ks * D + kThreads - 1) / kThreads;
-  for (int s = 0; s < S; ++s) {
-    const int* negs = negs_l + (size_t)s * Ks;
-    nb_gather<<<blocks, kThreads, 0, stream>>>(wc, nb + s, negs, Ks, D, nb2,
-                                               cn, d_neg);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    for (int row0 = 0; row0 < B; row0 += tb) {
-      const size_t off = (size_t)s * B + row0;
-      err = sgns_tile::launch_tile(
-          stream, wv, wc, sb + s, db + s, src_l + off, pos_l + off, cn,
-          alpha + s, tb, Ks, D, band, kscale, vbuf, gneg, dsrc, dpos, d_neg,
-          loss_rows + off);
-      if (err != cudaSuccess) return (int)err;
-    }
-    nb_scatter<<<blocks, kThreads, 0, stream>>>(wc, nb + s, negs, Ks, D, nb2,
-                                                d_neg);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+    int nb2, float kscale, float* scratch, float* loss,
+    void* stream_handle) {
+  sgns_ss::Params p = {};
+  p.wv = wv;
+  p.wc = wc;
+  p.sb = sb;
+  p.db = db;
+  p.nb = nb;
+  p.src = src_l;
+  p.pos = pos_l;
+  p.negs = negs_l;
+  p.alpha = alpha;
+  p.S = S;
+  p.B = B;
+  p.tb = tb;
+  p.Ks = Ks;
+  p.D = D;
+  p.band = band;
+  p.nb2 = nb2;
+  p.kscale = kscale;
+  p.loss = loss;
+  return (int)sgns_ss::launch<true>(device, p, scratch,
+                                     (cudaStream_t)stream_handle);
 }
 
 }  // extern "C"

@@ -22,6 +22,10 @@ import torch
 
 _KERNEL = "band_scatter_add"
 _lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the launcher's C signature as ctypes passes it (pointers and the stream as
+# c_void_p), held to csrc/ by tests/test_torch_sgns_banded.py
+LAUNCH_ARGTYPES = {_KERNEL: [_I] + [_P] * 4 + [_I] * 2 + [_P]}
 
 
 def _load():
@@ -30,11 +34,10 @@ def _load():
         from smore_tpu_torch.ops._build import load_kernel_lib
 
         lib = load_kernel_lib(_KERNEL)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.band_scatter_add_launch.restype = i
-        lib.band_scatter_add_launch.argtypes = [i] + [p] * 4 + [i] * 2 + [p]
+        lib.band_scatter_add_launch.restype = _I
+        lib.band_scatter_add_launch.argtypes = LAUNCH_ARGTYPES[_KERNEL]
         lib.band_scatter_error_string.restype = ctypes.c_char_p
-        lib.band_scatter_error_string.argtypes = [i]
+        lib.band_scatter_error_string.argtypes = [_I]
         _lib = lib
     return _lib
 

@@ -29,6 +29,12 @@ import torch
 _KERNEL = "sgns_shared_grads"
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
 _lib = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the launcher's C signature as ctypes passes it (pointers and the stream as
+# c_void_p), held to csrc/ by tests/test_torch_sgns_banded.py
+LAUNCH_ARGTYPES = {
+    _KERNEL: [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float] + [_P] * 5,
+}
 
 
 def _load():
@@ -37,14 +43,12 @@ def _load():
         from smore_tpu_torch.ops._build import load_kernel_lib
 
         lib = load_kernel_lib(_KERNEL)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sgns_shared_grads_launch.restype = i
-        lib.sgns_shared_grads_launch.argtypes = (
-            [i] + [p] * 4 + [i] * 3 + [ctypes.c_float] + [p] * 5)
+        lib.sgns_shared_grads_launch.restype = _I
+        lib.sgns_shared_grads_launch.argtypes = LAUNCH_ARGTYPES[_KERNEL]
         lib.sgns_sg_smem_bytes.restype = ctypes.c_size_t
-        lib.sgns_sg_smem_bytes.argtypes = [i, i]
+        lib.sgns_sg_smem_bytes.argtypes = [_I, _I]
         lib.sgns_sg_error_string.restype = ctypes.c_char_p
-        lib.sgns_sg_error_string.argtypes = [i]
+        lib.sgns_sg_error_string.argtypes = [_I]
         _lib = lib
     return _lib
 

@@ -28,14 +28,18 @@ where micro-step s draws its Ks negatives from its own nb2-row WINDOW
 table before the step's first tile and their summed deltas added back after
 its last tile, so there is no caller snapshot and no deferred ``d_neg``.
 The TPU's third slab stream and its conflict flags (which kept overlapping
-VMEM copies of one HBM row from losing writes) have no counterpart: stream
-order gives the same update order.
+VMEM copies of one HBM row from losing writes) have no counterpart: grid
+barriers inside one launch give the same update order.
 
 Each wrapper runs its plain PyTorch twin (``*_ref``) for CPU tensors and
-launches its CUDA kernel (``csrc/sgns_banded_multiblock.cu``,
-``csrc/sgns_banded_multiblock_nb.cu``, ``csrc/sgns_banded_fused.cu``, all on
-the tile of ``csrc/sgns_banded_tile.cuh``) for CUDA tensors, or raises; it
-never falls back. ``<wrapper>.launches`` counts kernel launches.
+launches its CUDA kernel for CUDA tensors, or raises; it never falls back.
+K4 (``csrc/sgns_banded_multiblock.cu``) and K5
+(``csrc/sgns_banded_multiblock_nb.cu``) are each ONE cooperative launch of
+the persistent kernel of ``csrc/sgns_banded_superstep.cuh`` per superstep;
+its blocks must all be co-resident on the card. K3
+(``csrc/sgns_banded_fused.cu``) runs the tile of
+``csrc/sgns_banded_tile.cuh``. ``<wrapper>.launches`` counts wrapper calls
+that launched their kernel.
 """
 
 from __future__ import annotations
@@ -57,51 +61,76 @@ def _fused_tile(B: int) -> int:
     return min(2048, B)
 
 
-def _load_lib(name: str, prefix: str, launch_args):
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The launchers' C signatures as ctypes passes them (pointers and the stream
+# as c_void_p); tests/test_torch_sgns_banded.py holds each to its
+# ``extern "C"`` declaration in csrc/.
+LAUNCH_ARGTYPES = {
+    "sgns_banded_multiblock":
+        [_I] + [_P] * 8 + [_I] * 6 + [_F] + [_P] * 4,
+    "sgns_banded_multiblock_nb":
+        [_I] + [_P] * 9 + [_I] * 7 + [_F] + [_P] * 3,
+    "sgns_banded_fused": [_I] + [_P] * 8 + [_I] * 4 + [_F] + [_P] * 7,
+}
+# helpers of the persistent superstep kernels (K4, K5) and of K3's tile
+_SUPERSTEP_HELPERS = {"smem_bytes": (ctypes.c_size_t, [_I, _I]),
+                      "scratch_floats": (ctypes.c_size_t, [_I] * 5),
+                      "grid_size": (_I, [_I] * 3)}
+_TILE_HELPERS = {"grads_smem_bytes": (ctypes.c_size_t, [_I, _I]),
+                 "scatter_smem_bytes": (ctypes.c_size_t, [_I, _I])}
+
+
+def _load_lib(name: str, prefix: str, helpers: dict):
     """Build and bind ``csrc/<name>.cu``; its helpers are ``<prefix>_*``."""
     if name not in _libs:
         from smore_tpu_torch.ops._build import load_kernel_lib
 
         lib = load_kernel_lib(name)
-        i = ctypes.c_int
         launch = getattr(lib, f"{name}_launch")
-        launch.restype = i
-        launch.argtypes = launch_args
-        for fn in ("grads", "scatter"):
-            fn = getattr(lib, f"{prefix}_{fn}_smem_bytes")
-            fn.restype = ctypes.c_size_t
-            fn.argtypes = [i, i]
+        launch.restype = _I
+        launch.argtypes = LAUNCH_ARGTYPES[name]
+        for fn, (restype, argtypes) in helpers.items():
+            fn = getattr(lib, f"{prefix}_{fn}")
+            fn.restype = restype
+            fn.argtypes = argtypes
         err = getattr(lib, f"{prefix}_error_string")
         err.restype = ctypes.c_char_p
-        err.argtypes = [i]
+        err.argtypes = [_I]
         _libs[name] = lib
     return _libs[name]
 
 
 def _load():
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _load_lib("sgns_banded_multiblock", "sgns_mb",
-                     [i] + [p] * 8 + [i] * 6 + [ctypes.c_float] + [p] * 7)
+    return _load_lib("sgns_banded_multiblock", "sgns_mb", _SUPERSTEP_HELPERS)
 
 
 def _load_nb():
-    p, i = ctypes.c_void_p, ctypes.c_int
     return _load_lib("sgns_banded_multiblock_nb", "sgns_nb",
-                     [i] + [p] * 9 + [i] * 7 + [ctypes.c_float] + [p] * 8)
+                     _SUPERSTEP_HELPERS)
 
 
 def _load_fused():
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _load_lib("sgns_banded_fused", "sgns_bf",
-                     [i] + [p] * 8 + [i] * 4 + [ctypes.c_float] + [p] * 7)
+    return _load_lib("sgns_banded_fused", "sgns_bf", _TILE_HELPERS)
 
 
-def _smem(lib, prefix: str, Ks: int, D: int) -> None:
-    smem = max(getattr(lib, f"{prefix}_grads_smem_bytes")(Ks, D),
-               getattr(lib, f"{prefix}_scatter_smem_bytes")(Ks, D))
+def _check_smem(smem: int, Ks: int, D: int) -> None:
     if smem > _MAX_SMEM:
         raise ValueError(f"Ks={Ks}, D={D} need {smem} B of shared memory "
                          f"per block (at most {_MAX_SMEM})")
+
+
+def _smem(lib, prefix: str, Ks: int, D: int) -> None:
+    _check_smem(max(getattr(lib, f"{prefix}_grads_smem_bytes")(Ks, D),
+                    getattr(lib, f"{prefix}_scatter_smem_bytes")(Ks, D)),
+                Ks, D)
+
+
+def _superstep_smem(lib, prefix: str, Ks: int, D: int) -> None:
+    smem = getattr(lib, f"{prefix}_smem_bytes")(Ks, D)
+    if smem == 0:
+        raise ValueError(f"the superstep kernel takes D a multiple of 4 up "
+                         f"to 1024, got Ks={Ks}, D={D}")
+    _check_smem(smem, Ks, D)
 
 
 def _tile_ref(wv, wc, rv, rc, cn, a, kscale):
@@ -128,6 +157,17 @@ def _check_tables(wv, wc, D: int) -> None:
                              f"{tuple(t.shape)} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (updated in place)")
+
+
+def _check_aligned(*tables) -> None:
+    """The superstep kernels move rows as 16-byte vectors."""
+    for t in tables:
+        if t.data_ptr() % 16:
+            raise ValueError("tables must start on a 16-byte boundary")
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _check_device(*tensors) -> None:
@@ -198,28 +238,27 @@ def sgns_banded_multiblock(wv, wc, sb, db, src_l, pos_l, cn, alpha,
     S, B = src_l.shape
     Ks, D = cn.shape[1], cn.shape[2]
     TB = _tile(B)
-    _smem(lib, "sgns_mb", Ks, D)
-    # Tensors made here are freed when this returns, while the launches may
+    _superstep_smem(lib, "sgns_mb", Ks, D)
+    _check_aligned(wv, wc)
+    # Tensors made here are freed when this returns, while the launch may
     # still run: the caching allocator hands their memory only to later work
-    # on the same stream, which runs after them.
+    # on the same stream, which runs after it. Nothing here launches a
+    # kernel of its own when the indices are int32 and cn, alpha f32 and
+    # contiguous: the kernel zeroes d_neg and sums the loss itself.
     i32 = [t.to(torch.int32).contiguous() for t in (sb, db, src_l, pos_l)]
     cn = cn.contiguous()
     alpha = alpha.to(torch.float32).contiguous()
     dev = wv.device
     f32 = dict(dtype=torch.float32, device=dev)
-    vbuf = torch.empty(TB, D, **f32)
-    dsrc = torch.empty(TB, D, **f32)
-    dpos = torch.empty(TB, D, **f32)
-    gneg = torch.empty(TB, Ks, **f32)
-    d_neg = torch.zeros(S, Ks, D, **f32)
-    loss_rows = torch.empty(S, B, **f32)
+    scratch = torch.empty(lib.sgns_mb_scratch_floats(S, B, TB, Ks, D), **f32)
+    d_neg = torch.empty(S, Ks, D, **f32)
+    loss = torch.empty((), **f32)
     rc = lib.sgns_banded_multiblock_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _device_index(dev),
         wv.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in i32),
         cn.data_ptr(), alpha.data_ptr(),
         S, B, TB, Ks, D, band_size, k_equiv / Ks,
-        vbuf.data_ptr(), gneg.data_ptr(), dsrc.data_ptr(), dpos.data_ptr(),
-        d_neg.data_ptr(), loss_rows.data_ptr(),
+        scratch.data_ptr(), d_neg.data_ptr(), loss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -227,7 +266,7 @@ def sgns_banded_multiblock(wv, wc, sb, db, src_l, pos_l, cn, alpha,
             f"sgns_banded_multiblock launch failed: CUDA error {rc} "
             f"({lib.sgns_mb_error_string(rc).decode()})")
     sgns_banded_multiblock.launches += 1
-    return wv, wc, d_neg, loss_rows.sum()
+    return wv, wc, d_neg, loss
 
 
 sgns_banded_multiblock.launches = 0
@@ -303,30 +342,24 @@ def sgns_banded_multiblock_nb(wv, wc, sb, db, nb, src_l, pos_l, negs_l,
     S, B = src_l.shape
     Ks, D = negs_l.shape[1], wv.shape[1]
     TB = _tile(B)
-    _smem(lib, "sgns_nb", Ks, D)
-    # Tensors made here are freed when this returns, while the launches may
+    _superstep_smem(lib, "sgns_nb", Ks, D)
+    _check_aligned(wv, wc)
+    # Tensors made here are freed when this returns, while the launch may
     # still run: the caching allocator hands their memory only to later work
-    # on the same stream, which runs after them.
+    # on the same stream, which runs after it. Nothing here launches a
+    # kernel of its own when the indices are int32 and alpha f32.
     i32 = [t.to(torch.int32).contiguous()
            for t in (sb, db, nb, src_l, pos_l, negs_l)]
     alpha = alpha.to(torch.float32).contiguous()
     dev = wv.device
     f32 = dict(dtype=torch.float32, device=dev)
-    # one micro-step's negative rows and their summed deltas, reused step
-    # after step (stream order)
-    cn = torch.empty(Ks, D, **f32)
-    d_neg = torch.empty(Ks, D, **f32)
-    vbuf = torch.empty(TB, D, **f32)
-    dsrc = torch.empty(TB, D, **f32)
-    dpos = torch.empty(TB, D, **f32)
-    gneg = torch.empty(TB, Ks, **f32)
-    loss_rows = torch.empty(S, B, **f32)
+    scratch = torch.empty(lib.sgns_nb_scratch_floats(S, B, TB, Ks, D), **f32)
+    loss = torch.empty((), **f32)
     rc = lib.sgns_banded_multiblock_nb_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _device_index(dev),
         wv.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in i32),
         alpha.data_ptr(), S, B, TB, Ks, D, band_size, nb2, k_equiv / Ks,
-        cn.data_ptr(), vbuf.data_ptr(), gneg.data_ptr(), dsrc.data_ptr(),
-        dpos.data_ptr(), d_neg.data_ptr(), loss_rows.data_ptr(),
+        scratch.data_ptr(), loss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -334,7 +367,7 @@ def sgns_banded_multiblock_nb(wv, wc, sb, db, nb, src_l, pos_l, negs_l,
             f"sgns_banded_multiblock_nb launch failed: CUDA error {rc} "
             f"({lib.sgns_nb_error_string(rc).decode()})")
     sgns_banded_multiblock_nb.launches += 1
-    return wv, wc, loss_rows.sum()
+    return wv, wc, loss
 
 
 sgns_banded_multiblock_nb.launches = 0
@@ -420,7 +453,7 @@ def sgns_banded_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha,
     d_neg = torch.zeros(Ks, D, **f32)
     loss_rows = torch.empty(B, **f32)
     rc = lib.sgns_banded_fused_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _device_index(dev),
         wv.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in i32),
         cn.data_ptr(), alpha.data_ptr(), B, TB, Ks, D, k_equiv / Ks,
         vbuf.data_ptr(), gneg.data_ptr(), dsrc.data_ptr(), dpos.data_ptr(),

@@ -22,6 +22,12 @@ from smore_tpu_torch.ops.sgns_banded import (
     sgns_banded_multiblock_nb_ref,
     sgns_banded_multiblock_ref,
 )
+from torch_superstep_inputs import (
+    ALL_COLLIDE,
+    ALL_COLLIDE_NB,
+    multiblock_inputs,
+    multiblock_nb_inputs,
+)
 
 # Atomics sum duplicate rows in an order that changes from run to run, and
 # later tiles gather those sums: f32 round-off scale, not bit-equal.
@@ -65,14 +71,24 @@ CASES = {
                      idx_hi=96),
     "d128_ks128_big_smem": dict(S=2, B=1024, band=64, n_bands=3, Ks=128,
                                 D=128, idx_hi=64),
+    # tile 1 gathers exactly the rows tile 0 scattered, and step 1 those of
+    # step 0 (the same band pair and rows): a stale read shows here
+    "s2_b2048_tile_reuse": dict(S=2, B=2048, band=4096, n_bands=2, Ks=128,
+                                D=64, idx_hi=4096, reuse=True),
 }
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_matches_twin(cuda, case):
-    c = CASES[case]
+    c = dict(CASES[case])
+    reuse = c.pop("reuse", False)
     x = _inputs(len(case), **c)
+    if reuse:
+        for k in ("src_l", "pos_l"):
+            x[k][:, 1024:] = x[k][:, :1024]
+            x[k][1] = x[k][0]
+        x["sb"][1], x["db"][1] = x["sb"][0], x["db"][0]
     a = {k: torch.from_numpy(v.copy()).to(cuda) for k, v in x.items()}
     b = {k: v.clone() for k, v in a.items()}
     before = sgns_banded_multiblock.launches
@@ -211,18 +227,21 @@ def test_k3_kernel_matches_twin(cuda, B, band, Ks, D):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["random", "all_same", "iota"])
 def test_k2_kernel_matches_twin(cuda, kind):
-    """Rows into the third band of a four-band table; atomics sum the
-    duplicates in another order (rtol 2e-5, atol 2e-4, as the Pallas
-    kernel's own test against np.add.at)."""
+    """Rows into the third band of a four-band table (rtol 2e-5, atol 2e-4,
+    as the Pallas kernel's own test against np.add.at). Table and deltas lie
+    on a 2^-10 grid, so every sum is exact in f32 and the atomics' changing
+    order cannot round the 8192 all-same deltas past the tolerance."""
     rng = np.random.default_rng(5)
     band, D, B = 128, 64, 8192
     idx = {"random": rng.integers(0, band, B),
            "all_same": np.full(B, 7),
            "iota": np.arange(B) % band}[kind].astype(np.int32)
-    table = torch.from_numpy(rng.normal(size=(4 * band, D)).astype(
-        np.float32)).to(cuda)
-    delta = torch.from_numpy(rng.normal(size=(B, D)).astype(np.float32)).to(
-        cuda)
+
+    def grid(shape):
+        return np.round(rng.normal(size=shape) * 1024) / 1024
+
+    table = torch.from_numpy(grid((4 * band, D)).astype(np.float32)).to(cuda)
+    delta = torch.from_numpy(grid((B, D)).astype(np.float32)).to(cuda)
     start = torch.tensor(2 * band, dtype=torch.int32, device=cuda)
     idx = torch.from_numpy(idx).to(cuda)
     want = band_scatter_add_ref(table.clone(), start, idx, delta)
@@ -258,7 +277,9 @@ def test_line_banded_routes_train_through_k3_k2(cuda, order, kw, counter):
 # duplicates, and the neg_band route's shapes (16 micro-steps of two
 # 1024-row tiles, band 16400, window 3280) on a 6-band table
 K5_CASES = [(4, 128, 64, 4, 16, 16, 64, 16),
-            (16, 2048, 16400, 6, 3280, 128, 64, 16400)]
+            (16, 2048, 16400, 6, 3280, 128, 64, 16400),
+            (4, 1024, 64, 4, 16, 128, 128, 64),  # D=128, Ks=128: big smem
+            (4, 256, 96, 3, 32, 40, 32, 96)]  # ragged Ks=40, D=32
 
 
 @pytest.mark.gpu
@@ -329,3 +350,69 @@ def test_line_neg_band_and_band_hold_train(cuda, kw, counter):
     else:
         assert m.last_driver.micro_steps == 4
     assert _link_auc(m, g) > 0.8
+
+
+def _all_collide_calls(kernel, x, device):
+    """(call, twin call) of K4 or K5 on copies of the all-collide inputs."""
+    a = {k: torch.from_numpy(v.copy()).to(device) for k, v in x.items()}
+    b = {k: v.clone() for k, v in a.items()}
+    if kernel == "k4":
+        band = dict(band_size=ALL_COLLIDE["band"])
+        return (lambda: sgns_banded_multiblock(*(a[k] for k in _ARGS), **band),
+                lambda: sgns_banded_multiblock_ref(*(b[k] for k in _ARGS),
+                                                   **band))
+    args = ("wv", "wc", "sb", "db", "nb", "src_l", "pos_l", "negs_l", "alpha")
+    kw = dict(band_size=ALL_COLLIDE_NB["band"], nb2=ALL_COLLIDE_NB["nb2"])
+    return (lambda: sgns_banded_multiblock_nb(*(a[k] for k in args), **kw),
+            lambda: sgns_banded_multiblock_nb_ref(*(b[k] for k in args), **kw))
+
+
+def _all_collide(kernel):
+    return (multiblock_inputs(**ALL_COLLIDE) if kernel == "k4"
+            else multiblock_nb_inputs(**ALL_COLLIDE_NB))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_all_collide_matches_twin(cuda, kernel):
+    """Every source and positive row of the superstep is one vertex: the
+    inputs tests/test_torch_sgns_banded*.py hold the twins to the Pallas
+    kernels with. Every tile and step gathers what the one before it
+    scattered."""
+    x = _all_collide(kernel)
+    call, twin = _all_collide_calls(kernel, x, cuda)
+    got, want = call(), twin()
+    torch.cuda.synchronize()
+    for g, w in zip(got[:-1], want[:-1]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(float(got[-1]), float(want[-1]), rtol=RTOL)
+    row = ALL_COLLIDE["sb"][0] * ALL_COLLIDE["band"]
+    assert not np.allclose(got[0].cpu().numpy()[row], x["wv"][row])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k4", "k5"])
+def test_one_cuda_launch_per_call(cuda, kernel):
+    """One wrapper call of K4 or K5 (int32 indices, f32 contiguous inputs)
+    is ONE CUDA kernel launch, as torch.profiler counts the host's calls
+    that put work on the card: the whole superstep runs in one cooperative
+    launch. The device side records no other kernel (it may miss a record
+    of a cooperative launch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call, _ = _all_collide_calls(kernel, _all_collide(kernel), cuda)
+    call()  # build and warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    host = [e.name for e in prof.events() if e.name.startswith(
+        ("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy"))]
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert host == ["cudaLaunchCooperativeKernel"], host
+    assert len(kernels) <= 1 and all("superstep" in k for k in kernels), \
+        kernels

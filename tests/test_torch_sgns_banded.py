@@ -7,6 +7,11 @@ On the CPU the port's wrapper runs its twin; smore_tpu's kernel runs on
 (the Pallas suite's): both sides are f32 and differ only in the order of
 the dot-product and matmul sums."""
 
+import ctypes
+import glob
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +22,11 @@ from smore_tpu.ops.pallas_sgns_banded import (
     sgns_banded_multiblock as jax_multiblock,
     unfold_table,
 )
+from smore_tpu_torch.ops import scatter as scatter_ops
+from smore_tpu_torch.ops import sgns as sgns_ops
+from smore_tpu_torch.ops import sgns_banded as sgns_banded_ops
 from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
+from torch_superstep_inputs import ALL_COLLIDE, multiblock_inputs
 
 # one intra-op thread: test workers share the cores, and a thread pool
 # in each of them oversubscribes the CPU on these tiny shapes
@@ -26,20 +35,7 @@ torch.set_num_threads(1)
 RTOL, ATOL = 2e-5, 1e-6
 
 
-def _inputs(seed, S, B, band, n_bands, Ks, D, sb, db, idx_hi=None):
-    rng = np.random.default_rng(seed)
-    n = band * n_bands
-    hi = band if idx_hi is None else idx_hi
-    return dict(
-        wv=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
-        wc=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
-        sb=np.asarray(sb, np.int32),
-        db=np.asarray(db, np.int32),
-        src_l=rng.integers(0, hi, (S, B)).astype(np.int32),
-        pos_l=rng.integers(0, hi, (S, B)).astype(np.int32),
-        cn=(rng.standard_normal((S, Ks, D)) * 0.1).astype(np.float32),
-        alpha=np.linspace(0.05, 0.03, S).astype(np.float32),
-    )
+_inputs = multiblock_inputs
 
 
 CASES = {
@@ -53,6 +49,9 @@ CASES = {
     "s2_b2048_duplicates": dict(seed=2, S=2, B=2048, band=64, n_bands=3,
                                 Ks=32, D=64, sb=[1, 1], db=[1, 0],
                                 idx_hi=16),
+    # every source and positive row of the superstep is one vertex (the
+    # card test holds the CUDA kernel to these inputs too)
+    "s2_b2048_all_collide": ALL_COLLIDE,
 }
 
 
@@ -118,3 +117,41 @@ def test_wrapper_has_no_fallback_off_cpu():
     args = [a.to("meta") for a in _cpu_args()]
     with pytest.raises(ValueError, match="no kernel"):
         sgns_banded_multiblock(*args, band_size=64)
+
+
+# Each CUDA launcher's extern "C" signature against the ctypes argtypes its
+# wrapper passes: a mismatch in count or kind corrupts the arguments on the
+# card and shows nothing on the CPU.
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "smore_tpu_torch", "csrc")
+_LAUNCHERS = sorted(os.path.basename(f)[:-3]
+                    for f in glob.glob(os.path.join(_CSRC, "*.cu")))
+
+
+def _c_kinds(name):
+    """'p', 'i' or 'f' for each parameter of ``int <name>_launch(...)``."""
+    with open(os.path.join(_CSRC, f"{name}.cu")) as f:
+        src = f.read()
+    extern = src[src.index('extern "C"'):]
+    m = re.search(rf"\bint\s+{name}_launch\s*\(([^)]*)\)", extern)
+    assert m, f"no extern \"C\" {name}_launch in csrc/{name}.cu"
+    kinds = []
+    for param in m.group(1).split(","):
+        param = " ".join(param.split())
+        kinds.append("p" if "*" in param else
+                     "f" if re.match(r"(const )?float\b", param) else
+                     "i" if re.match(r"(const )?int\b", param) else param)
+    return kinds
+
+
+def _ctypes_kinds(argtypes):
+    return [{ctypes.c_void_p: "p", ctypes.c_int: "i",
+             ctypes.c_float: "f"}[t] for t in argtypes]
+
+
+@pytest.mark.parametrize("name", _LAUNCHERS)
+def test_launch_signature_matches_ctypes(name):
+    argtypes = {**sgns_banded_ops.LAUNCH_ARGTYPES, **sgns_ops.LAUNCH_ARGTYPES,
+                **scatter_ops.LAUNCH_ARGTYPES}
+    assert name in argtypes, f"no wrapper binds csrc/{name}.cu"
+    assert _c_kinds(name) == _ctypes_kinds(argtypes[name])

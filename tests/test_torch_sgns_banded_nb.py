@@ -26,6 +26,7 @@ from smore_tpu_torch.ops.sgns_banded import (
     sgns_banded_multiblock_nb_ref,
     sgns_banded_multiblock_ref,
 )
+from torch_superstep_inputs import ALL_COLLIDE_NB, multiblock_nb_inputs
 
 # one intra-op thread: test workers share the cores, and a thread pool
 # in each of them oversubscribes the CPU on these tiny shapes
@@ -35,23 +36,7 @@ RTOL, ATOL = 2e-5, 1e-6
 _ARGS = ("wv", "wc", "sb", "db", "nb", "src_l", "pos_l", "negs_l", "alpha")
 
 
-def _inputs(seed, S, B, band, n_bands, nb2, Ks, D, sb, db, nb,
-            idx_hi=None, neg_hi=None):
-    rng = np.random.default_rng(seed)
-    n = band * n_bands
-    hi = band if idx_hi is None else idx_hi
-    return dict(
-        wv=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
-        wc=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
-        sb=np.asarray(sb, np.int32),
-        db=np.asarray(db, np.int32),
-        nb=np.asarray(nb, np.int32),
-        src_l=rng.integers(0, hi, (S, B)).astype(np.int32),
-        pos_l=rng.integers(0, hi, (S, B)).astype(np.int32),
-        negs_l=rng.integers(0, nb2 if neg_hi is None else neg_hi,
-                            (S, Ks)).astype(np.int32),
-        alpha=np.linspace(0.05, 0.03, S).astype(np.float32),
-    )
+_inputs = multiblock_nb_inputs
 
 
 CASES = {
@@ -73,6 +58,10 @@ CASES = {
                                    nb2=32, Ks=32, D=64, sb=[1, 1],
                                    db=[0, 0], nb=[1, 1], idx_hi=16,
                                    neg_hi=4),
+    # every source and positive row of the superstep is one vertex, the
+    # negatives in a window inside both steps' context band (the card test
+    # holds the CUDA kernel to these inputs too)
+    "s2_b2048_all_collide": ALL_COLLIDE_NB,
 }
 
 
