@@ -22,19 +22,25 @@ Phases (any failure exits non-zero; there is no CPU path):
      collided band): tables and loss must agree; the same launch count and
      prints
   5. K1 vs twin at the unbanded path's shapes (B=32768, Ks=128, D=64):
-     d_src, d_pos and d_neg must agree, and both times are printed
+     d_src, d_pos and d_neg must agree; one call must be ONE CUDA launch
+     (the persistent kernel of csrc/sgns_shared_grads.cu); its grid, ptxas
+     report, both times, the bound and the share of it are printed
   6. K3 vs twin at the fused route's shapes (57 x 16392-row tables,
-     B=4096 and 32768, Ks=128, D=64): bands, d_neg and loss must agree;
-     both times are printed
+     B=4096 and 32768, Ks=128, D=64) and on the all-collide inputs (two
+     2048-row tiles on one row): bands, d_neg and loss must agree; one
+     call must be ONE CUDA launch of the superstep kernel; the same prints
+     as K4's; then K4's all-collide check again, so that K3, K4 and K5 have
+     launched cooperatively in this one process
   7. K2 vs twin and index_add_ at the order-1 route's shapes (B=32768,
      band 32776 of a 29-band table, D=64), random and all-same rows: the
      three must agree; their times are printed
   8. banded main path: the 1.1M-vertex Youtube-scale graph
-     (bench.make_youtube_graph) -> Graph.load_edge_list -> LINE(order 2,
-     dim 64) -> train(40M samples, 5 negatives, alpha 0.025, every other
-     argument at its default), all on the card; K4 must have been launched,
-     the tables must be finite and the community AUC
-     (bench.yt_community_auc) >= 0.58
+     (smore_tpu_torch.utils.bench_graphs.make_youtube_graph, the port's copy
+     of bench.py's) -> Graph.load_edge_list -> LINE(order 2, dim 64) ->
+     train(40M samples, 5 negatives, alpha 0.025, every other argument at
+     its default), all on the card; K4 must have been launched, the tables
+     must be finite and the community AUC (bench_graphs.yt_community_auc)
+     >= 0.58
   9. the same graph on the unbanded route (banded=False, use_pallas=True),
      40M samples: a measurement beside phase 8; K1 must have been launched
      and the tables must be finite
@@ -57,7 +63,7 @@ Phases (any failure exits non-zero; there is no CPU path):
  15. the held scatter-only route: train(multiband=False, band_hold=True,
      use_pallas="scatter") (band 32776, batch 32768, hold 8): K2 launched,
      finite tables; its AUC is printed beside the JAX package's
- 16. unbanded main path: the 50k-vertex bench graph (bench.make_graph) ->
+ 16. unbanded main path: the 50k-vertex bench graph (make_graph) ->
      LINE(order 2, dim 64) -> train(40M samples, 5 negatives, alpha 0.025,
      use_pallas=True, every other argument at its default: batch 32768,
      group 8, hoist 32); K1 must have been launched, the tables must be
@@ -100,7 +106,9 @@ OUT = os.path.join(HERE, "build", "chip_smoke")
 sys.path.append(os.path.join(HERE, "tests"))
 from torch_superstep_inputs import (  # noqa: E402
     ALL_COLLIDE,
+    ALL_COLLIDE_FUSED,
     ALL_COLLIDE_NB,
+    fused_inputs,
     multiblock_inputs,
     multiblock_nb_inputs,
 )
@@ -122,7 +130,7 @@ RTOL, ATOL = 1e-4, 1e-5
 SAMPLE_TIMES = 40  # millions of samples: the JAX package's quality gate
 AUC_MIN = 0.58  # JAX record 0.6106 +- 0.0068 less bench.py's 0.03 margin
 # fused route at 40M: JAX records 0.606 (PERF_NOTES.md:493) and 0.6022
-# (BASELINE.md:96) less bench.py's 0.03 margin
+# (BASELINE.md:96) less the same 0.03 margin
 AUC_MIN_FUSED = 0.57
 # neg_band route: JAX 0.6033 at window 3280 (smore_tpu/models/line.py:410-412)
 # less the 0.03 margin; held fused route: JAX 0.585 for "fused b=4096
@@ -308,28 +316,38 @@ def _cuda_work(call, calls: int = 3) -> tuple:
     return host, kernels
 
 
-def _superstep_report(tag: str, name: str, prefix: str, kernel) -> None:
-    """The persistent superstep kernel's CUDA launches per call (must be 1:
-    the host's launch calls; the device may record fewer kernels, never
-    another kernel), its grid and its ptxas report."""
-    from smore_tpu_torch.ops import _build, sgns_banded
+def _launch_report(tag: str, name: str, kernel, device_kernel: str,
+                   grid: int, smem: int) -> None:
+    """A persistent kernel's CUDA launches per call (must be 1: the host's
+    launch calls, one cooperative launch a call; the device may record
+    fewer kernels, never another kernel: no memset, copy or sum), its grid
+    and its ptxas report."""
+    from smore_tpu_torch.ops import _build
 
     host, kernels = _cuda_work(kernel, calls=3)
     log(f"{tag} CUDA launches per call (profiler, 3 calls): host "
         f"{len(host) / 3:g} {sorted(set(host))}, device kernels recorded "
         f"{len(kernels)} {sorted(set(kernels))}")
-    require(len(host) == 3 and 0 < len(kernels) <= 3
-            and all("superstep" in k for k in kernels),
+    require(host == ["cudaLaunchCooperativeKernel"] * 3
+            and 0 < len(kernels) <= 3
+            and all(device_kernel in k for k in kernels),
             f"{tag}: 3 calls put {host} / {kernels} on the card, not 3 "
-            "launches of the superstep kernel")
-    lib = sgns_banded._libs[name]
-    log(f"{tag} grid: {getattr(lib, f'{prefix}_grid_size')(0, KS, D)} "
-        f"co-resident blocks of 256 threads, "
-        f"{getattr(lib, f'{prefix}_smem_bytes')(KS, D)} B of shared memory "
-        "each")
+            f"cooperative launches of {device_kernel}")
+    log(f"{tag} grid: {grid} co-resident blocks of 256 threads, {smem} B "
+        "of shared memory each")
     for line in _build.build_info[name][1].splitlines():
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+
+
+def _superstep_report(tag: str, name: str, prefix: str, kernel) -> None:
+    """_launch_report of a launcher of the superstep kernel (K4, K5, K3)."""
+    from smore_tpu_torch.ops import sgns_banded
+
+    lib = sgns_banded._libs[name]
+    _launch_report(tag, name, kernel, "superstep",
+                   getattr(lib, f"{prefix}_grid_size")(0, KS, D),
+                   getattr(lib, f"{prefix}_smem_bytes")(KS, D))
 
 
 def _all_collide_check(tag: str, kernel, twin, x: dict, args, **kw) -> None:
@@ -343,9 +361,9 @@ def _all_collide_check(tag: str, kernel, twin, x: dict, args, **kw) -> None:
               for i, (g, w) in enumerate(zip(got[:-1], want[:-1])))
     np.testing.assert_allclose(float(got[-1]), float(want[-1]), rtol=RTOL,
                                err_msg=f"kernel vs twin: {tag} loss")
-    log(f"{tag} vs twin, all-collide (S={x['src_l'].shape[0]} "
-        f"B={x['src_l'].shape[1]}): max |diff| {err:.3e} within rtol {RTOL} "
-        f"atol {ATOL}; loss {float(got[-1]):.4f} vs {float(want[-1]):.4f}")
+    log(f"{tag} vs twin, all-collide (S x B = {x['src_l'].shape}): max "
+        f"|diff| {err:.3e} within rtol {RTOL} atol {ATOL}; loss "
+        f"{float(got[-1]):.4f} vs {float(want[-1]):.4f}")
 
 
 def _superstep_inputs(seed: int, device):
@@ -498,6 +516,7 @@ def phase_k5_vs_twin(device) -> dict:
 
 
 def phase_k1_vs_twin(device) -> dict:
+    from smore_tpu_torch.ops import sgns
     from smore_tpu_torch.ops.sgns import (
         sgns_shared_grads,
         sgns_shared_grads_ref,
@@ -515,14 +534,21 @@ def phase_k1_vs_twin(device) -> dict:
         ("d_src", "d_pos", "d_neg"), got, want))
     log(f"K1 vs twin (B={B_UNBANDED} Ks={KS} D={D}): max |diff| "
         f"{err:.3e} within rtol {RTOL} atol {ATOL}")
+    lib = sgns._load()
+    _launch_report("K1", "sgns_shared_grads",
+                   lambda: sgns_shared_grads(v, cp, cn, alpha, k_equiv=5),
+                   "shared_grads_persistent",
+                   lib.sgns_sg_grid_size(0, B_UNBANDED, KS, D),
+                   lib.sgns_sg_smem_bytes(KS, D))
     ms, t_kern, plain_ms, t_plain = _alternate(
         lambda: sgns_shared_grads_ref(v, cp, cn, alpha, k_equiv=5),
         lambda: sgns_shared_grads(v, cp, cn, alpha, k_equiv=5), 50, 50)
     log(f"K1 call time: kernel {ms:.4f} ms {t_kern}, twin {plain_ms:.4f} "
         f"ms {t_plain} ({B_UNBANDED} samples each)")
     nbytes = (4 * B_UNBANDED * D + 2 * KS * D + 1) * 4
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **_bound("K1", _sgns_flops(B_UNBANDED, KS, D), nbytes),
+    bound = _bound("K1", _sgns_flops(B_UNBANDED, KS, D), nbytes)
+    log(f"K1 at {100 * bound['bound_ms'] / ms:.1f}% of its bound")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
                 library_ms=None)
 
 
@@ -552,6 +578,8 @@ def phase_k3_vs_twin(device) -> dict:
     from smore_tpu_torch.ops.sgns_banded import (
         sgns_banded_fused,
         sgns_banded_fused_ref,
+        sgns_banded_multiblock,
+        sgns_banded_multiblock_ref,
     )
 
     out = {}
@@ -574,13 +602,25 @@ def phase_k3_vs_twin(device) -> dict:
         log(f"K3 micro-step time (B={b}): kernel {ms:.4f} ms {t_kern}, "
             f"twin {plain_ms:.4f} ms {t_plain}")
         if b == B_FUSED:  # the fused route's batch
+            _superstep_report("K3", "sgns_banded_fused", "sgns_bf",
+                              lambda: sgns_banded_fused(
+                                  *(x[k] for k in _ARGS)))
             h = {k: y[k].cpu().numpy() for k in ("sb", "db", "src_l",
                                                  "pos_l")}
             rows = _rows(h["sb"] + h["src_l"]) + _rows(h["db"] + h["pos_l"])
             nbytes = (2 * rows * D + 2 * KS * D) * 4 + (2 * b + 4) * 4
-            out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       **_bound("K3", _sgns_flops(b, KS, D), nbytes),
+            bound = _bound("K3", _sgns_flops(b, KS, D), nbytes)
+            log(f"K3 at {100 * bound['bound_ms'] / ms:.1f}% of its bound")
+            out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bound,
                        library_ms=None)
+    _all_collide_check("K3", sgns_banded_fused, sgns_banded_fused_ref,
+                       fused_inputs(**ALL_COLLIDE_FUSED), _ARGS)
+    # K3, K4 and K5 instantiate one kernel in three libraries: K4 once more
+    # after K3 (and K5) have launched in this process
+    _all_collide_check("K4 after K3", sgns_banded_multiblock,
+                       sgns_banded_multiblock_ref,
+                       multiblock_inputs(**ALL_COLLIDE), _ARGS,
+                       band_size=ALL_COLLIDE["band"])
     return out
 
 
@@ -669,17 +709,19 @@ def _route(m) -> str:
 
 
 def phase_youtube(device):
-    sys.path.insert(0, HERE)
-    import bench  # numpy-only at import; its measure_* functions use JAX
     from smore_tpu_torch.graph.graph import Graph
     from smore_tpu_torch.models.line import LINE
     from smore_tpu_torch.ops.sgns import sgns_shared_grads
     from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
+    from smore_tpu_torch.utils.bench_graphs import (
+        make_youtube_graph,
+        yt_community_auc,
+    )
 
     os.makedirs(OUT, exist_ok=True)
     path = os.path.join(OUT, "yt_net.txt")
     t0 = time.perf_counter()
-    bench.make_youtube_graph(path)
+    make_youtube_graph(path)
     g = Graph.load_edge_list(path, undirected=True)
     log(f"graph: {g.n_vertices:,} vertices {g.n_edges:,} directed edges "
         f"({time.perf_counter() - t0:.1f} s to make and load)")
@@ -691,7 +733,7 @@ def phase_youtube(device):
     bt = m.banded_tables
     log(f"  route: multiblock {_route(m)} band {bt.band_size} bands "
         f"{bt.n_bands} stream entries {bt.stream.numel():,}")
-    auc = bench.yt_community_auc(m.state["vertex"].cpu().numpy(), g.names)
+    auc = yt_community_auc(m.state["vertex"].cpu().numpy(), g.names)
     log(f"  community AUC at {SAMPLE_TIMES}M samples: {auc:.4f} "
         f"(gate >= {AUC_MIN})")
     require(auc >= AUC_MIN, f"community AUC {auc:.4f} < {AUC_MIN}")
@@ -712,8 +754,7 @@ def phase_youtube(device):
                                use_pallas=True)
     log(f"  route: {_route(mu)} ({time.perf_counter() - t0:.1f} s with "
         "sampler tables and warm-up)")
-    auc_u = bench.yt_community_auc(mu.state["vertex"].cpu().numpy(),
-                                   g.names)
+    auc_u = yt_community_auc(mu.state["vertex"].cpu().numpy(), g.names)
     log(f"  community AUC at {SAMPLE_TIMES}M samples: unbanded {auc_u:.4f} "
         f"vs banded {auc:.4f}; samples/s unbanded {rate_u:,.0f} vs banded "
         f"{rate:,.0f}")
@@ -724,8 +765,6 @@ def phase_youtube_routes(g, device) -> dict:
     """The other banded routes on the Youtube-scale graph: fused (K3,
     gated), order 1 (K2), scatter-only o2 (K2), neg_band (K5 and never K4,
     gated), held fused (K3, gated) and held scatter-only (K2)."""
-    sys.path.insert(0, HERE)
-    import bench
     from smore_tpu_torch.models.line import LINE
     from smore_tpu_torch.ops.scatter import band_scatter_add
     from smore_tpu_torch.ops.sgns_banded import (
@@ -733,6 +772,7 @@ def phase_youtube_routes(g, device) -> dict:
         sgns_banded_multiblock,
         sgns_banded_multiblock_nb,
     )
+    from smore_tpu_torch.utils.bench_graphs import yt_community_auc
 
     out = {}
     for tag, order, kw, counter, never, gate in (
@@ -763,8 +803,7 @@ def phase_youtube_routes(g, device) -> dict:
             require(launches * d.samples_per_step == d.executed_samples,
                     f"K5 launched {launches} times for "
                     f"{d.executed_samples} samples")
-        auc = bench.yt_community_auc(m.state["vertex"].cpu().numpy(),
-                                     g.names)
+        auc = yt_community_auc(m.state["vertex"].cpu().numpy(), g.names)
         note = (f" (gate >= {gate})" if gate else
                 f" (no gate; JAX {AUC_JAX_HOLD_SCATTER} at hold 8)"
                 if "held" in tag else " (no gate)")
@@ -778,9 +817,9 @@ def phase_youtube_routes(g, device) -> dict:
 def community_auc_50k(emb: np.ndarray, names, n_pairs=200_000,
                       seed=0) -> float:
     """Cosine AUC of same-community against different-community pairs on
-    bench.make_graph's graph (bench.yt_community_auc's probe with that
-    graph's labels: np.random.default_rng(0).integers(0, 100, 50_000),
-    indexed by the number in the vertex name)."""
+    make_graph's graph (yt_community_auc's probe with that graph's labels:
+    np.random.default_rng(0).integers(0, 100, 50_000), indexed by the
+    number in the vertex name)."""
     labels = np.random.default_rng(0).integers(0, 100, 50_000)
     vid_label = labels[[int(nm[1:]) for nm in names]]
     x = emb / (np.linalg.norm(emb, axis=1, keepdims=True) + 1e-9)
@@ -795,16 +834,15 @@ def community_auc_50k(emb: np.ndarray, names, n_pairs=200_000,
 
 
 def phase_unbanded(device):
-    sys.path.insert(0, HERE)
-    import bench
     from smore_tpu_torch.graph.graph import Graph
     from smore_tpu_torch.models.line import LINE
     from smore_tpu_torch.ops.sgns import sgns_shared_grads
+    from smore_tpu_torch.utils.bench_graphs import make_graph
 
     os.makedirs(OUT, exist_ok=True)
     path = os.path.join(OUT, "comm_net_50k.txt")
     t0 = time.perf_counter()
-    bench.make_graph(path)
+    make_graph(path)
     g = Graph.load_edge_list(path, undirected=True)
     log(f"graph: {g.n_vertices:,} vertices {g.n_edges:,} directed edges "
         f"({time.perf_counter() - t0:.1f} s to make and load)")

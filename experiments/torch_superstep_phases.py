@@ -1,18 +1,22 @@
-"""Where the time of the persistent superstep kernels (K4, K5) goes, by
+"""Where the time of the persistent superstep kernels (K4, K5, K3) goes, by
 ablation, on one CUDA card.
 
     python3 experiments/torch_superstep_phases.py [variant ...]
 
 Each variant is a copy of ``smore_tpu_torch/csrc`` under
 ``build/superstep_phases/<variant>/`` with parts of the kernel's loop in
-``sgns_banded_superstep.cuh`` cut out; it is built with the port's own nvcc
-flags and timed at the main path's shapes (chip_smoke.py's superstep
-inputs: S=16, B=2048, band 16400, Ks=128, D=64, K5 with 3280-row windows)
-with chip_smoke._time_ms, best of two runs of 20 calls. A cut variant
-computes something else: its tables are not checked, only its time.
+``sgns_banded_superstep.cuh`` cut out (or switched off); it is built with
+the port's own nvcc flags and timed at the main path's shapes
+(chip_smoke.py's superstep inputs: S=16, B=2048, band 16400, Ks=128, D=64,
+K5 with 3280-row windows; K3 at the fused route's B=4096, band 16392: one
+micro-step of two 2048-row tiles) with chip_smoke._time_ms, best of two
+runs of 20 calls (K3: 50). A cut variant computes something else: its
+tables are not checked, only its time.
 
   full           the kernel as it is
-  no_reduce      without the d_neg reduction (K4's at the end, K5's per step)
+  no_reduce      without the d_neg reduction (K4's at the end, K5's per
+                 step; K3's atomics of its register tiles, whose sums stay
+                 in phase A)
   no_phase_b     without phase B's scatters and the reduction
   barriers_only  without phase A, phase B and the reduction: the grid
                  barriers and the per-step staging of cn
@@ -33,14 +37,20 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HEADER = "sgns_banded_superstep.cuh"
 _REDUCE = ("      if (kNb && last_tile) reduce_dneg<kNb>(p, 1, wrow, work);\n"
-           "      if (!kNb && last) reduce_dneg<kNb>(p, p.S, wrow, work);\n")
+           "      if (!kNb && last && !(kInline && p.inline_dneg))\n"
+           "        reduce_dneg<kNb>(p, p.S, wrow, work);\n")
+# K3's d_neg: the atomics of its register tiles (their sums stay in phase
+# A); the block stays, its condition is made false
+_FLUSH = ("      if (kInline && p.inline_dneg && last && dtile >= 0) {\n",
+          "      if (false) {\n")
 _PHASE_B = "      phase_b(p, s, row0, keep0);\n"
-_PHASE_A = "      phase_a(p, s, row0, keep0, scn, work, lacc);\n"
+_PHASE_A = ("      phase_a<kInline>(p, s, row0, keep0, scn, work, lacc, dacc, "
+            "dtile);\n")
 VARIANTS = {
     "full": [],
-    "no_reduce": [_REDUCE],
-    "no_phase_b": [_REDUCE, _PHASE_B],
-    "barriers_only": [_REDUCE, _PHASE_B, _PHASE_A],
+    "no_reduce": [_REDUCE, _FLUSH],
+    "no_phase_b": [_REDUCE, _FLUSH, _PHASE_B],
+    "barriers_only": [_REDUCE, _FLUSH, _PHASE_B, _PHASE_A],
 }
 
 
@@ -58,9 +68,10 @@ def run_variant(name: str) -> None:
     with open(path) as f:
         src = f.read()
     for cut in VARIANTS[name]:
-        if cut not in src:
-            raise RuntimeError(f"{name}: {cut!r} is not in {HEADER}")
-        src = src.replace(cut, "")
+        old, new = cut if isinstance(cut, tuple) else (cut, "")
+        if old not in src:
+            raise RuntimeError(f"{name}: {old!r} is not in {HEADER}")
+        src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src)
     _build.CSRC = os.path.join(out, "csrc")
@@ -74,8 +85,11 @@ def run_variant(name: str) -> None:
     t5 = [cs._time_ms(lambda: sb.sgns_banded_multiblock_nb(
         *(xn[k] for k in cs._NB_ARGS), band_size=cs.BAND, nb2=cs.NB2), 20)
         for _ in range(2)]
-    print(f"{name}: K4 {min(t4):.4f} ms {t4}  K5 {min(t5):.4f} ms {t5}",
-          flush=True)
+    xf = cs._fused_inputs(cs.B_FUSED, cs.B_FUSED, dev)
+    t3 = [cs._time_ms(lambda: sb.sgns_banded_fused(
+        *(xf[k] for k in cs._ARGS)), 50) for _ in range(2)]
+    print(f"{name}: K4 {min(t4):.4f} ms {t4}  K5 {min(t5):.4f} ms {t5}  "
+          f"K3 {min(t3):.4f} ms {t3}", flush=True)
 
 
 def main() -> None:

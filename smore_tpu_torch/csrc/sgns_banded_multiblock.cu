@@ -19,24 +19,28 @@
 
 #include "sgns_banded_superstep.cuh"
 
+static constexpr int kMode = sgns_ss::kSnapshot;
+
 extern "C" {
 
 // Dynamic shared memory of one block (0 when (Ks, D) are not supported).
 size_t sgns_mb_smem_bytes(int Ks, int D) {
-  return sgns_ss::supported<false>(Ks, D) ? sgns_ss::plan<false>(Ks, D).smem
-                                                   : 0;
+  return sgns_ss::supported<kMode>(Ks, D) ? sgns_ss::plan<kMode>(Ks, D).smem
+                                          : 0;
 }
 
 // Floats of the scratch buffer one launch needs.
 size_t sgns_mb_scratch_floats(int S, int B, int tb, int Ks, int D) {
-  return sgns_ss::scratch_floats(S * B, tb, Ks, D);
+  return sgns_ss::scratch_floats(sgns_ss::kept_rows<kMode>(S, B),
+                                 sgns_ss::kept_g_rows<kMode>(S, B, Ks, D),
+                                 tb, Ks, D);
 }
 
 // The grid one launch uses (one block on each SM), or minus the
 // cudaError_t that prevents it.
 int sgns_mb_grid_size(int device, int Ks, int D) {
   int grid = 0;
-  const cudaError_t err = sgns_ss::grid_size<false>(device, Ks, D, &grid);
+  const cudaError_t err = sgns_ss::grid_size<kMode>(device, Ks, D, &grid);
   return err == cudaSuccess ? grid : -(int)err;
 }
 
@@ -72,7 +76,7 @@ int sgns_banded_multiblock_launch(
   p.kscale = kscale;
   p.d_neg = d_neg;
   p.loss = loss;
-  return (int)sgns_ss::launch<false>(device, p, scratch,
+  return (int)sgns_ss::launch<kMode>(device, p, scratch,
                                      (cudaStream_t)stream_handle);
 }
 

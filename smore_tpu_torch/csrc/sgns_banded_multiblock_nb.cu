@@ -25,24 +25,28 @@
 
 #include "sgns_banded_superstep.cuh"
 
+static constexpr int kMode = sgns_ss::kWindow;
+
 extern "C" {
 
 // Dynamic shared memory of one block (0 when (Ks, D) are not supported).
 size_t sgns_nb_smem_bytes(int Ks, int D) {
-  return sgns_ss::supported<true>(Ks, D) ? sgns_ss::plan<true>(Ks, D).smem
-                                                   : 0;
+  return sgns_ss::supported<kMode>(Ks, D) ? sgns_ss::plan<kMode>(Ks, D).smem
+                                          : 0;
 }
 
 // Floats of the scratch buffer one launch needs.
 size_t sgns_nb_scratch_floats(int S, int B, int tb, int Ks, int D) {
-  return sgns_ss::scratch_floats(B, tb, Ks, D);
+  return sgns_ss::scratch_floats(sgns_ss::kept_rows<kMode>(S, B),
+                                 sgns_ss::kept_g_rows<kMode>(S, B, Ks, D),
+                                 tb, Ks, D);
 }
 
 // The grid one launch uses (one block on each SM), or minus the
 // cudaError_t that prevents it.
 int sgns_nb_grid_size(int device, int Ks, int D) {
   int grid = 0;
-  const cudaError_t err = sgns_ss::grid_size<true>(device, Ks, D, &grid);
+  const cudaError_t err = sgns_ss::grid_size<kMode>(device, Ks, D, &grid);
   return err == cudaSuccess ? grid : -(int)err;
 }
 
@@ -80,7 +84,7 @@ int sgns_banded_multiblock_nb_launch(
   p.nb2 = nb2;
   p.kscale = kscale;
   p.loss = loss;
-  return (int)sgns_ss::launch<true>(device, p, scratch,
+  return (int)sgns_ss::launch<kMode>(device, p, scratch,
                                      (cudaStream_t)stream_handle);
 }
 

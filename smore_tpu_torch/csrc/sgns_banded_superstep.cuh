@@ -1,6 +1,8 @@
 // A whole banded shared-negative SGNS superstep in ONE persistent,
 // cooperative launch, for Hopper (sm_90a). Shared by
-// sgns_banded_multiblock.cu (K4) and sgns_banded_multiblock_nb.cu (K5).
+// sgns_banded_multiblock.cu (K4), sgns_banded_multiblock_nb.cu (K5) and
+// sgns_banded_fused.cu (K3: one micro-step, S = 1, of 2048-row tiles, with
+// band = 1 and the band START rows in place of band indices).
 //
 // S micro-steps run in order; micro-step s works source band sb[s] of Wv and
 // context band db[s] of Wc, and its B samples are cut into tiles of tb rows
@@ -13,7 +15,7 @@
 //   d_neg += g_neg^T v     loss += -log(s_pos + 1e-7)
 //                                  - k/Ks sum log(1 - s_neg + 1e-7)
 //
-// K4 takes cn (S, Ks, D) from the caller's snapshot and returns d_neg
+// K4 and K3 take cn (S, Ks, D) from the caller's snapshot and return d_neg
 // (S, Ks, D) for the caller to apply. K5 reads step s's cn from Wc's window
 // rows nb[s] * nb2 + negs[s, :] when the step starts and adds the step's
 // d_neg back into those rows (duplicates sum) before the next step starts.
@@ -51,7 +53,10 @@
 //     keeps an 8 x 4 register tile per thread across its consecutive
 //     items, prefetches the next chunk into registers while it computes on
 //     the current one, and adds its partial sums with 16-byte atomics when
-//     the (step, negative slice) changes.
+//     the (step, negative slice) changes. K3 (one step) keeps no rows:
+//     each thread sums one 8 x 4 tile of d_neg over the rows of every
+//     phase A group it computes, and the blocks add their tiles with
+//     atomics beside the last scatters.
 //   * Each phase A ends by prefetching into L2 rows that the next phase A
 //     gathers, and a step's last phase B the next step's negative rows:
 //     the bands of a new step are often cold, and a prefetch moves no
@@ -77,6 +82,15 @@ constexpr int kRows = 8;     // sample rows per block in phase A
 constexpr int kSplit = 8;    // negative split of d_src in phase A
 constexpr int kMaxPre = 8;   // float4 per thread prefetched by the reduction
 constexpr int kRedTile = 32; // one thread's d_neg tile: 8 negatives x 4 cols
+
+// Which kernel a launch is. Each library instantiates only its own mode: a
+// kernel that two libraries of one process both define refuses its
+// cooperative launch, so K3 does not share K4's instantiation.
+enum Mode : int {
+  kSnapshot = 0,  // K4: cn from the caller's (S, Ks, D) snapshot
+  kWindow = 1,    // K5: cn from Wc's window rows, d_neg added back per step
+  kFused = 2,     // K3: K4's path for one micro-step (S = 1)
+};
 // phase A: one warp per row for the positive logit, 64 threads per row
 // pair for the negative logits
 static_assert(kThreads / 32 == kRows && kThreads / 64 == kRows / 2,
@@ -98,11 +112,13 @@ struct Params {
   int ki;            // negatives per reduction item (a multiple of 8)
   int chunk;         // rows per reduction chunk
   int ldg;           // row stride of gneg: Ks rounded up to 4
-  float* vbuf;       // (kept, D) v kept for d_neg: K4 S * B rows, K5 B
-  float* gneg;       // (kept, ldg) g_neg kept for d_neg
+  int inline_dneg;   // K3: d_neg summed in phase A's registers (see plan)
+  float* vbuf;       // (kept, D) v for phase B and d_neg: K4 S * B rows,
+                     // K5 and K3 B
+  float* gneg;       // (kept_g, ldg) g_neg kept for d_neg (see plan)
   float* dsrc;       // (tb, D)
   float* gpos;       // (tb,)
-  float* d_neg;      // (S, Ks, D), K4's output
+  float* d_neg;      // (S, Ks, D), K4's and K3's output
   float* loss;       // () loss sum over all S * B rows
 };
 
@@ -160,10 +176,15 @@ __host__ __device__ inline int reduce_floats(int D, int ki, int chunk) {
 }
 
 // Phase A for rows [row0, row0 + tb) of the (S, B) index arrays; their v
-// and g_neg are kept at rows keep0 + r of vbuf and gneg.
+// and g_neg are kept at rows keep0 + r of vbuf and gneg, or, with kInline
+// and p.inline_dneg (K3), v is kept for phase B and g_neg^T v summed
+// straight into the thread's d_neg tile dacc (8 negatives x 4 columns:
+// tile dtile of the (Ks / 8) x (D / 4) tiles, none when dtile < 0).
+template <bool kInline>
 __device__ __forceinline__ void phase_a(const Params& p, int s, int row0,
                                         int keep0, const float* scn,
-                                        float* work, float& lacc) {
+                                        float* work, float& lacc,
+                                        float (&dacc)[kRedTile], int dtile) {
   const int D = p.D, D4 = D >> 2, Ks = p.Ks, ldc = D + 4, tid = threadIdx.x;
   const float a = p.alpha[s];
   const float scale = a * p.kscale;
@@ -238,10 +259,32 @@ __device__ __forceinline__ void phase_a(const Params& p, int s, int row0,
     }
     lacc -= p.kscale * lneg;
     __syncthreads();
-    for (int i = tid; i < kRows * (p.ldg / 4); i += kThreads) {
-      const int r = i / (p.ldg / 4), k = (i - r * (p.ldg / 4)) * 4;
-      st4(p.gneg + (size_t)(keep0 + rb + r) * p.ldg + k,
-          ld4s(sgr + r * p.ldg + k));
+    if (kInline && p.inline_dneg) {
+      // the group's g_neg^T v into the thread's d_neg tile; sums of
+      // negatives past Ks read padding and are never added to d_neg
+      if (dtile >= 0) {
+        const int k0 = (dtile / D4) * 8, c = (dtile % D4) * 4;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float4 g0 = ld4s(sgr + r * p.ldg + k0);
+          const float4 g1 = ld4s(sgr + r * p.ldg + k0 + 4);
+          const float4 v = ld4s(sv + r * D + c);
+          const float gs[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            dacc[j * 4] = fmaf(gs[j], v.x, dacc[j * 4]);
+            dacc[j * 4 + 1] = fmaf(gs[j], v.y, dacc[j * 4 + 1]);
+            dacc[j * 4 + 2] = fmaf(gs[j], v.z, dacc[j * 4 + 2]);
+            dacc[j * 4 + 3] = fmaf(gs[j], v.w, dacc[j * 4 + 3]);
+          }
+        }
+      }
+    } else {
+      for (int i = tid; i < kRows * (p.ldg / 4); i += kThreads) {
+        const int r = i / (p.ldg / 4), k = (i - r * (p.ldg / 4)) * 4;
+        st4(p.gneg + (size_t)(keep0 + rb + r) * p.ldg + k,
+            ld4s(sgr + r * p.ldg + k));
+      }
     }
 
     // d_src partials: rows 4 rq .. 4 rq + 3 x columns c..c+3 over the
@@ -454,8 +497,9 @@ __device__ __forceinline__ void prefetch_negs(const Params& p, int s) {
   }
 }
 
-template <bool kNb>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 1) superstep(Params p) {
+  constexpr bool kNb = kMode == kWindow;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::grid_group grid = cg::this_grid();
@@ -465,6 +509,17 @@ __global__ void __launch_bounds__(kThreads, 1) superstep(Params p) {
   float* work = scn + Ks * ldc + (Ks + 3) / 4 * 4;     // phase A / reduction
   const int n_tiles = p.B / p.tb;
   float lacc = 0.f;
+  // K3's d_neg tile in registers (p.inline_dneg): each block maps its
+  // threads onto the tiles from its own offset, so that the blocks' final
+  // atomics do not all meet on the same rows at once
+  constexpr bool kInline = kMode == kFused;
+  float dacc[kRedTile];
+#pragma unroll
+  for (int j = 0; j < kRedTile; ++j) dacc[j] = 0.f;
+  const int n_dt = (Ks + 7) / 8 * D4;
+  const int dtile =
+      tid < n_dt ? (int)((tid + (int64_t)blockIdx.x * n_dt / gridDim.x) % n_dt)
+                 : -1;
 
   // outputs that are only ever added to; the first addition follows a
   // grid barrier
@@ -509,7 +564,7 @@ __global__ void __launch_bounds__(kThreads, 1) superstep(Params p) {
                              : p.wv + (int64_t)p.sb[ns] * p.band * D;
         next_idx = (tid & 1) ? p.pos[n] : p.src[n];
       }
-      phase_a(p, s, row0, keep0, scn, work, lacc);
+      phase_a<kInline>(p, s, row0, keep0, scn, work, lacc, dacc, dtile);
       if (next_row != nullptr) {
         for (int l = 0; l < D; l += 32)
           prefetch_l2(next_row + (int64_t)next_idx * D + l);
@@ -517,7 +572,18 @@ __global__ void __launch_bounds__(kThreads, 1) superstep(Params p) {
       grid.sync();
       phase_b(p, s, row0, keep0);
       if (kNb && last_tile) reduce_dneg<kNb>(p, 1, wrow, work);
-      if (!kNb && last) reduce_dneg<kNb>(p, p.S, wrow, work);
+      if (!kNb && last && !(kInline && p.inline_dneg))
+        reduce_dneg<kNb>(p, p.S, wrow, work);
+      if (kInline && p.inline_dneg && last && dtile >= 0) {
+        const int k0 = (dtile / D4) * 8, c = (dtile % D4) * 4;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (k0 + j < Ks)
+            atomic_add4(p.d_neg + (size_t)(k0 + j) * D + c,
+                        make_float4(dacc[4 * j], dacc[4 * j + 1],
+                                    dacc[4 * j + 2], dacc[4 * j + 3]));
+        }
+      }
       if (last) break;
       if (last_tile) prefetch_negs<kNb>(p, s + 1);
       grid.sync();
@@ -537,7 +603,7 @@ __global__ void __launch_bounds__(kThreads, 1) superstep(Params p) {
 }
 
 struct Plan {
-  int ki, chunk, ldg;
+  int ki, chunk, ldg, inline_dneg;
   size_t smem;
 };
 
@@ -546,21 +612,26 @@ struct Plan {
 // up to 256 / (D / 4) octets, by 32 rows) read each v row once, and give
 // every block ~8 items at the main path's shapes. K5 reduces one step per
 // phase: narrow items (32 negatives by 64 rows) make ~1 item a block, which
-// measured faster on the H100 than 16 (~2 items a block) or 64 (~half).
-template <bool kNb>
+// measured faster on the H100 than 16 (~2 items a block) or 64 (~half). K3
+// takes the same items where its d_neg does not fit phase A's registers.
+template <int kMode>
 inline Plan plan(int Ks, int D) {
   Plan pl;
+  const bool narrow = kMode != kSnapshot;
   const int D4 = D / 4;
   const int nk8 = (Ks + 7) / 8;
   int q8 = kThreads / D4;
-  if (kNb && q8 > 4) q8 = 4;
+  if (narrow && q8 > 4) q8 = 4;
   if (q8 > nk8) q8 = nk8;
   if (q8 < 1) q8 = 1;
   pl.ki = 8 * q8;
-  pl.chunk = kNb ? 64 : 32;
+  pl.chunk = narrow ? 64 : 32;
   while (pl.chunk > 8 && pl.chunk * (D4 + pl.ki / 4) > kMaxPre * kThreads)
     pl.chunk /= 2;
   pl.ldg = (Ks + 3) / 4 * 4;
+  // K3 sums d_neg in phase A's registers when one 8 x 4 tile a thread
+  // covers it (Ks <= 256 at D = 64): no kept g_neg, no reduction phase
+  pl.inline_dneg = kMode == kFused && (Ks + 7) / 8 * (D / 4) <= kThreads;
   const int a = phase_a_floats(Ks, D), b = reduce_floats(D, pl.ki, pl.chunk);
   pl.smem = sizeof(float) * ((size_t)Ks * (D + 4) + (Ks + 3) / 4 * 4 +
                              (a > b ? a : b));
@@ -569,39 +640,55 @@ inline Plan plan(int Ks, int D) {
 
 // Whether (Ks, D) fit the kernel: D a multiple of 4 whose float4 columns
 // fit one block, and one chunk's prefetch in kMaxPre float4 a thread.
-template <bool kNb>
+template <int kMode>
 inline bool supported(int Ks, int D) {
   if (Ks < 1 || D < 4 || D % 4 || D / 4 > kThreads) return false;
-  const Plan pl = plan<kNb>(Ks, D);
+  const Plan pl = plan<kMode>(Ks, D);
   return pl.chunk * (D / 4 + pl.ki / 4) <= kMaxPre * kThreads;
 }
 
-// Floats of scratch one launch needs: vbuf, gneg (`kept` rows: K4 S * B,
-// K5 B) and dsrc, gpos (one tile's), each a multiple of 4 floats (16 B).
-inline size_t scratch_floats(int kept, int tb, int Ks, int D) {
-  const size_t ldg = (size_t)(Ks + 3) / 4 * 4;
-  const size_t tb4 = (size_t)(tb + 3) / 4 * 4;
-  return (size_t)kept * D + (size_t)kept * ldg + (size_t)tb * D + tb4;
+// Rows of v a launch keeps for phase B and its d_neg reduction: K4 S * B,
+// K5 and K3 B.
+template <int kMode>
+inline int kept_rows(int S, int B) {
+  return kMode == kWindow ? B : S * B;
 }
 
-inline void carve(Params& p, float* scratch, int kept) {
+// Rows of g_neg kept: those of v, or none when K3 sums d_neg in phase A
+// (see plan).
+template <int kMode>
+inline int kept_g_rows(int S, int B, int Ks, int D) {
+  return kMode == kFused && plan<kMode>(Ks, D).inline_dneg
+             ? 0
+             : kept_rows<kMode>(S, B);
+}
+
+// Floats of scratch one launch needs: vbuf (kept rows), gneg (kept_g rows)
+// and dsrc, gpos (one tile's), each a multiple of 4 floats (16 B).
+inline size_t scratch_floats(int kept, int kept_g, int tb, int Ks, int D) {
+  const size_t ldg = (size_t)(Ks + 3) / 4 * 4;
+  const size_t tb4 = (size_t)(tb + 3) / 4 * 4;
+  return (size_t)kept * D + (size_t)kept_g * ldg + (size_t)tb * D + tb4;
+}
+
+inline void carve(Params& p, float* scratch, int kept, int kept_g) {
   p.vbuf = scratch;
   p.gneg = p.vbuf + (size_t)kept * p.D;
-  p.dsrc = p.gneg + (size_t)kept * p.ldg;
+  p.dsrc = p.gneg + (size_t)kept_g * p.ldg;
   p.gpos = p.dsrc + (size_t)p.tb * p.D;
 }
 
 // The grid: one block on each SM (phase A's 128 groups of a 1024-row tile
 // fill the card, and a smaller grid keeps the grid barrier cheaper), after
 // checking that one block fits and the device takes cooperative launches.
-template <bool kNb>
+template <int kMode>
 inline cudaError_t grid_size(int device, int Ks, int D, int* grid) {
   *grid = 0;
-  if (!supported<kNb>(Ks, D)) return cudaErrorInvalidValue;
+  if (!supported<kMode>(Ks, D)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Plan pl = plan<kNb>(Ks, D);
-  err = cudaFuncSetAttribute(superstep<kNb>,
+  const Plan pl = plan<kMode>(Ks, D);
+  err = cudaFuncSetAttribute(superstep<kMode>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)pl.smem);
   if (err != cudaSuccess) return err;
@@ -611,7 +698,7 @@ inline cudaError_t grid_size(int device, int Ks, int D, int* grid) {
   if (!coop) return cudaErrorNotSupported;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, superstep<kNb>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, superstep<kMode>,
                                                       kThreads, pl.smem);
   if (err != cudaSuccess) return err;
   if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
@@ -621,8 +708,9 @@ inline cudaError_t grid_size(int device, int Ks, int D, int* grid) {
 
 // One cooperative launch of the superstep on `stream`. p's tables, indices,
 // sizes, d_neg and loss are set by the caller; scratch holds
-// scratch_floats(kept, tb, Ks, D) floats. Returns the launch's error.
-template <bool kNb>
+// scratch_floats(kept_rows, kept_g_rows, tb, Ks, D) floats. Returns the
+// launch's error.
+template <int kMode>
 inline cudaError_t launch(int device, Params p, float* scratch,
                           cudaStream_t stream) {
   // the grid of the last (device, Ks, D): the queries cost host time on
@@ -632,19 +720,21 @@ inline cudaError_t launch(int device, Params p, float* scratch,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (last[0] != device || last[1] != p.Ks || last[2] != p.D) {
-    err = grid_size<kNb>(device, p.Ks, p.D, &grid);
+    err = grid_size<kMode>(device, p.Ks, p.D, &grid);
     if (err != cudaSuccess) return err;
     last[0] = device;
     last[1] = p.Ks;
     last[2] = p.D;
   }
-  const Plan pl = plan<kNb>(p.Ks, p.D);
+  const Plan pl = plan<kMode>(p.Ks, p.D);
   p.ki = pl.ki;
   p.chunk = pl.chunk;
   p.ldg = pl.ldg;
-  carve(p, scratch, kNb ? p.B : p.S * p.B);
+  p.inline_dneg = pl.inline_dneg;
+  carve(p, scratch, kept_rows<kMode>(p.S, p.B),
+        kept_g_rows<kMode>(p.S, p.B, p.Ks, p.D));
   void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel((const void*)superstep<kNb>, dim3(grid),
+  err = cudaLaunchCooperativeKernel((const void*)superstep<kMode>, dim3(grid),
                                     dim3(kThreads), args, pl.smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

@@ -28,8 +28,8 @@ the caller asks for the CPU). The routes:
   tables, order 2 on 2D ones, grouped or not, hoisted or per-step draws,
   update ``ops.update.sgns_shared_negs_step_banded``): fused through kernel
   ``ops/sgns_banded.sgns_banded_fused`` (order 2, group 1, ``use_pallas``
-  True, or "auto" on the card), scatter-only through kernel
-  ``ops/scatter.band_scatter_add`` (``use_pallas`` True otherwise, or
+  True, or "auto" on the card with dim % 4 == 0), scatter-only through
+  kernel ``ops/scatter.band_scatter_add`` (``use_pallas`` True otherwise, or
   "auto" / "scatter" on the card when the batches tile), else plain;
   with ``band_hold=True`` (order 2, hoist > 1) one stratum is held for the
   whole hoisted block (``_make_banded_block_step``, update
@@ -411,7 +411,8 @@ class LINE(PairModelBase):
             and self.order == 2
             and group == 1
             and _tiles(batch)
-            and (use_pallas is True or (use_pallas == "auto" and on_card))
+            and (use_pallas is True
+                 or (use_pallas == "auto" and on_card and self.dim % 4 == 0))
         )
         pallas_scat = not fused and (
             use_pallas is True

@@ -16,7 +16,9 @@ differs.
 
 ``sgns_shared_grads`` runs the plain PyTorch twin ``sgns_shared_grads_ref``
 for CPU tensors and launches the CUDA kernel (``csrc/sgns_shared_grads.cu``)
-for CUDA tensors, or raises; it never falls back.
+for CUDA tensors, or raises; it never falls back. A call is ONE cooperative
+launch of a persistent kernel (one block per SM, all co-resident): g_neg
+stays in shared memory and the kernel zeroes and sums ``d_neg`` itself.
 ``sgns_shared_grads.launches`` counts kernel launches.
 """
 
@@ -33,7 +35,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # the launcher's C signature as ctypes passes it (pointers and the stream as
 # c_void_p), held to csrc/ by tests/test_torch_sgns_banded.py
 LAUNCH_ARGTYPES = {
-    _KERNEL: [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float] + [_P] * 5,
+    _KERNEL: [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float] + [_P] * 4,
 }
 
 
@@ -47,6 +49,8 @@ def _load():
         lib.sgns_shared_grads_launch.argtypes = LAUNCH_ARGTYPES[_KERNEL]
         lib.sgns_sg_smem_bytes.restype = ctypes.c_size_t
         lib.sgns_sg_smem_bytes.argtypes = [_I, _I]
+        lib.sgns_sg_grid_size.restype = _I
+        lib.sgns_sg_grid_size.argtypes = [_I] * 4
         lib.sgns_sg_error_string.restype = ctypes.c_char_p
         lib.sgns_sg_error_string.argtypes = [_I]
         _lib = lib
@@ -90,6 +94,7 @@ def sgns_shared_grads(v, cp, cn, alpha, k_equiv: int = 5):
 
     v, cp: (B, D) f32, B a multiple of min(1024, B); cn: (Ks, D) f32;
     alpha: a scalar (a one-element tensor on the same device, or a number).
+    On the card D must be a multiple of 4 (rows move as 16-byte vectors).
     Returns (d_src (B, D), d_pos (B, D), d_neg (Ks, D)), all f32."""
     _check(v, cp, cn, alpha)
     if v.device.type == "cpu":
@@ -99,27 +104,30 @@ def sgns_shared_grads(v, cp, cn, alpha, k_equiv: int = 5):
     lib = _load()
     B, D = v.shape
     Ks = cn.shape[0]
-    smem = lib.sgns_sg_smem_bytes(Ks, D)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Ks={Ks}, D={D} need {smem} B of shared memory "
-                         f"per block (at most {_MAX_SMEM})")
+    if lib.sgns_sg_smem_bytes(Ks, D) == 0:
+        raise ValueError(f"the kernel takes D a multiple of 4 and (Ks, D) "
+                         f"whose buffers fit {_MAX_SMEM} B of shared memory "
+                         f"per block, got Ks={Ks}, D={D}")
     dev = v.device
     f32 = dict(dtype=torch.float32, device=dev)
-    # Tensors made here are freed when this returns, while the launches may
+    # Tensors made here are freed when this returns, while the launch may
     # still run: the caching allocator hands their memory only to later work
-    # on the same stream, which runs after them.
-    v, cp, cn = v.contiguous(), cp.contiguous(), cn.contiguous()
+    # on the same stream, which runs after it. Nothing here launches a
+    # kernel of its own when the inputs are contiguous on 16 bytes and alpha
+    # is an f32 tensor on the card: the kernel zeroes d_neg itself.
+    v, cp, cn = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in (v, cp, cn))
     alpha = torch.as_tensor(alpha, **f32).reshape(1).contiguous()
     d_src = torch.empty(B, D, **f32)
     d_pos = torch.empty(B, D, **f32)
-    d_neg = torch.zeros(Ks, D, **f32)
-    gneg = torch.empty(B, Ks, **f32)
+    d_neg = torch.empty(Ks, D, **f32)
     rc = lib.sgns_shared_grads_launch(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         v.data_ptr(), cp.data_ptr(), cn.data_ptr(), alpha.data_ptr(),
         B, Ks, D, k_equiv / Ks,
-        gneg.data_ptr(), d_src.data_ptr(), d_pos.data_ptr(),
-        d_neg.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        d_src.data_ptr(), d_pos.data_ptr(), d_neg.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(

@@ -37,8 +37,9 @@ K4 (``csrc/sgns_banded_multiblock.cu``) and K5
 (``csrc/sgns_banded_multiblock_nb.cu``) are each ONE cooperative launch of
 the persistent kernel of ``csrc/sgns_banded_superstep.cuh`` per superstep;
 its blocks must all be co-resident on the card. K3
-(``csrc/sgns_banded_fused.cu``) runs the tile of
-``csrc/sgns_banded_tile.cuh``. ``<wrapper>.launches`` counts wrapper calls
+(``csrc/sgns_banded_fused.cu``) is one launch of the same kernel per
+micro-step: K4's superstep with S = 1, 2048-row tiles and the band start
+rows as band indices of size 1. ``<wrapper>.launches`` counts wrapper calls
 that launched their kernel.
 """
 
@@ -70,14 +71,12 @@ LAUNCH_ARGTYPES = {
         [_I] + [_P] * 8 + [_I] * 6 + [_F] + [_P] * 4,
     "sgns_banded_multiblock_nb":
         [_I] + [_P] * 9 + [_I] * 7 + [_F] + [_P] * 3,
-    "sgns_banded_fused": [_I] + [_P] * 8 + [_I] * 4 + [_F] + [_P] * 7,
+    "sgns_banded_fused": [_I] + [_P] * 8 + [_I] * 4 + [_F] + [_P] * 4,
 }
-# helpers of the persistent superstep kernels (K4, K5) and of K3's tile
+# helpers of the persistent superstep kernel's launchers (K4, K5, K3)
 _SUPERSTEP_HELPERS = {"smem_bytes": (ctypes.c_size_t, [_I, _I]),
                       "scratch_floats": (ctypes.c_size_t, [_I] * 5),
                       "grid_size": (_I, [_I] * 3)}
-_TILE_HELPERS = {"grads_smem_bytes": (ctypes.c_size_t, [_I, _I]),
-                 "scatter_smem_bytes": (ctypes.c_size_t, [_I, _I])}
 
 
 def _load_lib(name: str, prefix: str, helpers: dict):
@@ -110,19 +109,13 @@ def _load_nb():
 
 
 def _load_fused():
-    return _load_lib("sgns_banded_fused", "sgns_bf", _TILE_HELPERS)
+    return _load_lib("sgns_banded_fused", "sgns_bf", _SUPERSTEP_HELPERS)
 
 
 def _check_smem(smem: int, Ks: int, D: int) -> None:
     if smem > _MAX_SMEM:
         raise ValueError(f"Ks={Ks}, D={D} need {smem} B of shared memory "
                          f"per block (at most {_MAX_SMEM})")
-
-
-def _smem(lib, prefix: str, Ks: int, D: int) -> None:
-    _check_smem(max(getattr(lib, f"{prefix}_grads_smem_bytes")(Ks, D),
-                    getattr(lib, f"{prefix}_scatter_smem_bytes")(Ks, D)),
-                Ks, D)
 
 
 def _superstep_smem(lib, prefix: str, Ks: int, D: int) -> None:
@@ -423,6 +416,7 @@ def sgns_banded_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha,
     sb, db: one-element int tensors, the source / context band START rows.
     src_l, pos_l: (B,) BAND-LOCAL rows; B tiles by min(2048, B).
     cn: (Ks, D) f32 negative snapshot; alpha: one-element f32 tensor.
+    On the card D must be a multiple of 4 (rows move as 16-byte vectors).
     Returns (wv, wc, d_neg (Ks, D), loss_sum ()). Indices are not
     bounds-checked on the card (that would synchronise), as on the TPU.
     """
@@ -436,28 +430,27 @@ def sgns_banded_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha,
     B = src_l.shape[0]
     Ks, D = cn.shape
     TB = _fused_tile(B)
-    _smem(lib, "sgns_bf", Ks, D)
-    # Tensors made here are freed when this returns, while the launches may
+    _superstep_smem(lib, "sgns_bf", Ks, D)
+    _check_aligned(wv, wc)
+    # Tensors made here are freed when this returns, while the launch may
     # still run: the caching allocator hands their memory only to later work
-    # on the same stream, which runs after them.
+    # on the same stream, which runs after it. Nothing here launches a
+    # kernel of its own when the indices are int32 and cn, alpha f32 and
+    # contiguous: the kernel zeroes d_neg and sums the loss itself.
     i32 = [t.to(torch.int32).reshape(-1).contiguous()
            for t in (sb, db, src_l, pos_l)]
     cn = cn.contiguous()
     alpha = alpha.to(torch.float32).reshape(1).contiguous()
     dev = wv.device
     f32 = dict(dtype=torch.float32, device=dev)
-    vbuf = torch.empty(TB, D, **f32)
-    dsrc = torch.empty(TB, D, **f32)
-    dpos = torch.empty(TB, D, **f32)
-    gneg = torch.empty(TB, Ks, **f32)
-    d_neg = torch.zeros(Ks, D, **f32)
-    loss_rows = torch.empty(B, **f32)
+    scratch = torch.empty(lib.sgns_bf_scratch_floats(1, B, TB, Ks, D), **f32)
+    d_neg = torch.empty(Ks, D, **f32)
+    loss = torch.empty((), **f32)
     rc = lib.sgns_banded_fused_launch(
         _device_index(dev),
         wv.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in i32),
         cn.data_ptr(), alpha.data_ptr(), B, TB, Ks, D, k_equiv / Ks,
-        vbuf.data_ptr(), gneg.data_ptr(), dsrc.data_ptr(), dpos.data_ptr(),
-        d_neg.data_ptr(), loss_rows.data_ptr(),
+        scratch.data_ptr(), d_neg.data_ptr(), loss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -465,7 +458,7 @@ def sgns_banded_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha,
             f"sgns_banded_fused launch failed: CUDA error {rc} "
             f"({lib.sgns_bf_error_string(rc).decode()})")
     sgns_banded_fused.launches += 1
-    return wv, wc, d_neg, loss_rows.sum()
+    return wv, wc, d_neg, loss
 
 
 sgns_banded_fused.launches = 0

@@ -24,7 +24,9 @@ from smore_tpu_torch.ops.sgns_banded import (
 )
 from torch_superstep_inputs import (
     ALL_COLLIDE,
+    ALL_COLLIDE_FUSED,
     ALL_COLLIDE_NB,
+    fused_inputs,
     multiblock_inputs,
     multiblock_nb_inputs,
 )
@@ -148,9 +150,11 @@ def test_line_trains_through_the_kernel(cuda):
 
 
 # K1: the twin's matmuls and the kernel sum in other orders, and d_neg's
-# atomics in an order that changes from run to run
+# atomics in an order that changes from run to run. The kernel's edges: B
+# ragged against its 64-row tile (200, 1000, 320), Ks not a multiple of 8
+# (37, 13), D = 128 (32-row tiles), D not a multiple of 8 (36)
 K1_CASES = [(32768, 128, 64), (1024, 64, 32), (2048, 128, 128),
-            (200, 40, 64)]
+            (200, 40, 64), (1000, 37, 64), (320, 13, 36)]
 
 
 @pytest.mark.gpu
@@ -189,9 +193,12 @@ def test_line_unbanded_trains_through_k1(cuda, order):
 
 # K3: one fused micro-step, (B, band, Ks, D) at the fused route's shapes
 # (two tiles at 4096, sixteen at 32768) and a small band with heavy
-# duplicates; atomics as in K4
+# duplicates; atomics as in K4. d_neg is summed in phase A's registers up to
+# Ks/8 x D/4 = 256 tiles (a ragged Ks=37 among them) and by the kept-rows
+# reduction above (D=128)
 K3_CASES = [(4096, 16392, 128, 64), (128, 64, 16, 64), (32768, 16392, 128,
-                                                         64)]
+                                                         64),
+            (2048, 96, 37, 32), (4096, 64, 128, 128)]
 
 
 @pytest.mark.gpu
@@ -353,7 +360,8 @@ def test_line_neg_band_and_band_hold_train(cuda, kw, counter):
 
 
 def _all_collide_calls(kernel, x, device):
-    """(call, twin call) of K4 or K5 on copies of the all-collide inputs."""
+    """(call, twin call) of K4, K5 or K3 on copies of the all-collide
+    inputs."""
     a = {k: torch.from_numpy(v.copy()).to(device) for k, v in x.items()}
     b = {k: v.clone() for k, v in a.items()}
     if kernel == "k4":
@@ -361,6 +369,9 @@ def _all_collide_calls(kernel, x, device):
         return (lambda: sgns_banded_multiblock(*(a[k] for k in _ARGS), **band),
                 lambda: sgns_banded_multiblock_ref(*(b[k] for k in _ARGS),
                                                    **band))
+    if kernel == "k3":
+        return (lambda: sgns_banded_fused(*(a[k] for k in _ARGS)),
+                lambda: sgns_banded_fused_ref(*(b[k] for k in _ARGS)))
     args = ("wv", "wc", "sb", "db", "nb", "src_l", "pos_l", "negs_l", "alpha")
     kw = dict(band_size=ALL_COLLIDE_NB["band"], nb2=ALL_COLLIDE_NB["nb2"])
     return (lambda: sgns_banded_multiblock_nb(*(a[k] for k in args), **kw),
@@ -368,17 +379,18 @@ def _all_collide_calls(kernel, x, device):
 
 
 def _all_collide(kernel):
-    return (multiblock_inputs(**ALL_COLLIDE) if kernel == "k4"
-            else multiblock_nb_inputs(**ALL_COLLIDE_NB))
+    return {"k4": lambda: multiblock_inputs(**ALL_COLLIDE),
+            "k5": lambda: multiblock_nb_inputs(**ALL_COLLIDE_NB),
+            "k3": lambda: fused_inputs(**ALL_COLLIDE_FUSED)}[kernel]()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["k4", "k5"])
+@pytest.mark.parametrize("kernel", ["k4", "k5", "k3"])
 def test_all_collide_matches_twin(cuda, kernel):
     """Every source and positive row of the superstep is one vertex: the
     inputs tests/test_torch_sgns_banded*.py hold the twins to the Pallas
     kernels with. Every tile and step gathers what the one before it
-    scattered."""
+    scattered (K3: two 2048-row tiles of one micro-step)."""
     x = _all_collide(kernel)
     call, twin = _all_collide_calls(kernel, x, cuda)
     got, want = call(), twin()
@@ -391,18 +403,30 @@ def test_all_collide_matches_twin(cuda, kernel):
     assert not np.allclose(got[0].cpu().numpy()[row], x["wv"][row])
 
 
+def _k1_call(device, B=32768, Ks=128, D=64):
+    rng = np.random.default_rng(0)
+    v, cp, cn = (torch.from_numpy((rng.standard_normal(s) * 0.3).astype(
+        np.float32)).to(device) for s in ((B, D), (B, D), (Ks, D)))
+    alpha = torch.tensor(0.025, device=device)
+    return lambda: sgns_shared_grads(v, cp, cn, alpha, k_equiv=5)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["k4", "k5"])
+@pytest.mark.parametrize("kernel", ["k4", "k5", "k3", "k1"])
 def test_one_cuda_launch_per_call(cuda, kernel):
-    """One wrapper call of K4 or K5 (int32 indices, f32 contiguous inputs)
-    is ONE CUDA kernel launch, as torch.profiler counts the host's calls
-    that put work on the card: the whole superstep runs in one cooperative
-    launch. The device side records no other kernel (it may miss a record
-    of a cooperative launch)."""
+    """One wrapper call of K4, K5, K3 or K1 (int32 indices, f32 contiguous
+    inputs) is ONE CUDA kernel launch, as torch.profiler counts the host's
+    calls that put work on the card: no memset, no copy, no separate sum;
+    the whole call runs in one cooperative launch. The device side records
+    no other kernel (it may miss a record of a cooperative launch)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    call, _ = _all_collide_calls(kernel, _all_collide(kernel), cuda)
+    if kernel == "k1":
+        call, name = _k1_call(cuda), "shared_grads_persistent"
+    else:
+        call, _ = _all_collide_calls(kernel, _all_collide(kernel), cuda)
+        name = "superstep"
     call()  # build and warm up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -414,5 +438,23 @@ def test_one_cuda_launch_per_call(cuda, kernel):
     kernels = [e.name for e in prof.events()
                if e.device_type == DeviceType.CUDA]
     assert host == ["cudaLaunchCooperativeKernel"], host
-    assert len(kernels) <= 1 and all("superstep" in k for k in kernels), \
-        kernels
+    assert len(kernels) <= 1 and all(name in k for k in kernels), kernels
+
+
+@pytest.mark.gpu
+def test_k3_k4_k5_launch_in_one_process(cuda):
+    """K3, K4 and K5 instantiate the one superstep kernel in three
+    libraries; a kernel that two libraries of one process define refuses
+    its cooperative launch. All three, launched one after another (K3 both
+    first and last), match their twins."""
+    results = []
+    for kernel in ("k3", "k4", "k5", "k3"):
+        call, twin = _all_collide_calls(kernel, _all_collide(kernel), cuda)
+        results.append((call(), twin()))
+    torch.cuda.synchronize()
+    for got, want in results:
+        for g, w in zip(got[:-1], want[:-1]):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(float(got[-1]), float(want[-1]),
+                                   rtol=RTOL)

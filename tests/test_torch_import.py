@@ -22,6 +22,7 @@ MODULES = [
     "smore_tpu_torch.ops.update",
     "smore_tpu_torch.models.base",
     "smore_tpu_torch.models.line",
+    "smore_tpu_torch.utils.bench_graphs",
 ]
 
 

@@ -15,6 +15,7 @@ import torch
 
 from smore_tpu.ops.pallas_sgns_banded import sgns_banded_fused as jax_fused
 from smore_tpu_torch.ops.sgns_banded import sgns_banded_fused
+from torch_superstep_inputs import ALL_COLLIDE_FUSED, fused_inputs
 
 # one intra-op thread: test workers share the cores, and a thread pool
 # in each of them oversubscribes the CPU on these tiny shapes
@@ -24,19 +25,15 @@ RTOL, ATOL = 2e-5, 1e-6
 N_BANDS = 3
 
 
-def _inputs(seed, Nb, D, Ks, B, sb, db, idx_hi=None):
-    rng = np.random.default_rng(seed)
-    n = Nb * N_BANDS
-    hi = Nb if idx_hi is None else idx_hi
-    return dict(
-        wv=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
-        wc=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
-        sb=np.int32(sb * Nb), db=np.int32(db * Nb),
-        src_l=rng.integers(0, hi, B).astype(np.int32),
-        pos_l=rng.integers(0, hi, B).astype(np.int32),
-        cn=(rng.standard_normal((Ks, D)) * 0.1).astype(np.float32),
-        alpha=np.float32(0.05),
-    )
+def _inputs(seed, Nb, D, Ks, B, sb, db, idx_hi=None, alpha=0.05):
+    return fused_inputs(seed, B, Nb, N_BANDS, Ks, D, sb, db, idx_hi, alpha)
+
+
+def _collide_case():
+    c = dict(ALL_COLLIDE_FUSED)
+    assert c.pop("n_bands") == N_BANDS
+    c["Nb"] = c.pop("band")
+    return c
 
 
 CASES = {
@@ -48,6 +45,15 @@ CASES = {
                                           B=4096, sb=0, db=2, idx_hi=16),
     "nb200_d32_ks40_b2048": dict(seed=2, Nb=200, D=32, Ks=40, B=2048, sb=2,
                                  db=2),
+    # three 2048-row tiles in order, each gathering the earlier ones' writes
+    "nb64_d16_ks16_b6144_three_tiles": dict(seed=4, Nb=64, D=16, Ks=16,
+                                            B=6144, sb=1, db=0, idx_hi=24),
+    # one tile under 2048 rows, a ragged Ks
+    "nb96_d32_ks37_b640": dict(seed=5, Nb=96, D=32, Ks=37, B=640, sb=0,
+                               db=1),
+    # every source and positive row one vertex: the card test holds the
+    # CUDA kernel to these inputs too
+    "all_collide_b4096": _collide_case(),
 }
 
 

@@ -27,8 +27,11 @@ def _inputs(seed, B, Ks, D):
             for s in ((B, D), (B, D), (Ks, D))]
 
 
+# the CUDA kernel's edges: B ragged against its 64-row tile, Ks not a
+# multiple of 8, D = 128 (32-row tiles) and D not a multiple of 8
 @pytest.mark.parametrize("B,Ks,D", [(2048, 128, 64), (1024, 64, 32),
-                                    (200, 40, 64)])
+                                    (200, 40, 64), (1000, 37, 64),
+                                    (2048, 128, 128), (320, 13, 36)])
 def test_twin_matches_pallas_kernel(B, Ks, D):
     v, cp, cn = _inputs(B + Ks + D, B, Ks, D)
     alpha = np.float32(0.025)

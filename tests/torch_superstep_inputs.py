@@ -1,6 +1,7 @@
-"""Inputs of the banded superstep (K4, K5) shared by the CPU tests, which
-hold the plain twins to smore_tpu's Pallas kernels, and tests/test_torch_gpu.py,
-which holds the CUDA kernels to the same twins on the card. numpy only: no
+"""Inputs of the banded superstep kernels (K4, K5, and K3, the fused
+micro-step) shared by the CPU tests, which hold the plain twins to
+smore_tpu's Pallas kernels, tests/test_torch_gpu.py, which holds the CUDA
+kernels to the same twins on the card, and chip_smoke.py. numpy only: no
 JAX, no torch."""
 
 import numpy as np
@@ -47,6 +48,26 @@ def multiblock_nb_inputs(seed, S, B, band, n_bands, nb2, Ks, D, sb, db, nb,
     )
 
 
+def fused_inputs(seed, B, band, n_bands, Ks, D, sb, db, idx_hi=None,
+                 alpha=0.05):
+    """K3's arguments: tables of ``n_bands`` bands, the band START rows of
+    bands sb and db (0-d int32), (B,) band-local rows below ``idx_hi``, a
+    (Ks, D) negative snapshot and the rate ``alpha`` (0-d f32)."""
+    rng = np.random.default_rng(seed)
+    n = band * n_bands
+    hi = band if idx_hi is None else idx_hi
+    return dict(
+        wv=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        wc=(rng.standard_normal((n, D)) * 0.1).astype(np.float32),
+        sb=np.asarray(sb * band, np.int32),
+        db=np.asarray(db * band, np.int32),
+        src_l=rng.integers(0, hi, B).astype(np.int32),
+        pos_l=rng.integers(0, hi, B).astype(np.int32),
+        cn=(rng.standard_normal((Ks, D)) * 0.1).astype(np.float32),
+        alpha=np.asarray(alpha, np.float32),
+    )
+
+
 # Every source and positive row of the superstep is one vertex (row 64 of
 # each table): all tiles and steps collide, 1024 deltas a tile into one row.
 # A small rate keeps the 2048-fold sums in f32 range.
@@ -60,3 +81,8 @@ ALL_COLLIDE = dict(seed=3, S=2, B=2048, band=64, n_bands=3, Ks=128, D=64,
 ALL_COLLIDE_NB = dict(seed=3, S=2, B=2048, band=64, n_bands=3, nb2=16,
                       Ks=128, D=64, sb=[1, 1], db=[1, 1], nb=[5, 5],
                       idx_hi=1, alpha=3e-4)
+# K3's all-collide micro-step: two 2048-row tiles whose every source and
+# positive row is row 64 of its table, so the second tile gathers the
+# first tile's 2048 summed deltas.
+ALL_COLLIDE_FUSED = dict(seed=3, B=4096, band=64, n_bands=3, Ks=128, D=64,
+                         sb=1, db=1, idx_hi=1, alpha=3e-4)
