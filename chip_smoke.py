@@ -1,6 +1,8 @@
 """Chip smoke test of the PyTorch port: builds the CUDA kernels and drives
 LINE's banded routes at Youtube scale and its unbanded path on the
-50k-vertex bench graph, on one NVIDIA card.
+50k-vertex bench graph, then the command line (``python -m
+smore_tpu_torch``), the walk family and checkpoint/resume, on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -71,19 +73,36 @@ Phases (any failure exits non-zero; there is no CPU path):
  17. the same with group=1 (per-step draws), same gates
  18. order 1 with use_pallas=True, 40M samples: K1 launched, a finite
      table; its AUC is printed
-Each path runs 1M samples first (tables, stream and warm-up), then every
-kernel's launch count is set to 0, read after the timed 40M run and
-printed. The last two lines are the kernel table (with each kernel's
-least possible time on the card, its bound) and the result, each one JSON
-object. Files go to build/chip_smoke/ inside the checkout.
+ 19. the walk family through the command line, each model a child process
+     of ``python -m smore_tpu_torch`` on the 20k-vertex walk-parity graph
+     (make_graph(n=20_000, e=400_000, n_comm=50, seed=0)) at the reference
+     CLIs' default budgets, -dimensions 64: DeepWalk and Walklets link-AUC
+     (experiments/walk_parity.py's probe) >= 0.9592 / 0.9600; node2vec and
+     APP finite, their vertex rows past the init scale, AUC printed (APP's
+     vertex . context, from its final checkpoint); no kernel launched (the
+     masked walk update is plain); walks/s and wall printed
+ 20. kill and resume on the card: DeepWalk on that graph checkpointing
+     every call, killed after its 4th save, resumed in a fresh model: the
+     restored tables and generator state must be the saved bytes, the
+     resumed link-AUC within 0.005 of an uninterrupted run's
+ 21. ``line`` through the command line at Youtube scale, 40M samples, with
+     -checkpoint: K4 launched, community AUC >= 0.58; the same command
+     again resumes the finished checkpoint, trains nothing and must write
+     a byte-equal file; then ``line -order 1`` (K2 launched, AUC printed)
+Each in-process path runs 1M samples first (tables, stream and warm-up),
+then every kernel's launch count is set to 0, read after the timed 40M run
+and printed; a command-line run counts the launches of its own process.
+The last two lines are the kernel table (with each kernel's least possible
+time on the card, its bound) and the result, each one JSON object. Files
+go to build/chip_smoke/ inside the checkout.
 
     python3 chip_smoke.py --profile DIR
 
 also profiles 4M more samples of the multiblock, fused, order-1,
-neg_band, held fused, held scatter-only and unbanded main paths with
-torch.profiler and writes the kernel-time tables
-and Chrome traces to DIR (a measurement aid, off by default so that the
-smoke does not depend on the profiler).
+neg_band, held fused, held scatter-only and unbanded main paths, and one
+DeepWalk run on the 20k graph, with torch.profiler and writes the
+kernel-time tables and Chrome traces to DIR (a measurement aid, off by
+default so that the smoke does not depend on the profiler).
 """
 
 from __future__ import annotations
@@ -868,18 +887,357 @@ def phase_unbanded(device):
     return out
 
 
-def phase_profile(m, out_dir: str, name: str, **kw) -> None:
-    """Kernel time by name and the card's busy share over 4M samples."""
+# ------------------------------------------------ the CLI and the walks
+# The 20k-vertex walk-parity graph (experiments/walk_parity.py) and the
+# reference CLIs' default budgets there, every run at -dimensions 64
+# -undirected 1 -alpha 0.025. DeepWalk and Walklets are gated at the JAX
+# package's link-AUC records on this graph (0.9892, 0.9900) less bench.py's
+# 0.03 margin; node2vec and APP have no record there and are gated on
+# finite tables whose vertex rows grew past their init scale (a stalled
+# run stays at it).
+WALK_GRAPH = dict(n=20_000, e=400_000, n_comm=50, seed=0)
+WALK_COMMON = ["-dimensions", str(D), "-undirected", "1", "-alpha", "0.025"]
+WALK_RUNS = (
+    ("deepwalk", ["-walk_times", "10", "-walk_steps", "40", "-window_size",
+                  "5", "-negative_samples", "5"], 0.9592),
+    ("walklets", ["-walk_times", "10", "-walk_steps", "40", "-window_min",
+                  "2", "-window_max", "5", "-negative_samples", "5"], 0.9600),
+    ("node2vec", ["-walk_times", "3", "-walk_steps", "40", "-window_size",
+                  "5", "-negative_samples", "5", "-p", "0.5", "-q", "2"],
+     None),
+    ("app", ["-walk_times", "100", "-sample_times", "20", "-jump", "0.15",
+             "-negative_samples", "5"], None),
+)
+INIT_NORM = np.sqrt(D / 12.0) / D  # mean row norm of U(-0.5, 0.5) / D
+# a CLI run as ``python -m smore_tpu_torch`` runs it, then the launch count
+# of every kernel in that process (all 0 at its start)
+_CLI_RUN = (
+    "import json, runpy, sys\n"
+    "from chip_smoke import _counters\n"
+    "sys.argv = ['smore_tpu_torch'] + sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module('smore_tpu_torch', run_name='__main__',\n"
+    "                     alter_sys=True)\n"
+    "except SystemExit as e:\n"
+    "    rc = e.code\n"
+    "print('launches ' + json.dumps(\n"
+    "    {name: f.launches for name, f in _counters().items()}))\n"
+    "sys.exit(rc)\n"
+)
+
+
+def run_cli(argv, timeout: int = 300) -> dict:
+    """``python -m smore_tpu_torch <argv>`` in a child process on the card
+    (the kernels built above are found in the build directory). Returns its
+    wall time, the samples and seconds of its driver's last line and its
+    kernel launches; fails on a non-zero exit."""
+    import re
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", _CLI_RUN] + list(argv),
+                       cwd=HERE, capture_output=True, text=True,
+                       timeout=timeout)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        log(r.stdout[-3000:])
+        log(r.stderr[-3000:])
+        raise RuntimeError(f"chip_smoke: {' '.join(argv[:1])} exited "
+                           f"{r.returncode}")
+    done = re.findall(r"done: ([\d,]+) samples in ([\d.]+)s", r.stdout)
+    launches = json.loads(r.stdout.rsplit("launches ", 1)[1].splitlines()[0])
+    samples, secs = done[-1] if done else ("0", "0")
+    return dict(wall=wall, samples=int(samples.replace(",", "")),
+                train_s=float(secs), launches=launches)
+
+
+def _load_emb(path):
+    """walk_parity.load_emb: name -> row and the row-normalised table."""
+    names, rows = [], []
+    with open(path) as f:
+        f.readline()
+        for line in f:
+            parts = line.rstrip("\n").split(" ")
+            if len(parts) < D + 1:
+                continue
+            names.append(parts[0])
+            rows.append([float(x) for x in parts[1:D + 1]])
+    emb = np.asarray(rows, np.float64)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True) + 1e-12
+    return dict(zip(names, range(len(names)))), emb
+
+
+def link_auc(train: str, name2row: dict, emb: np.ndarray, ctx=None,
+             seed: int = 3, n_pairs: int = 20000) -> float:
+    """experiments/walk_parity.link_auc: AUC of the score of true edges
+    against uniform random pairs, the score emb[u] . emb[v] (cosine for a
+    normalised table) or emb[u] . ctx[v]."""
+    ctx = emb if ctx is None else ctx
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    with open(train) as f:
+        lines = f.readlines()
+    for i in rng.choice(len(lines), n_pairs, replace=False):
+        a, b, _ = lines[i].split()
+        src.append(name2row[a])
+        dst.append(name2row[b])
+    pos = np.sum(emb[src] * ctx[dst], axis=1)
+    names = list(name2row.values())
+    ra = rng.choice(names, 1000)
+    rb = rng.choice(names, 1000)
+    neg = np.sum(emb[ra] * ctx[rb], axis=1)
+    return float((pos[:, None] > neg[None, :]).mean()
+                 + 0.5 * (pos[:, None] == neg[None, :]).mean())
+
+
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def phase_walks_cli() -> str:
+    """The four walk models through ``python -m smore_tpu_torch`` on the
+    20k walk-parity graph at the reference's default budgets; each must
+    launch no kernel (the walk update is the masked plain path). APP also
+    checkpoints its final state, whose context table scores its AUC."""
+    from smore_tpu_torch.utils.bench_graphs import make_graph
+    from smore_tpu_torch.utils.checkpoint import load_checkpoint
+
+    os.makedirs(OUT, exist_ok=True)
+    path = os.path.join(OUT, "walk_net_20k.txt")
+    make_graph(path, **WALK_GRAPH)
+    card = _card()
+    for model, flags, gate in WALK_RUNS:
+        save = os.path.join(OUT, f"{model}_20k.txt")
+        extra = []
+        if model == "app":
+            ck = os.path.join(OUT, "app_ckpt")
+            extra = ["-checkpoint", ck, "-checkpoint_every", "1000000",
+                     "-no_resume"]
+        r = run_cli([model, "-train", path, "-save", save] + WALK_COMMON
+                    + flags + extra)
+        require(not any(r["launches"].values()),
+                f"{model} launched a kernel: {r['launches']}")
+        name2row, emb = _load_emb(save)
+        require(len(name2row) == WALK_GRAPH["n"] and np.isfinite(emb).all(),
+                f"{model}: {len(name2row)} rows or non-finite values")
+        if model == "app":
+            state, _, _ = load_checkpoint(ck)
+            wv = state["vertex"].numpy().astype(np.float64)
+            wc = state["context"].numpy().astype(np.float64)
+            require(np.isfinite(wv).all() and np.isfinite(wc).all(),
+                    "app: non-finite tables")
+            auc = link_auc(path, name2row, wv, wc)
+            kind = "vertex . context"
+        else:
+            auc = link_auc(path, name2row, emb)
+            kind = "cosine"
+        with open(save) as f:
+            f.readline()
+            norm = float(np.mean([np.linalg.norm(np.array(
+                line.split()[1:], np.float64)) for line in f]))
+        rate = r["samples"] / max(r["train_s"], 1e-9)
+        log(f"{model} (CLI, 20k graph, {' '.join(flags)}): link-AUC "
+            f"({kind}) {auc:.4f}"
+            + (f" (gate >= {gate})" if gate else " (no record; gate: finite "
+               f"and vertex row norm > 2 x init {INIT_NORM:.4f})")
+            + f"; mean vertex row norm {norm:.4f}; {r['samples']:,} walks in "
+            f"{r['train_s']:.2f} s = {rate:,.0f} walks/s; wall "
+            f"{r['wall']:.1f} s with start-up and graph load [{card}]")
+        if gate:
+            require(auc >= gate, f"{model}: link-AUC {auc:.4f} < {gate}")
+        else:
+            require(norm > 2 * INIT_NORM,
+                    f"{model}: vertex row norm {norm:.4f} stayed at its init "
+                    f"scale {INIT_NORM:.4f}")
+    return path
+
+
+class _Killed(Exception):
+    """The simulated preemption of the kill-and-resume phase."""
+
+
+def phase_walk_kill_resume(path: str, device):
+    """DeepWalk on the 20k graph at its default budget, checkpointing every
+    call: killed after the 4th save and resumed in a fresh model. The
+    restored tables and generator state must be the saved bytes, and the
+    resumed run's link-AUC within 0.005 of an uninterrupted run's (atomics
+    sum duplicate rows in a changing order, so the two differ in the last
+    bits). Returns the resumed model."""
+    import shutil
+
+    from smore_tpu_torch.graph.graph import Graph
+    from smore_tpu_torch.models import DeepWalk
+    from smore_tpu_torch.models.base import TrainDriver
+    from smore_tpu_torch.utils.checkpoint import load_checkpoint
+
+    g = Graph.load_edge_list(path, undirected=True)
+    kw = dict(walk_times=10, walk_steps=40, window_size=5,
+              negative_samples=5, alpha=0.025, verbose=False)
+
+    def fresh():
+        m = DeepWalk(g, seed=0, device=device)
+        m.init(dim=D)
+        return m
+
+    def auc_of(m, name):
+        f = os.path.join(OUT, name)
+        m.save_weights(f)
+        return link_auc(path, *_load_emb(f))
+
+    ref = fresh()
+    t0 = time.perf_counter()
+    ref.train(**kw)
+    dt = time.perf_counter() - t0
+    auc_ref = auc_of(ref, "deepwalk_ref.txt")
+    d = ref.last_driver
+    log(f"kill and resume: DeepWalk uninterrupted {d.executed_samples:,} "
+        f"walks in {dt:.2f} s ({d.executed_samples / dt:,.0f} walks/s), "
+        f"batch {d.samples_per_step // d.micro_steps} x {d.micro_steps} "
+        f"(epoch hoist), {d.steps_per_call} step(s) per call; link-AUC "
+        f"{auc_ref:.4f}")
+
+    ck = os.path.join(OUT, "deepwalk_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    saves = []
+    orig_save, orig_resume = TrainDriver._save_ckpt, TrainDriver._maybe_resume
+
+    def killing_save(self, state, gen, done):
+        orig_save(self, state, gen, done)
+        saves.append(done)
+        if len(saves) == 4:
+            raise _Killed
+
+    m = fresh()
+    m.set_checkpoint(ck, every=1)
+    TrainDriver._save_ckpt = killing_save
+    try:
+        m.train(**kw)
+        raise RuntimeError("chip_smoke: the run was not killed")
+    except _Killed:
+        pass
+    finally:
+        TrainDriver._save_ckpt = orig_save
+    saved, done, extra = load_checkpoint(ck)
+    restored = {}
+
+    def spy(self, state, gen):
+        out = orig_resume(self, state, gen)
+        # a copy: training goes on to update the tables in place
+        restored.update({k: v.to("cpu", copy=True) for k, v in state.items()},
+                        gen=gen.get_state())
+        return out
+
+    m2 = fresh()
+    m2.set_checkpoint(ck, every=1)
+    TrainDriver._maybe_resume = spy
+    try:
+        m2.train(**kw)
+    finally:
+        TrainDriver._maybe_resume = orig_resume
+    require(torch.equal(restored.pop("gen"), extra["gen"]),
+            "the restored generator state differs from the saved one")
+    require(set(restored) == set(saved)
+            and all(torch.equal(restored[k], v) for k, v in saved.items()),
+            "the restored tables differ from the saved ones")
+    d2 = m2.last_driver
+    auc = auc_of(m2, "deepwalk_resumed.txt")
+    diff = max(float((m2.state[k] - ref.state[k]).abs().max())
+               for k in ref.state)
+    log(f"  killed after save 4 (step {done} of "
+        f"{-(-d2.total_samples // d2.samples_per_step)}); restored tables "
+        f"and generator state byte-equal to the saved ones; resumed "
+        f"{d2.executed_samples:,} walks; link-AUC resumed {auc:.4f} vs "
+        f"uninterrupted {auc_ref:.4f} (gate |diff| <= 0.005); largest table "
+        f"difference {diff:.3e}")
+    require(d2.executed_samples > 0, "the resumed run trained nothing")
+    require(abs(auc - auc_ref) <= 0.005,
+            f"resumed link-AUC {auc:.4f} vs uninterrupted {auc_ref:.4f}")
+    m2.set_checkpoint(None)
+    return m2
+
+
+def _cli_table(g, path: str) -> np.ndarray:
+    """A saved embedding file as a (n, D) table in the graph's row order,
+    through the port's native warm-start reader."""
+    from smore_tpu_torch.io.embeddings import warm_start
+
+    table = np.full((g.n_vertices, D), np.nan, np.float32)
+    table = warm_start(table, g.names, path)
+    require(np.isfinite(table).all(), f"{path}: missing or non-finite rows")
+    return table
+
+
+def phase_line_cli(g) -> int:
+    """``line`` through the CLI at Youtube scale: 40M samples on the
+    multiblock route with a checkpoint (K4 launched, the community AUC
+    gated), the same command again (it resumes the finished checkpoint:
+    nothing trains, no kernel launches, the same bytes are written), and
+    order 1 (K2 launched, its AUC printed). Returns the first run's K4
+    launches."""
+    import filecmp
+    import shutil
+
+    from smore_tpu_torch.utils.bench_graphs import yt_community_auc
+
+    path = os.path.join(OUT, "yt_net.txt")
+    ck = os.path.join(OUT, "line_ckpt")
+    shutil.rmtree(ck, ignore_errors=True)
+    card = _card()
+    a, b = os.path.join(OUT, "line_cli_a.txt"), os.path.join(OUT,
+                                                             "line_cli_b.txt")
+    base = ["line", "-train", path, "-sample_times", str(SAMPLE_TIMES),
+            "-checkpoint", ck, "-checkpoint_every", "100"]
+    r1 = run_cli(base + ["-save", a])
+    k4 = r1["launches"]["sgns_banded_multiblock"]
+    require(k4 > 0, f"line through the CLI did not launch K4: "
+            f"{r1['launches']}")
+    auc = yt_community_auc(_cli_table(g, a), g.names)
+    log(f"line o2 (CLI, Youtube scale, {SAMPLE_TIMES}M samples, checkpoint "
+        f"every 100 calls): community AUC {auc:.4f} (gate >= {AUC_MIN}); "
+        f"{r1['samples']:,} samples in {r1['train_s']:.2f} s = "
+        f"{r1['samples'] / max(r1['train_s'], 1e-9):,.0f} samples/s; wall "
+        f"{r1['wall']:.1f} s; launches {r1['launches']} [{card}]")
+    require(auc >= AUC_MIN, f"line CLI: community AUC {auc:.4f} < {AUC_MIN}")
+    r2 = run_cli(base + ["-save", b])
+    require(r2["samples"] == 0 and not any(r2["launches"].values()),
+            f"the resumed finished run trained: {r2}")
+    require(filecmp.cmp(a, b, shallow=False),
+            "the resumed finished run wrote another file")
+    log(f"  the same command again resumed the finished checkpoint: 0 "
+        f"samples, no launches, a byte-equal file ({os.path.getsize(b):,} "
+        f"bytes); wall {r2['wall']:.1f} s")
+    os.remove(b)
+    o1 = os.path.join(OUT, "line_cli_o1.txt")
+    r3 = run_cli(["line", "-train", path, "-save", o1, "-order", "1",
+                  "-sample_times", str(SAMPLE_TIMES)])
+    require(r3["launches"]["band_scatter_add"] > 0,
+            f"line -order 1 through the CLI did not launch K2: "
+            f"{r3['launches']}")
+    auc1 = yt_community_auc(_cli_table(g, o1), g.names)
+    log(f"line o1 (CLI, Youtube scale): community AUC {auc1:.4f} (no gate); "
+        f"{r3['samples'] / max(r3['train_s'], 1e-9):,.0f} samples/s; wall "
+        f"{r3['wall']:.1f} s; launches {r3['launches']}")
+    for f in (a, o1):
+        os.remove(f)
+    return k4
+
+
+def phase_profile(m, out_dir: str, name: str, warm=None, run=None,
+                  **kw) -> None:
+    """Kernel time by name and the card's busy share over 4M samples after
+    1M (``run`` and ``warm``: other train() arguments, for a walk model)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
-    m.train(sample_times=1, **TRAIN_KW, **kw)
+    m.train(**(warm or dict(sample_times=1, **TRAIN_KW, **kw)))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        m.train(sample_times=4, **TRAIN_KW, **kw)
+        m.train(**(run or dict(sample_times=4, **TRAIN_KW, **kw)))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     avg = prof.key_averages()
@@ -919,6 +1277,11 @@ def main() -> None:
     m_nb, k5_launches = routes["neg_band"]
     unbanded = phase_unbanded(device)
     m_50k, k1_launches = unbanded["group 8 (main path)"]
+    t0 = time.perf_counter()
+    walk_graph = phase_walks_cli()
+    m_dw = phase_walk_kill_resume(walk_graph, device)
+    phase_line_cli(g_yt)
+    log(f"CLI, walk and checkpoint phases: {time.perf_counter() - t0:.1f} s")
     if args.profile:
         phase_profile(m_yt, args.profile, "line_yt")
         phase_profile(m_fused, args.profile, "line_yt_fused",
@@ -932,6 +1295,12 @@ def main() -> None:
                       band_hold=True, use_pallas="scatter")
         phase_profile(m_50k, args.profile, "line_50k_unbanded",
                       use_pallas=True)
+        # the default budget in both runs: a truncated warm-up would leave
+        # the model on four inner passes (WalkSGNSBase._run)
+        walk_kw = dict(walk_times=10, walk_steps=40, window_size=5,
+                       negative_samples=5, alpha=0.025, verbose=False)
+        phase_profile(m_dw, args.profile, "deepwalk_20k", warm=walk_kw,
+                      run=walk_kw)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {

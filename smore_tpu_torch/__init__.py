@@ -2,7 +2,7 @@
 
 The JAX package ``smore_tpu`` stays the reference; this package mirrors its
 layout (``graph/``, ``native/``, ``sampling/``, ``ops/``, ``models/``,
-``io/``) so each module's counterpart is easy to find. It imports ``torch``
+``io/``, ``utils/``, ``cli/``) so each module's counterpart is easy to find. It imports ``torch``
 and never ``jax`` or ``smore_tpu``.
 
 Plain tensor code is PyTorch; each kernel that ``smore_tpu`` wrote in Pallas
@@ -11,8 +11,10 @@ with ``nvcc`` at first use and bound with ``ctypes`` (``ops/_build.py``).
 Every kernel wrapper keeps a plain PyTorch twin beside it: the wrapper runs
 the twin for CPU tensors and launches the kernel (or raises) for CUDA ones.
 
-Ported so far: LINE order 2 on the banded multiblock path
-(``models/line.py``), with its host layer and samplers.
+Ported so far: LINE on every route of one device (``models/line.py``), the
+walk family (DeepWalk, Walklets, node2vec, APP), checkpoint/resume, warm
+start and the command line ``python -m smore_tpu_torch <model> ...``, with
+their host layer and samplers.
 """
 
 __version__ = "0.1.0"

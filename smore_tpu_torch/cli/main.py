@@ -1,0 +1,213 @@
+"""``python -m smore_tpu_torch``: one entry point, one subcommand per model.
+
+Port of ``smore_tpu/cli/main.py`` for the models ported so far (``line``,
+``deepwalk``, ``walklets``, ``node2vec``, ``app``), with the same flags,
+defaults and output files. The reference CLIs' flag conventions hold:
+single-dash long flags, e.g.::
+
+    python -m smore_tpu_torch line -train net.txt -save rep.txt -order 2
+    python -m smore_tpu_torch deepwalk -train net.txt -save rep.txt
+
+One flag is the port's own: ``-device`` (default ``cuda``, the card;
+``cpu`` to run on the host). Without a card the default raises at the first
+allocation; nothing falls back to the CPU. A subcommand of the JAX
+package's CLI that is not ported yet exits with code 2 and says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from typing import Callable, Dict
+
+_REGISTRY: Dict[str, Callable] = {}
+
+# the JAX package's other subcommands, in the order of ROADMAP.md Queue 1
+NOT_PORTED = (
+    "pe", "hpe", "hoprec", "mf", "bpr", "warp", "skewopt", "fastrp", "gcn",
+    "textgcn", "textgcndev", "fine", "msfine", "nemf", "nerank", "eco",
+    "metapath2vec", "han", "ctdne", "sne", "transe", "rotate", "complex",
+    "jodie", "sasrec", "gsasrec", "recdenoiser", "cpr", "tpr",
+)
+
+
+def _cmd(name):
+    def deco(fn):
+        _REGISTRY[name] = fn
+        return fn
+
+    return deco
+
+
+def _base_parser(name: str, walk: bool = False) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog=f"python -m smore_tpu_torch {name}",
+                                allow_abbrev=False, prefix_chars="-")
+    p.add_argument("-train", required=True, help="input edge list")
+    p.add_argument("-save", required=True, help="output embedding file")
+    p.add_argument("-dimensions", type=int, default=64)
+    p.add_argument("-undirected", type=int, default=1)
+    p.add_argument("-alpha", type=float, default=0.025)
+    p.add_argument("-threads", type=int, default=1,
+                   help="accepted for compatibility; ignored")
+    p.add_argument("-batch", type=int, default=None,
+                   help="batch size override (line)")
+    p.add_argument("-checkpoint", default=None,
+                   help="checkpoint directory: save the full training state "
+                        "periodically and resume from it if present")
+    p.add_argument("-checkpoint_every", type=int, default=1,
+                   help="checkpoint interval, in driver calls")
+    p.add_argument("-no_resume", action="store_true",
+                   help="with -checkpoint: overwrite instead of resuming")
+    p.add_argument("-device", default="cuda",
+                   help="torch device to train on: cuda (default) or cpu")
+    if walk:
+        p.add_argument("-walk_times", type=int, default=10)
+        p.add_argument("-walk_steps", type=int, default=40)
+        p.add_argument("-window_size", type=int, default=5)
+        p.add_argument("-negative_samples", type=int, default=5)
+    else:
+        p.add_argument("-sample_times", type=float, default=10)
+        p.add_argument("-negative_samples", type=int, default=5)
+    return p
+
+
+def _set_ckpt(m, a) -> None:
+    """Apply -checkpoint/-checkpoint_every/-no_resume to a model."""
+    if a.checkpoint:
+        m.set_checkpoint(a.checkpoint, every=a.checkpoint_every,
+                         resume=not a.no_resume)
+
+
+def _warm_start(m, a) -> None:
+    """Apply the -load_v/-load_c warm starts after init (the reference's
+    Init(dim, load_vertex, load_context))."""
+    if getattr(a, "load_v", None):
+        m.load_pretrain(a.load_v, table="vertex")
+    if getattr(a, "load_c", None) and "context" in m.state:
+        m.load_pretrain(a.load_c, table="context")
+
+
+def _load(cls, a):
+    """The model of class ``cls`` on -train's graph, on -device."""
+    return cls.load_edge_list(a.train, undirected=bool(a.undirected),
+                              device=a.device)
+
+
+@_cmd("line")
+def _line(argv):
+    p = _base_parser("line")
+    p.add_argument("-order", type=int, default=2)
+    p.add_argument("-group", type=int, default=0,
+                   help="contexts drawn per source per step (0 = auto: 1 on "
+                        "the banded large-graph path, 8 elsewhere)")
+    p.add_argument("-load_v", default=None, help="pretrained vertex warm start")
+    p.add_argument("-load_c", default=None,
+                   help="pretrained context warm start")
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import LINE
+
+    m = _load(LINE, a)
+    m.init(dim=a.dimensions, order=a.order)
+    _warm_start(m, a)
+    _set_ckpt(m, a)
+    kw = {"batch": a.batch} if a.batch else {}
+    m.train(sample_times=a.sample_times, negative_samples=a.negative_samples,
+            alpha=a.alpha, group=a.group, **kw)
+    m.save_weights(a.save)
+
+
+@_cmd("deepwalk")
+def _deepwalk(argv):
+    p = _base_parser("deepwalk", walk=True)
+    p.add_argument("-load_v", default=None, help="pretrained vertex warm start")
+    p.add_argument("-load_c", default=None,
+                   help="pretrained context warm start")
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import DeepWalk
+
+    m = _load(DeepWalk, a)
+    m.init(dim=a.dimensions)
+    _warm_start(m, a)
+    _set_ckpt(m, a)
+    m.train(walk_times=a.walk_times, walk_steps=a.walk_steps,
+            window_size=a.window_size, negative_samples=a.negative_samples,
+            alpha=a.alpha)
+    m.save_weights(a.save)
+
+
+@_cmd("walklets")
+def _walklets(argv):
+    p = _base_parser("walklets", walk=True)
+    p.add_argument("-window_min", type=int, default=2)
+    p.add_argument("-window_max", type=int, default=5)
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import Walklets
+
+    m = _load(Walklets, a)
+    m.init(dim=a.dimensions)
+    _set_ckpt(m, a)
+    m.train(walk_times=a.walk_times, walk_steps=a.walk_steps,
+            window_min=a.window_min, window_max=a.window_max,
+            negative_samples=a.negative_samples, alpha=a.alpha)
+    m.save_weights(a.save)
+
+
+@_cmd("node2vec")
+def _node2vec(argv):
+    p = _base_parser("node2vec", walk=True)
+    p.add_argument("-p", type=float, default=1.0)
+    p.add_argument("-q", type=float, default=1.0)
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import Node2Vec
+
+    m = _load(Node2Vec, a)
+    m.init(dim=a.dimensions)
+    _set_ckpt(m, a)
+    m.train(walk_times=a.walk_times, walk_steps=a.walk_steps,
+            window_size=a.window_size, p=a.p, q=a.q,
+            negative_samples=a.negative_samples, alpha=a.alpha)
+    m.save_weights(a.save)
+
+
+@_cmd("app")
+def _app(argv):
+    p = _base_parser("app")
+    p.add_argument("-walk_times", type=int, default=100)
+    p.add_argument("-jump", type=float, default=0.15)
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import APP
+
+    m = _load(APP, a)
+    m.init(dim=a.dimensions)
+    _set_ckpt(m, a)
+    m.train(walk_times=a.walk_times, sample_times=int(a.sample_times),
+            jump=a.jump, negative_samples=a.negative_samples, alpha=a.alpha)
+    m.save_weights(a.save)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] in ("-h", "--help", "help"):
+        print("smore_tpu_torch: SMORe on PyTorch and CUDA. Subcommands:\n  "
+              + ", ".join(sorted(_REGISTRY)))
+        print("Not ported yet (run them with python -m smore_tpu):\n  "
+              + ", ".join(sorted(NOT_PORTED)))
+        print("\nRun `python -m smore_tpu_torch <model>` with no flags for "
+              "that model's options.")
+        return 0
+    cmd = argv[0]
+    if cmd in NOT_PORTED:
+        print(f"{cmd!r} is not ported to smore_tpu_torch yet (ROADMAP.md, "
+              "Queue 1); the JAX package runs it: python -m smore_tpu "
+              f"{cmd} ...", file=sys.stderr)
+        return 2
+    if cmd not in _REGISTRY:
+        print(f"unknown model {cmd!r}; run `python -m smore_tpu_torch help` "
+              "for the list")
+        return 1
+    _REGISTRY[cmd](argv[1:])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,8 @@
 """Host-side weighted-graph store: CSR + string interning + loaders.
 
 Port of ``smore_tpu/graph/graph.py`` (``from_arrays``, ``from_edges``,
-``load_edge_list`` with its native and pure-Python loaders). The store is
+``load_edge_list`` with its native and pure-Python loaders, the per-vertex
+accessors ``branch``, ``neighbors`` and ``neighbor_weights``). The store is
 host numpy and bit-equal to the JAX package's: the device never sees it,
 only the sampler tables built from it.
 """
@@ -69,6 +70,15 @@ class Graph:
     @property
     def n_edges(self) -> int:
         return len(self.indices)
+
+    def branch(self, vid: int) -> int:
+        return int(self.indptr[vid + 1] - self.indptr[vid])
+
+    def neighbors(self, vid: int) -> np.ndarray:
+        return self.indices[self.indptr[vid]:self.indptr[vid + 1]]
+
+    def neighbor_weights(self, vid: int) -> np.ndarray:
+        return self.weights[self.indptr[vid]:self.indptr[vid + 1]]
 
     @staticmethod
     def from_arrays(

@@ -1,7 +1,8 @@
 """Embedding text IO in the reference interchange format.
 
 Port of ``smore_tpu/io/embeddings.py`` (``save_embeddings``,
-``load_embeddings``); the text is byte-equal to the JAX package's::
+``load_embeddings``, ``warm_start``); the text is byte-equal to the JAX
+package's::
 
     N dim
     name v1 v2 ... vdim
@@ -53,3 +54,23 @@ def load_embeddings(path: str) -> Dict[str, np.ndarray]:
                 continue
             out[parts[0]] = vec
     return out
+
+
+def warm_start(table: np.ndarray, names: Sequence[str],
+               pretrain_path: str) -> np.ndarray:
+    """A copy of ``table`` with rows overwritten by name from a saved
+    embedding file (the reference's LoadPreTrain); rows of another length
+    are skipped. float32 tables go through the native reader when it
+    builds; the Python reader keeps a float64 table's precision."""
+    from smore_tpu_torch.native import fastgraph
+
+    if np.asarray(table).dtype == np.float32 and fastgraph.available():
+        return fastgraph.warm_start(table, names, pretrain_path)
+    loaded = load_embeddings(pretrain_path)
+    table = np.array(table, copy=True)
+    dim = table.shape[1]
+    for i, name in enumerate(names):
+        vec = loaded.get(name)
+        if vec is not None and len(vec) == dim:
+            table[i] = vec
+    return table

@@ -1,16 +1,18 @@
 """Shared model scaffolding: embedding tables and the training driver.
 
 Port of ``smore_tpu/models/base.py`` (``hoisted_scan_step``,
-``clamp_batch``, ``init_embedding``, ``zeros_embedding``, ``TrainDriver`` on
-one device, ``PairModelBase``). The JAX driver ran ``steps_per_call`` steps
-in one jitted ``lax.scan``; here the same steps run in a Python loop, each
-step launching its kernels on the current stream, and the host reads
-nothing back unless it prints progress. The update is hand-derived SGD, so
-no autograd is involved.
+``freshness_policy``, ``trunc_mass_multiplier``, ``clamp_batch``,
+``init_embedding``, ``zeros_embedding``, ``TrainDriver`` on one device with
+checkpoint and resume, ``PairModelBase``). The JAX driver ran
+``steps_per_call`` steps in one jitted ``lax.scan``; here the same steps run
+in a Python loop, each step launching its kernels on the current stream,
+and the host reads nothing back unless it prints progress or saves a
+checkpoint. The update is hand-derived SGD, so no autograd is involved.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -18,8 +20,13 @@ import numpy as np
 import torch
 
 from smore_tpu_torch.graph.graph import Graph
-from smore_tpu_torch.io.embeddings import save_embeddings
+from smore_tpu_torch.io.embeddings import save_embeddings, warm_start
 from smore_tpu_torch.sampling.tables import SamplerTables
+from smore_tpu_torch.utils.checkpoint import (
+    checkpoint_exists,
+    load_checkpoint,
+    save_checkpoint,
+)
 
 State = Dict[str, torch.Tensor]
 # step_fn(state, ctx, gen, alpha) -> (state, loss); ``ctx`` holds the
@@ -50,6 +57,31 @@ def hoisted_scan_step(draw_fn, update_fn, hoist: int) -> StepFn:
         return state, torch.stack(losses).mean()
 
     return step
+
+
+def freshness_policy(total_units: int, batch: int, hoist: int,
+                     min_updates: int = 1536, min_batch: int = 8) -> tuple:
+    """Truncated-budget freshness floor. A batched step applies ``batch``
+    samples against one table snapshot, where the reference applies them
+    one at a time; when the run would see fewer than ``min_updates``
+    sequential updates, shrink the batch and raise the micro-step factor
+    by as much, so that the draws per call stay about the same. 1536 sits
+    just below the walk family's default budget on the 20k-vertex parity
+    graph (1562 steps of 128 walks), which is left untouched. Returns the
+    adjusted (batch, hoist)."""
+    if batch <= min_batch or total_units >= min_updates * batch:
+        return batch, hoist
+    new_batch = int(max(min_batch, total_units // min_updates))
+    grow = max(1, batch // new_batch)
+    return new_batch, min(max(1, hoist) * grow, 64)
+
+
+def trunc_mass_multiplier(rebatched: int, tiny: int = 64) -> float:
+    """Step-mass multiplier of the inner-pass bootstrap at truncated
+    budgets (``WalkSGNSBase._run``): x3 where the re-batched step is tiny
+    (the JAX package's calibration at 8-26 rows), x2 above, where x3
+    collapsed APP's tables in its measurements."""
+    return 3.0 if rebatched <= tiny else 2.0
 
 
 def clamp_batch(n_rows: int, batch: int, group: int = 1) -> int:
@@ -101,9 +133,16 @@ class TrainDriver:
     samples_per_step counts every sample a step consumes (batch *
     micro_steps on the multiblock path); it sets the alpha schedule and the
     throughput report. ``device`` (default the CUDA card) holds the alpha
-    schedule and the loss. One device only: ``mesh`` and
-    ``checkpoint_path`` raise, as their ports are still ahead (ROADMAP
-    Queue 1 items 12 and 5).
+    schedule and the loss. One device only: ``mesh`` raises, as its port is
+    still ahead (ROADMAP Queue 1 item 12).
+
+    checkpoint_path: the training state (tables, the generator's state and
+    the step counter) is saved there every ``checkpoint_every`` calls of
+    ``steps_per_call`` steps and after the last one; with ``resume`` and a
+    checkpoint already there, training continues from it. The learning
+    rate is a function of the step counter and the draws of the generator's
+    state, so a killed and resumed run takes the steps of an uninterrupted
+    one. ``monitor``: print progress when ``verbose``.
     """
 
     def __init__(
@@ -114,28 +153,54 @@ class TrainDriver:
         alpha: float,
         total_samples: int,
         steps_per_call: int = 256,
-        micro_steps: int = 1,
-        device: torch.device | str = "cuda",
+        monitor: bool = True,
         mesh=None,
         checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 1,
+        resume: bool = True,
+        micro_steps: int = 1,
+        device: torch.device | str = "cuda",
     ):
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device training (mesh=) is not ported yet "
                 "(ROADMAP Queue 1 item 12)")
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "checkpoint/resume (checkpoint_path=) is not ported yet: "
-                "torch.save checkpoints are ROADMAP Queue 1 item 5")
         self.step_fn = step_fn
         self.ctx = ctx
         self.samples_per_step = int(samples_per_step)
         self.alpha = float(alpha)
         self.total_samples = int(total_samples)
         self.steps_per_call = int(steps_per_call)
+        self.monitor = monitor
+        self.checkpoint_path = checkpoint_path
+        self.checkpoint_every = max(1, int(checkpoint_every))
+        self.resume = resume
         self.micro_steps = max(1, int(micro_steps))
         self.device = torch.device(device)
         self.executed_samples = 0
+
+    def _save_ckpt(self, state: State, gen: torch.Generator,
+                   done: int) -> None:
+        save_checkpoint(self.checkpoint_path, state, step=done,
+                        extra={"gen": gen.get_state()})
+
+    def _maybe_resume(self, state: State, gen: torch.Generator) -> int:
+        """Restore the tables (in place) and the generator's state from
+        checkpoint_path when resuming and a checkpoint is there; returns
+        the steps already done."""
+        if not (self.resume and checkpoint_exists(self.checkpoint_path)):
+            return 0
+        loaded, done, extra = load_checkpoint(self.checkpoint_path)
+        shapes = {k: tuple(v.shape) for k, v in state.items()}
+        saved = {k: tuple(v.shape) for k, v in loaded.items()}
+        if saved != shapes:
+            raise ValueError(
+                f"checkpoint {self.checkpoint_path} holds tables {saved}, "
+                f"this run trains {shapes}")
+        for k, v in state.items():
+            v.copy_(loaded[k])
+        gen.set_state(extra["gen"])
+        return done
 
     def train(self, state: State, gen: torch.Generator,
               verbose: bool = True) -> State:
@@ -143,8 +208,10 @@ class TrainDriver:
         inv_total = float(self.samples_per_step) / float(
             max(self.total_samples, 1))
         S, M = self.steps_per_call, self.micro_steps
-        done = 0
-        loss = None
+        done = self._maybe_resume(state, gen) if self.checkpoint_path else 0
+        done0 = done
+        calls = 0
+        show = verbose and self.monitor
         t0 = time.time()
         while done < steps_total:
             # one host->device copy of the rates per call of S steps
@@ -157,19 +224,24 @@ class TrainDriver:
                 loss += step_loss
             loss /= S
             done += S
-            if verbose:
+            calls += 1
+            if self.checkpoint_path and (calls % self.checkpoint_every == 0
+                                         or done >= steps_total):
+                self._save_ckpt(state, gen, done)
+            if show:
                 last = float(loss)
                 el = time.time() - t0
+                rate = (done - done0) * self.samples_per_step / max(el, 1e-9)
                 print(f"\tloss: {last:.5f}\tprogress: "
                       f"{min(100.0, 100.0 * done / steps_total):.1f}%\t"
-                      f"samples/sec: {done * self.samples_per_step / max(el, 1e-9):,.0f}",
-                      end="\r", flush=True)
+                      f"samples/sec: {rate:,.0f}", end="\r", flush=True)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        # the loop rounds the budget up to whole calls: rates divide this,
-        # not the request
-        self.executed_samples = done * self.samples_per_step
-        if verbose:
+        # the steps this call ran (not those restored from a checkpoint);
+        # the loop rounds the budget up to whole calls, so rates divide
+        # this, not the request
+        self.executed_samples = (done - done0) * self.samples_per_step
+        if show:
             el = time.time() - t0
             print(f"\n\tdone: {self.executed_samples:,} samples in {el:.2f}s "
                   f"({self.executed_samples / max(el, 1e-9):,.0f} samples/sec)")
@@ -227,6 +299,35 @@ class PairModelBase:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
         return gen
+
+    def set_checkpoint(self, path: Optional[str], every: int = 1,
+                       resume: bool = True) -> None:
+        """Checkpoint every ``every`` driver calls of later ``train()``
+        calls to the directory ``path``, resuming from it when ``resume``
+        (None turns checkpoints off). Models with several training phases
+        give each phase a subdirectory."""
+        if path is None:
+            self._ckpt = None
+        else:
+            self._ckpt = {"checkpoint_path": path, "checkpoint_every": every,
+                          "resume": resume}
+
+    def _ckpt_kw(self, phase: Optional[str] = None) -> dict:
+        """The TrainDriver checkpoint arguments of a training phase."""
+        ck = getattr(self, "_ckpt", None)
+        if not ck:
+            return {}
+        kw = dict(ck)
+        if phase:
+            kw["checkpoint_path"] = os.path.join(kw["checkpoint_path"], phase)
+        return kw
+
+    def load_pretrain(self, path: str, table: str = "vertex") -> None:
+        """Warm start: overwrite rows of ``table`` by name from a saved
+        embedding file (reference LoadPreTrain)."""
+        t = self.state[table]
+        t.copy_(torch.from_numpy(warm_start(t.detach().cpu().numpy(),
+                                            self.graph.names, path)))
 
     def load_state_numpy(self, tables: Dict[str, np.ndarray],
                          device: torch.device | str | None = None) -> None:

@@ -371,6 +371,7 @@ class LINE(PairModelBase):
             steps_per_call=max(1, steps_per_call // hoist),
             micro_steps=hoist,
             device=self.device,
+            **self._ckpt_kw(),
         )
         # the tables are updated in place
         self.state = driver.train(self.state, self._generator(_TRAIN),
@@ -491,7 +492,9 @@ class LINE(PairModelBase):
             steps_per_call=max(1, steps_per_call // hoist),
             micro_steps=hoist,
             device=self.device,
+            **self._ckpt_kw(),
         )
+        # a checkpoint holds (and a resume restores) these padded tables
         out = driver.train(state, self._generator(_TRAIN), verbose=verbose)
         self.state = {k: v[:n] for k, v in out.items()}
 

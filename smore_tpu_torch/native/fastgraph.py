@@ -1,5 +1,5 @@
 """ctypes bindings to the native host layer (edge-list parsing, alias
-builds, embedding text dump).
+builds, embedding text dump, warm start).
 
 Port of ``smore_tpu/native/fastgraph.py``. The C++ source is this
 package's own copy of the JAX package's framework-free loader,
@@ -87,6 +87,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_char_p, ctypes.c_char_p, ptr(np.float32),
         ctypes.c_longlong, ctypes.c_longlong,
     ]
+    lib.fg_warm_start.restype = ctypes.c_longlong
+    lib.fg_warm_start.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_longlong,
+        ctypes.c_longlong, ptr(np.float32),  # table, modified in place
+    ]
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -149,6 +154,18 @@ def save_embeddings(path: str, names, table: np.ndarray) -> None:
                                     n, dim)
     if rc != 0:
         raise OSError(f"fg_save_embeddings failed for {path}")
+
+
+def warm_start(table: np.ndarray, names, pretrain_path: str) -> np.ndarray:
+    """Native LoadPreTrain: a float32 copy of ``table`` with every row whose
+    name has a line of the right length in the file overwritten by it."""
+    t = np.array(table, dtype=np.float32, copy=True, order="C")
+    n, dim = t.shape
+    matched = _load().fg_warm_start(pretrain_path.encode(), _names_blob(names),
+                                    n, dim, t)
+    if matched < 0:
+        raise OSError(f"cannot open pretrain file {pretrain_path}")
+    return t
 
 
 def load_edge_list(files: List[str], undirected: bool):

@@ -192,8 +192,9 @@ class BandedTables:
 
     def build_stream(self, mult: int = 4, min_len: int = 4096,
                      seed: int = 0) -> "BandedTables":
-        """Pre-sample per-stratum edge STREAMS on the host (numpy, seeded,
-        bit-equal to the JAX package): for each stratum max(mult * cnt,
+        """Pre-sample per-stratum edge STREAMS (numpy's seeded uniforms,
+        bit-equal to the JAX package's host build, the rest on the tables'
+        device): for each stratum max(mult * cnt,
         min_len) iid draws from its exact alias law, so a micro-step reads
         one contiguous window instead of gathering a random edge row per
         sample. Entries are packed band-local as (src_l << 16) | pos_l,
@@ -201,34 +202,44 @@ class BandedTables:
         if self.band_size >= (1 << 15):
             raise ValueError("edge stream needs band_size < 32768")
         rng = np.random.default_rng(seed)
-        meta = self.band_meta.cpu().numpy().astype(np.int64)
-        off, cnt = meta[:, 0], meta[:, 1]
-        ns = len(cnt)
-        ep = self.edge_pa.cpu().numpy().astype(np.float64)
-        prob, esrc, edst = ep[:, 0], ep[:, 1], ep[:, 2]
-        asrc, adst = ep[:, 3], ep[:, 4]
-
-        L = np.where(cnt > 0, np.maximum(mult * cnt, min_len), 0)
-        soff = np.concatenate([[0], np.cumsum(L)])[:-1]
-        total = int(L.sum())
-        sid = np.repeat(np.arange(ns), L)
-        u1 = rng.random(total)
-        u2 = rng.random(total)
-        r = (u1 * cnt[sid]).astype(np.int64)
-        slot = off[sid] + np.minimum(r, np.maximum(cnt[sid] - 1, 0))
-        take = u2 < prob[slot]
-        src = np.where(take, esrc[slot], asrc[slot]).astype(np.int64)
-        pos = np.where(take, edst[slot], adst[slot]).astype(np.int64)
-        if self.two_d:
-            sb = (sid // self.n_bands) * self.band_size
-            db = (sid % self.n_bands) * self.band_size
-        else:
-            sb = np.zeros(total, np.int64)
-            db = sid * self.band_size
-        packed = ((src - sb) << 16) | (pos - db)
-        self.stream = torch.from_numpy(packed.astype(np.int32)).to(self.device)
-        self.stream_meta = torch.from_numpy(
-            np.stack([soff, L], 1).astype(np.int32)).to(self.device)
+        dev = self.device
+        off, cnt = self.band_meta[:, 0].long(), self.band_meta[:, 1].long()
+        # one row [prob, src, dst, alias_src, alias_dst, ...] per edge slot,
+        # in float64 as the JAX package's numpy build reads it
+        ep = self.edge_pa.double()
+        L = torch.where(cnt > 0, torch.clamp(mult * cnt, min=min_len), 0)
+        ends = torch.cumsum(L, 0)
+        total = int(ends[-1])
+        # the draws are the JAX package's u1 = rng.random(total), then u2 =
+        # rng.random(total): numpy draws them chunk by chunk from rng and
+        # from a copy of it advanced past u1 (one 64-bit output a double);
+        # the arithmetic on them (exact in float64) runs on the device
+        bg2 = type(rng.bit_generator)()
+        bg2.state = rng.bit_generator.state
+        rng2 = np.random.Generator(bg2.advance(total))
+        packed = torch.empty(total, dtype=torch.int32, device=dev)
+        chunk = 1 << 23
+        for a in range(0, total, chunk):
+            b = min(a + chunk, total)
+            u1 = torch.from_numpy(rng.random(b - a)).to(dev)
+            u2 = torch.from_numpy(rng2.random(b - a)).to(dev)
+            sid = torch.searchsorted(ends, torch.arange(a, b, device=dev),
+                                     right=True)
+            c = cnt[sid]
+            r = (u1 * c).long()
+            row = ep[off[sid] + torch.minimum(r, torch.clamp(c - 1, min=0))]
+            take = u2 < row[:, 0]
+            src = torch.where(take, row[:, 1], row[:, 3]).long()
+            pos = torch.where(take, row[:, 2], row[:, 4]).long()
+            if self.two_d:
+                sb = torch.div(sid, self.n_bands, rounding_mode="floor")
+                db = sid % self.n_bands
+            else:
+                sb, db = 0, sid
+            packed[a:b] = (((src - sb * self.band_size) << 16)
+                           | (pos - db * self.band_size)).int()
+        self.stream = packed
+        self.stream_meta = torch.stack([ends - L, L], 1).int()
         return self
 
     def build_neg_bands(self, g: Graph, negative_method: str = "degrees",

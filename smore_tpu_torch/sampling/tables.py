@@ -202,7 +202,10 @@ class SamplerTables:
         [indptr, degree] rows; zero-degree vids return themselves."""
         off, deg = meta[..., 0], meta[..., 1]
         r = (u2[..., 0] * deg).to(torch.int32)  # in [0, deg)
-        slot = off + torch.minimum(r, torch.clamp(deg - 1, min=0))
+        # a zero-degree vid after the last edge has off == E: its slot is
+        # clamped into the table (the row read is discarded below)
+        slot = torch.clamp(off + torch.minimum(r, torch.clamp(deg - 1, min=0)),
+                           max=self.ctx_pa.shape[0] - 1)
         row = self.ctx_pa[slot]
         out = torch.where(u2[..., 1] < row[..., 0], row[..., 1], row[..., 2])
         return torch.where(deg > 0, out.to(torch.int32), vids)

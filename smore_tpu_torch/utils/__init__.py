@@ -1,1 +1,1 @@
-"""Helpers that are not part of training: the benchmark graphs."""
+"""Helpers beside training: checkpoints and the benchmark graphs."""

@@ -1,0 +1,196 @@
+"""The port's command line, ``python -m smore_tpu_torch``, on the CPU.
+
+The checks of tests/test_cli.py and tests/test_cli_fidelity.py for the
+ported subcommands (``line`` and the walk family), run with ``-device
+cpu``; the JAX package's other subcommands exit 2; ``-checkpoint``
+resumes and ``-no_resume`` starts again.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from smore_tpu.cli.main import _REGISTRY as JAX_REGISTRY
+from smore_tpu_torch.cli.main import _REGISTRY, NOT_PORTED, main
+from smore_tpu_torch.io.embeddings import load_embeddings
+from smore_tpu_torch.utils.checkpoint import load_checkpoint
+
+# one intra-op thread: test workers share the cores, and a thread pool
+# in each of them oversubscribes the CPU on these tiny shapes
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = ["-device", "cpu"]  # the CLI defaults to the card
+
+
+def test_registry_covers_the_jax_cli():
+    assert set(_REGISTRY) == {"line", "deepwalk", "walklets", "node2vec",
+                              "app"}
+    assert not set(_REGISTRY) & set(NOT_PORTED)
+    assert set(_REGISTRY) | set(NOT_PORTED) == set(JAX_REGISTRY)
+
+
+def test_help_and_unknown(capsys):
+    assert main([]) == 0
+    assert main(["help"]) == 0
+    out = capsys.readouterr().out
+    assert "deepwalk" in out and "hpe" in out
+    assert main(["nosuchmodel"]) == 1
+
+
+@pytest.mark.parametrize("cmd", ["hpe", "transe", "sasrec"])
+def test_jax_only_subcommand_exits_2(cmd, capsys, tmp_path):
+    out = tmp_path / "rep.txt"
+    assert main([cmd, "-train", "x.txt", "-save", str(out)] + CPU) == 2
+    err = capsys.readouterr().err
+    assert "not ported" in err and "ROADMAP" in err
+    assert not out.exists()
+
+
+@pytest.fixture()
+def toy_edges(tmp_path):
+    """tests/test_cli.py's 24-vertex user-item net."""
+    rng = np.random.default_rng(0)
+    p = tmp_path / "net.txt"
+    p.write_text("".join(f"u{u} i{i} 1\n" for u in range(12)
+                         for i in rng.choice(12, 4, replace=False)))
+    return str(p)
+
+
+def _emb(path):
+    with open(path) as f:
+        header = f.readline().split()
+    emb = load_embeddings(path)
+    assert all(np.isfinite(v).all() for v in emb.values())
+    return header, emb
+
+
+def test_cli_line_end_to_end(toy_edges, tmp_path):
+    out = str(tmp_path / "rep.txt")
+    assert main(["line", "-train", toy_edges, "-save", out, "-dimensions",
+                 "8", "-sample_times", "0.01", "-batch", "32",
+                 "-threads", "4"] + CPU) == 0
+    header, emb = _emb(out)
+    assert header == ["24", "8"] and len(emb) == 24
+
+
+WALKS = {
+    "deepwalk": ["-walk_times", "2", "-walk_steps", "8", "-window_size", "3"],
+    "walklets": ["-walk_times", "2", "-walk_steps", "8", "-window_min", "1",
+                 "-window_max", "3"],
+    "node2vec": ["-walk_times", "2", "-walk_steps", "8", "-p", "0.5", "-q",
+                 "2"],
+    "app": ["-walk_times", "4", "-sample_times", "2", "-jump", "0.3"],
+}
+
+
+@pytest.mark.parametrize("cmd", sorted(WALKS))
+def test_cli_walk_models_end_to_end(cmd, toy_edges, tmp_path):
+    out = str(tmp_path / "rep.txt")
+    assert main([cmd, "-train", toy_edges, "-save", out, "-dimensions", "8",
+                 "-negative_samples", "2"] + WALKS[cmd] + CPU) == 0
+    header, emb = _emb(out)
+    assert header == ["24", "8"] and len(emb) == 24
+
+
+def test_cli_default_batch_stable_on_readme_toy_net(tmp_path):
+    """The README toy net at the default batch gives finite embeddings
+    (clamp_batch caps the 32768 default near the vertex count)."""
+    net = tmp_path / "toy.txt"
+    net.write_text("u1 i1 1\nu1 i2 1\nu2 i2 1\nu2 i3 1\nu3 i3 1\n")
+    out = str(tmp_path / "rep.txt")
+    assert main(["line", "-train", str(net), "-save", out, "-dimensions",
+                 "8", "-sample_times", "0.01"] + CPU) == 0
+    header, emb = _emb(out)
+    assert header == ["6", "8"] and len(emb) == 6
+
+
+def _net(tmp_path, n=40, seed=1):
+    """tests/test_cli_fidelity.py's 40-vertex graph."""
+    rng = np.random.default_rng(seed)
+    path = tmp_path / "net.txt"
+    with open(path, "w") as f:
+        for _ in range(200):
+            a, b = rng.integers(0, n, 2)
+            if a != b:
+                f.write(f"n{a} n{b} 1\n")
+    return str(path)
+
+
+def test_load_v_warm_start_roundtrip(tmp_path):
+    """A run warm-started from a saved file with a zero budget (one driver
+    call still runs) stays near the file, far from the ~U(-0.5, 0.5)/dim
+    init."""
+    net = _net(tmp_path)
+    first = str(tmp_path / "first.txt")
+    assert main(["deepwalk", "-train", net, "-save", first, "-dimensions",
+                 "8", "-walk_times", "1", "-walk_steps", "5"] + CPU) == 0
+    second = str(tmp_path / "second.txt")
+    assert main(["deepwalk", "-train", net, "-save", second, "-dimensions",
+                 "8", "-walk_times", "0", "-walk_steps", "5", "-load_v",
+                 first] + CPU) == 0
+    a, b = load_embeddings(first), load_embeddings(second)
+    assert set(a) == set(b)
+    assert np.median([float(np.abs(a[k] - b[k]).max()) for k in a]) < 0.05
+
+
+def test_line_load_flags(tmp_path):
+    net = _net(tmp_path)
+    first = str(tmp_path / "l1.txt")
+    base = ["line", "-train", net, "-dimensions", "8", "-sample_times",
+            "0.001", "-batch", "32"] + CPU
+    assert main(base + ["-save", first]) == 0
+    out = str(tmp_path / "l2.txt")
+    assert main(base + ["-save", out, "-load_v", first, "-load_c",
+                        first]) == 0
+    assert _emb(out)[0] == ["40", "8"]
+
+
+def test_checkpoint_then_no_resume(tmp_path):
+    """-checkpoint saves the run; the same command again resumes the
+    finished run and writes the same file; -no_resume trains again and
+    overwrites the checkpoint."""
+    net = _net(tmp_path)
+    ck = str(tmp_path / "ck")
+
+    def run(save, walk_times, *flags):
+        assert main(["deepwalk", "-train", net, "-save", save,
+                     "-dimensions", "8", "-walk_times", walk_times,
+                     "-walk_steps", "5"] + list(flags) + CPU) == 0
+        with open(save, "rb") as f:
+            return f.read()
+
+    a = run(str(tmp_path / "a.txt"), "2", "-checkpoint", ck)
+    saved_a = load_checkpoint(ck)[0]["vertex"]
+    assert run(str(tmp_path / "b.txt"), "2", "-checkpoint", ck) == a
+    c = run(str(tmp_path / "c.txt"), "3", "-checkpoint", ck, "-no_resume")
+    assert c == run(str(tmp_path / "d.txt"), "3")
+    assert c != a
+    assert not load_checkpoint(ck)[0]["vertex"].equal(saved_a)
+
+
+def test_python_m_entry_point(toy_edges, tmp_path):
+    """``python -m smore_tpu_torch``: -device cpu trains; with no -device the
+    run is on the card, so without one it fails instead of falling back."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    out = tmp_path / "rep.txt"
+    base = [sys.executable, "-m", "smore_tpu_torch", "line", "-train",
+            toy_edges, "-save", str(out), "-dimensions", "8",
+            "-sample_times", "0.002", "-batch", "32"]
+    r = subprocess.run(base + CPU, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert out.read_text().split("\n")[0] == "24 8"
+    r = subprocess.run([sys.executable, "-m", "smore_tpu_torch", "hpe"],
+                       env=env, cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 2 and "not ported" in r.stderr
+    if not torch.cuda.is_available():
+        out.unlink()
+        r = subprocess.run(base, env=env, cwd=ROOT, capture_output=True,
+                           text=True, timeout=300)
+        assert r.returncode != 0 and not out.exists()

@@ -458,3 +458,159 @@ def test_k3_k4_k5_launch_in_one_process(cuda):
                                        rtol=RTOL, atol=ATOL)
         np.testing.assert_allclose(float(got[-1]), float(want[-1]),
                                    rtol=RTOL)
+
+
+# ------------------------------------------------------------ walk family
+def _walk_graph():
+    """A weighted directed graph with dead ends (a fifth of the vertices
+    have no out-edge)."""
+    from smore_tpu_torch.sampling.tables import SamplerTables
+
+    rng = np.random.default_rng(3)
+    edges = [(f"v{a}", f"v{b}", float(rng.uniform(0.5, 3.0)))
+             for a, b in rng.integers(0, 500, (4000, 2)) if a != b and a % 5]
+    g = Graph.from_edges(edges, undirected=False)
+    return g, SamplerTables.build(g, device="cpu")
+
+
+@pytest.mark.gpu
+def test_walks_on_the_card_match_the_cpu(cuda):
+    """The walk generators and the skip-gram mapper give the CPU's walks
+    and pairs on the card, given the same uniforms (APP's stop index off
+    integer quotients, where float32 log may round either way)."""
+    from smore_tpu_torch.sampling import mappers, walks
+    from smore_tpu_torch.sampling.tables import SamplerTables
+
+    g, tc = _walk_graph()
+    tg = SamplerTables.build(g, device=cuda)
+    B, steps = 4096, 40
+    gen = torch.Generator().manual_seed(0)
+    starts = torch.randint(0, g.n_vertices, (B,), generator=gen,
+                           dtype=torch.int32)
+    u = torch.rand(steps, B, 2, generator=gen)
+    got = walks.random_walk(tg, None, starts.to(cuda), steps, u=u.to(cuda))
+    want = walks.random_walk(tc, None, starts, steps, u=u)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    reduce = torch.randint(1, 6, (B, steps + 1), generator=gen)
+    for a, b in zip(
+            mappers.skipgram_pairs(got[0], None, 5, got[1],
+                                   reduce=reduce.to(cuda)),
+            mappers.skipgram_pairs(want[0], None, 5, want[1],
+                                   reduce=reduce)):
+        assert torch.equal(a.cpu(), b)
+
+    nc, ng = (walks.NeighborIndex.build(g, d) for d in ("cpu", cuda))
+    u_first = torch.rand(B, 2, generator=gen)
+    u3 = torch.rand(steps - 1, B, 4, 3, generator=gen)
+    got = walks.node2vec_walk(tg, ng, None, starts.to(cuda), steps, 0.5, 2.0,
+                              u_first=u_first.to(cuda), u=u3.to(cuda))
+    want = walks.node2vec_walk(tc, nc, None, starts, steps, 0.5, 2.0,
+                               u_first=u_first, u=u3)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+    u64 = torch.rand(64, B, 2, generator=gen)
+    u_stop = torch.rand(B, generator=gen)
+    got = walks.jumping_walk_endpoints(tg, None, starts.to(cuda), 0.15,
+                                       u=u64.to(cuda), u_stop=u_stop.to(cuda))
+    want = walks.jumping_walk_endpoints(tc, None, starts, 0.15, u=u64,
+                                        u_stop=u_stop)
+    q = np.log(np.clip(u_stop.double().numpy(), 1e-12, 1)) / np.log(0.85)
+    off = np.abs(q - np.round(q)) > 1e-4
+    np.testing.assert_array_equal(got[0].cpu().numpy()[off],
+                                  want[0].numpy()[off])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trips_a_cuda_generator(cuda, tmp_path):
+    """A CUDA generator's state is a CPU byte tensor: saved and restored, it
+    draws what the saved generator draws next; tables come back to the
+    card from the CPU."""
+    from smore_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    torch.rand(1000, generator=gen, device=cuda)
+    table = torch.rand(50, 8, generator=gen, device=cuda)
+    state = gen.get_state()
+    assert state.device.type == "cpu" and state.dtype == torch.uint8
+    save_checkpoint(str(tmp_path / "ck"), {"vertex": table}, step=3,
+                    extra={"gen": state})
+    want = torch.rand(4096, generator=gen, device=cuda)
+    loaded, step, extra = load_checkpoint(str(tmp_path / "ck"))
+    g2 = torch.Generator(device=cuda)
+    g2.set_state(extra["gen"])
+    assert step == 3
+    assert torch.equal(torch.rand(4096, generator=g2, device=cuda), want)
+    assert torch.equal(loaded["vertex"].to(cuda), table)
+
+
+@pytest.mark.gpu
+def test_deepwalk_kill_and_resume_on_the_card(cuda, tmp_path, monkeypatch):
+    """DeepWalk on the card, killed after its 2nd checkpoint and resumed in
+    a fresh model: the restored tables and generator state are the saved
+    ones, and the resumed run ends finite with the steps left."""
+    from smore_tpu_torch.models import DeepWalk
+    from smore_tpu_torch.models.base import TrainDriver
+    from smore_tpu_torch.utils.checkpoint import load_checkpoint
+
+    g, _ = _walk_graph()
+    ck = str(tmp_path / "ck")
+    orig = TrainDriver._save_ckpt
+    saves = []
+
+    def killing_save(self, state, gen, done):
+        orig(self, state, gen, done)
+        saves.append(done)
+        if len(saves) == 2:
+            raise KeyboardInterrupt
+
+    kw = dict(walk_times=8, walk_steps=10, steps_per_call=4, verbose=False)
+    m = DeepWalk(g, seed=0, device=cuda)
+    m.init(dim=32)
+    m.set_checkpoint(ck)
+    monkeypatch.setattr(TrainDriver, "_save_ckpt", killing_save)
+    with pytest.raises(KeyboardInterrupt):
+        m.train(**kw)
+    monkeypatch.undo()
+    saved, done, extra = load_checkpoint(ck)
+    restored = {}
+    orig_resume = TrainDriver._maybe_resume
+
+    def spy(self, state, gen):
+        out = orig_resume(self, state, gen)
+        restored.update({k: v.clone() for k, v in state.items()},
+                        gen=gen.get_state())
+        return out
+
+    monkeypatch.setattr(TrainDriver, "_maybe_resume", spy)
+    m2 = DeepWalk(g, seed=0, device=cuda)
+    m2.init(dim=32)
+    m2.set_checkpoint(ck)
+    m2.train(**kw)
+    assert torch.equal(restored.pop("gen"), extra["gen"])
+    for k, v in saved.items():
+        assert torch.equal(restored[k].cpu(), v)
+    d = m2.last_driver
+    steps = -(-d.total_samples // d.samples_per_step)
+    assert d.executed_samples == (-(-steps // d.steps_per_call)
+                                  * d.steps_per_call - done) * d.samples_per_step
+    assert all(bool(torch.isfinite(t).all()) for t in m2.state.values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("two_d", [True, False])
+def test_edge_stream_built_on_the_card_matches_the_cpu(cuda, two_d):
+    """build_stream draws numpy's uniforms and does the rest on the tables'
+    device: the card's stream is the CPU's (which tests/test_torch_host.py
+    holds to the JAX package's) entry for entry."""
+    from smore_tpu_torch.sampling.banded import BandedTables
+
+    g, _ = _walk_graph()
+    kw = dict(band_size=64, two_d=two_d)
+    cpu = BandedTables.build(g, device="cpu", **kw).build_stream(mult=8)
+    card = BandedTables.build(g, device=cuda, **kw).build_stream(mult=8)
+    assert torch.equal(card.stream.cpu(), cpu.stream)
+    assert torch.equal(card.stream_meta.cpu(), cpu.stream_meta)

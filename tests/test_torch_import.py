@@ -22,7 +22,17 @@ MODULES = [
     "smore_tpu_torch.ops.update",
     "smore_tpu_torch.models.base",
     "smore_tpu_torch.models.line",
+    "smore_tpu_torch.models.walk_base",
+    "smore_tpu_torch.models.deepwalk",
+    "smore_tpu_torch.models.walklets",
+    "smore_tpu_torch.models.node2vec",
+    "smore_tpu_torch.models.app",
+    "smore_tpu_torch.models",
+    "smore_tpu_torch.sampling.walks",
+    "smore_tpu_torch.sampling.mappers",
     "smore_tpu_torch.utils.bench_graphs",
+    "smore_tpu_torch.utils.checkpoint",
+    "smore_tpu_torch.cli.main",
 ]
 
 

@@ -31,6 +31,7 @@ from smore_tpu_torch.models.line import LINE as TLINE
 from smore_tpu_torch.models.line import multiblock_apply
 from smore_tpu_torch.sampling.banded import BandedTables
 from smore_tpu_torch.sampling.tables import SamplerTables, build_negative_table
+from smore_tpu_torch.utils.checkpoint import save_checkpoint
 
 # one intra-op thread: test workers share the cores, and a thread pool
 # in each of them oversubscribes the CPU on these tiny shapes
@@ -294,10 +295,17 @@ def test_unbanded_routes_train(graphs, route):
         assert v.shape == (tg.n_vertices, 64) and torch.isfinite(v).all()
 
 
-def test_driver_checkpoint_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TDriver(lambda *a: None, ctx=None, samples_per_step=1, alpha=0.1,
-                total_samples=1, checkpoint_path="ckpt")
+def test_driver_checkpoint_raises(tmp_path):
+    """Checkpoints are ported: a resume from a checkpoint whose tables
+    differ in shape from the run's raises instead of training on."""
+    ckpt = str(tmp_path / "ckpt")
+    save_checkpoint(ckpt, {"vertex": torch.zeros(3, 2)}, step=1,
+                    extra={"gen": torch.Generator().get_state()})
+    d = TDriver(lambda *a: None, ctx=None, samples_per_step=1, alpha=0.1,
+                total_samples=4, checkpoint_path=ckpt, device=CPU)
+    with pytest.raises(ValueError, match="holds tables"):
+        d.train({"vertex": torch.zeros(4, 2)}, torch.Generator(),
+                verbose=False)
 
 
 def test_entry_points_default_to_the_card(graphs):
