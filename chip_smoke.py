@@ -910,20 +910,55 @@ WALK_RUNS = (
 )
 INIT_NORM = np.sqrt(D / 12.0) / D  # mean row norm of U(-0.5, 0.5) / D
 # a CLI run as ``python -m smore_tpu_torch`` runs it, then the launch count
-# of every kernel in that process (all 0 at its start)
+# of every kernel in that process (all 0 at its start) and the seconds the
+# run spent in it, in the graph load, in the model's train() and in
+# save_weights (the CLI's own steps, timed by wrapping them)
 _CLI_RUN = (
-    "import json, runpy, sys\n"
-    "from chip_smoke import _counters\n"
+    "import json, runpy, sys, time\n"
+    "from chip_smoke import _cli_timers, _counters\n"
+    "times = _cli_timers()\n"
     "sys.argv = ['smore_tpu_torch'] + sys.argv[1:]\n"
+    "t0 = time.perf_counter()\n"
+    "rc = 0\n"
     "try:\n"
     "    runpy.run_module('smore_tpu_torch', run_name='__main__',\n"
     "                     alter_sys=True)\n"
     "except SystemExit as e:\n"
     "    rc = e.code\n"
+    "times['run'] = time.perf_counter() - t0\n"
     "print('launches ' + json.dumps(\n"
     "    {name: f.launches for name, f in _counters().items()}))\n"
+    "print('times ' + json.dumps(times))\n"
     "sys.exit(rc)\n"
 )
+
+
+def _cli_timers() -> dict:
+    """Wrap the steps of a CLI run (graph load, each model's train(),
+    save_weights) so that each adds its seconds to the returned dict."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.graph.graph import Graph
+    from smore_tpu_torch.models.base import PairModelBase
+
+    times = {"load": 0.0, "train": 0.0, "save": 0.0}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                times[key] += time.perf_counter() - t0
+        return run
+
+    Graph.load_edge_list = staticmethod(timed("load", Graph.load_edge_list))
+    PairModelBase.save_weights = timed("save", PairModelBase.save_weights)
+    for cls in (models.LINE, models.DeepWalk, models.Walklets,
+                models.Node2Vec, models.APP):
+        cls.train = timed("train", cls.train)
+    return times
 
 
 def run_cli(argv, timeout: int = 300) -> dict:
@@ -945,9 +980,22 @@ def run_cli(argv, timeout: int = 300) -> dict:
                            f"{r.returncode}")
     done = re.findall(r"done: ([\d,]+) samples in ([\d.]+)s", r.stdout)
     launches = json.loads(r.stdout.rsplit("launches ", 1)[1].splitlines()[0])
+    times = json.loads(r.stdout.rsplit("times ", 1)[1].splitlines()[0])
     samples, secs = done[-1] if done else ("0", "0")
     return dict(wall=wall, samples=int(samples.replace(",", "")),
-                train_s=float(secs), launches=launches)
+                train_s=float(secs), launches=launches, times=times)
+
+
+def _wall(r: dict) -> str:
+    """A CLI run's wall time and where it went: the process's start-up
+    (interpreter, torch and the smoke's imports), the graph load, the
+    model's train() (sampler tables, resume and the driver's loop), the
+    text file, and the rest (the card's context, init, checkpoint set-up)."""
+    t = r["times"]
+    rest = t["run"] - t["load"] - t["train"] - t["save"]
+    return (f"wall {r['wall']:.1f} s (start-up {r['wall'] - t['run']:.1f}, "
+            f"graph load {t['load']:.1f}, train() {t['train']:.1f}, save "
+            f"{t['save']:.1f}, rest {rest:.1f})")
 
 
 def _load_emb(path):
@@ -1043,8 +1091,10 @@ def phase_walks_cli() -> str:
             + (f" (gate >= {gate})" if gate else " (no record; gate: finite "
                f"and vertex row norm > 2 x init {INIT_NORM:.4f})")
             + f"; mean vertex row norm {norm:.4f}; {r['samples']:,} walks in "
-            f"{r['train_s']:.2f} s = {rate:,.0f} walks/s; wall "
-            f"{r['wall']:.1f} s with start-up and graph load [{card}]")
+            f"{r['train_s']:.2f} s = {rate:,.0f} walks/s"
+            + (" (with the one save of its final checkpoint)"
+               if model == "app" else "")
+            + f"; {_wall(r)} [{card}]")
         if gate:
             require(auc >= gate, f"{model}: link-AUC {auc:.4f} < {gate}")
         else:
@@ -1197,8 +1247,8 @@ def phase_line_cli(g) -> int:
     log(f"line o2 (CLI, Youtube scale, {SAMPLE_TIMES}M samples, checkpoint "
         f"every 100 calls): community AUC {auc:.4f} (gate >= {AUC_MIN}); "
         f"{r1['samples']:,} samples in {r1['train_s']:.2f} s = "
-        f"{r1['samples'] / max(r1['train_s'], 1e-9):,.0f} samples/s; wall "
-        f"{r1['wall']:.1f} s; launches {r1['launches']} [{card}]")
+        f"{r1['samples'] / max(r1['train_s'], 1e-9):,.0f} samples/s; "
+        f"{_wall(r1)}; launches {r1['launches']} [{card}]")
     require(auc >= AUC_MIN, f"line CLI: community AUC {auc:.4f} < {AUC_MIN}")
     r2 = run_cli(base + ["-save", b])
     require(r2["samples"] == 0 and not any(r2["launches"].values()),
@@ -1207,7 +1257,7 @@ def phase_line_cli(g) -> int:
             "the resumed finished run wrote another file")
     log(f"  the same command again resumed the finished checkpoint: 0 "
         f"samples, no launches, a byte-equal file ({os.path.getsize(b):,} "
-        f"bytes); wall {r2['wall']:.1f} s")
+        f"bytes); {_wall(r2)}")
     os.remove(b)
     o1 = os.path.join(OUT, "line_cli_o1.txt")
     r3 = run_cli(["line", "-train", path, "-save", o1, "-order", "1",
@@ -1217,8 +1267,8 @@ def phase_line_cli(g) -> int:
             f"{r3['launches']}")
     auc1 = yt_community_auc(_cli_table(g, o1), g.names)
     log(f"line o1 (CLI, Youtube scale): community AUC {auc1:.4f} (no gate); "
-        f"{r3['samples'] / max(r3['train_s'], 1e-9):,.0f} samples/s; wall "
-        f"{r3['wall']:.1f} s; launches {r3['launches']}")
+        f"{r3['samples'] / max(r3['train_s'], 1e-9):,.0f} samples/s; "
+        f"{_wall(r3)}; launches {r3['launches']}")
     for f in (a, o1):
         os.remove(f)
     return k4
@@ -1263,24 +1313,33 @@ def main() -> None:
                     help="also profile the main paths; write results to DIR")
     args = ap.parse_args()
     t_start = time.perf_counter()
+
+    def timed(name, phase, *a):
+        t0 = time.perf_counter()
+        out = phase(*a)
+        log(f"[{name}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
     device = phase_device()
-    phase_build()
-    k4 = phase_k4_vs_twin(device)
-    k5 = phase_k5_vs_twin(device)
-    k1 = phase_k1_vs_twin(device)
-    k3 = phase_k3_vs_twin(device)
-    k2 = phase_k2_vs_twin(device)
-    g_yt, m_yt, k4_launches = phase_youtube(device)
-    routes = phase_youtube_routes(g_yt, device)
+    timed("build", phase_build)
+    k4 = timed("K4 vs twin", phase_k4_vs_twin, device)
+    k5 = timed("K5 vs twin", phase_k5_vs_twin, device)
+    k1 = timed("K1 vs twin", phase_k1_vs_twin, device)
+    k3 = timed("K3 vs twin", phase_k3_vs_twin, device)
+    k2 = timed("K2 vs twin", phase_k2_vs_twin, device)
+    g_yt, m_yt, k4_launches = timed("Youtube multiblock and unbanded",
+                                    phase_youtube, device)
+    routes = timed("Youtube routes", phase_youtube_routes, g_yt, device)
     m_fused, k3_launches = routes["fused"]
     m_o1, k2_launches = routes["order 1"]
     m_nb, k5_launches = routes["neg_band"]
-    unbanded = phase_unbanded(device)
+    unbanded = timed("50k graph", phase_unbanded, device)
     m_50k, k1_launches = unbanded["group 8 (main path)"]
     t0 = time.perf_counter()
-    walk_graph = phase_walks_cli()
-    m_dw = phase_walk_kill_resume(walk_graph, device)
-    phase_line_cli(g_yt)
+    walk_graph = timed("walks through the CLI", phase_walks_cli)
+    m_dw = timed("kill and resume", phase_walk_kill_resume, walk_graph,
+                 device)
+    timed("line through the CLI", phase_line_cli, g_yt)
     log(f"CLI, walk and checkpoint phases: {time.perf_counter() - t0:.1f} s")
     if args.profile:
         phase_profile(m_yt, args.profile, "line_yt")

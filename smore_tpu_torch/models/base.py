@@ -36,6 +36,11 @@ StepFn = Callable[[State, object, torch.Generator, torch.Tensor],
                   Tuple[State, torch.Tensor]]
 
 ALPHA_MIN_FRAC = 1e-4  # reference: alpha_min = alpha * 0.0001
+# freshness_policy: the sequential-update floor and the smallest batch
+FRESH_MIN_UPDATES = 1536
+FRESH_MIN_BATCH = 8
+# trunc_mass_multiplier: the largest re-batched step that takes x3
+TRUNC_TINY_BATCH = 64
 
 
 def hoisted_scan_step(draw_fn, update_fn, hoist: int) -> StepFn:
@@ -59,29 +64,28 @@ def hoisted_scan_step(draw_fn, update_fn, hoist: int) -> StepFn:
     return step
 
 
-def freshness_policy(total_units: int, batch: int, hoist: int,
-                     min_updates: int = 1536, min_batch: int = 8) -> tuple:
+def freshness_policy(total_units: int, batch: int, hoist: int) -> tuple:
     """Truncated-budget freshness floor. A batched step applies ``batch``
     samples against one table snapshot, where the reference applies them
-    one at a time; when the run would see fewer than ``min_updates``
+    one at a time; when the run would see fewer than FRESH_MIN_UPDATES
     sequential updates, shrink the batch and raise the micro-step factor
     by as much, so that the draws per call stay about the same. 1536 sits
     just below the walk family's default budget on the 20k-vertex parity
     graph (1562 steps of 128 walks), which is left untouched. Returns the
     adjusted (batch, hoist)."""
-    if batch <= min_batch or total_units >= min_updates * batch:
+    if batch <= FRESH_MIN_BATCH or total_units >= FRESH_MIN_UPDATES * batch:
         return batch, hoist
-    new_batch = int(max(min_batch, total_units // min_updates))
+    new_batch = int(max(FRESH_MIN_BATCH, total_units // FRESH_MIN_UPDATES))
     grow = max(1, batch // new_batch)
     return new_batch, min(max(1, hoist) * grow, 64)
 
 
-def trunc_mass_multiplier(rebatched: int, tiny: int = 64) -> float:
+def trunc_mass_multiplier(rebatched: int) -> float:
     """Step-mass multiplier of the inner-pass bootstrap at truncated
     budgets (``WalkSGNSBase._run``): x3 where the re-batched step is tiny
     (the JAX package's calibration at 8-26 rows), x2 above, where x3
     collapsed APP's tables in its measurements."""
-    return 3.0 if rebatched <= tiny else 2.0
+    return 3.0 if rebatched <= TRUNC_TINY_BATCH else 2.0
 
 
 def clamp_batch(n_rows: int, batch: int, group: int = 1) -> int:
@@ -142,7 +146,7 @@ class TrainDriver:
     checkpoint already there, training continues from it. The learning
     rate is a function of the step counter and the draws of the generator's
     state, so a killed and resumed run takes the steps of an uninterrupted
-    one. ``monitor``: print progress when ``verbose``.
+    one.
     """
 
     def __init__(
@@ -153,7 +157,6 @@ class TrainDriver:
         alpha: float,
         total_samples: int,
         steps_per_call: int = 256,
-        monitor: bool = True,
         mesh=None,
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 1,
@@ -171,7 +174,6 @@ class TrainDriver:
         self.alpha = float(alpha)
         self.total_samples = int(total_samples)
         self.steps_per_call = int(steps_per_call)
-        self.monitor = monitor
         self.checkpoint_path = checkpoint_path
         self.checkpoint_every = max(1, int(checkpoint_every))
         self.resume = resume
@@ -211,7 +213,6 @@ class TrainDriver:
         done = self._maybe_resume(state, gen) if self.checkpoint_path else 0
         done0 = done
         calls = 0
-        show = verbose and self.monitor
         t0 = time.time()
         while done < steps_total:
             # one host->device copy of the rates per call of S steps
@@ -228,7 +229,7 @@ class TrainDriver:
             if self.checkpoint_path and (calls % self.checkpoint_every == 0
                                          or done >= steps_total):
                 self._save_ckpt(state, gen, done)
-            if show:
+            if verbose:
                 last = float(loss)
                 el = time.time() - t0
                 rate = (done - done0) * self.samples_per_step / max(el, 1e-9)
@@ -241,7 +242,7 @@ class TrainDriver:
         # the loop rounds the budget up to whole calls, so rates divide
         # this, not the request
         self.executed_samples = (done - done0) * self.samples_per_step
-        if show:
+        if verbose:
             el = time.time() - t0
             print(f"\n\tdone: {self.executed_samples:,} samples in {el:.2f}s "
                   f"({self.executed_samples / max(el, 1e-9):,.0f} samples/sec)")

@@ -35,6 +35,9 @@ from smore_tpu_torch.sampling.tables import (
 # 4 adst | 5..7 zero pad, as in the JAX package
 _EDGE_COLS = 8
 
+# build_stream draws and packs the edge stream this many entries at a time
+_STREAM_CHUNK = 1 << 23
+
 # The JAX package's band sizes (small powers of two times odd factors),
 # kept so both packages cut the same strata. MULTI_BAND_SIZE, the
 # multiblock path's band, is the one the quality gate was measured at
@@ -218,9 +221,8 @@ class BandedTables:
         bg2.state = rng.bit_generator.state
         rng2 = np.random.Generator(bg2.advance(total))
         packed = torch.empty(total, dtype=torch.int32, device=dev)
-        chunk = 1 << 23
-        for a in range(0, total, chunk):
-            b = min(a + chunk, total)
+        for a in range(0, total, _STREAM_CHUNK):
+            b = min(a + _STREAM_CHUNK, total)
             u1 = torch.from_numpy(rng.random(b - a)).to(dev)
             u2 = torch.from_numpy(rng2.random(b - a)).to(dev)
             sid = torch.searchsorted(ends, torch.arange(a, b, device=dev),

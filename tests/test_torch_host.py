@@ -2,8 +2,9 @@
 
 CSR and names, alias tables, the negative table, every array of the banded
 tables, of the pre-sampled edge stream and of the banded negative law, and
-the embedding text are all host numpy in both packages and must agree
-exactly."""
+the embedding text must agree exactly. All are host numpy in both
+packages, except the port's edge stream: numpy draws its uniforms, torch
+does the arithmetic on them, chunk by chunk."""
 
 import os
 
@@ -139,6 +140,27 @@ def test_edge_stream_bit_equal(two_d):
         mult=4, seed=0)
     tb = TBanded.build(tg, band_size=64, two_d=two_d,
                        device=CPU).build_stream(mult=4, seed=0)
+    for f in ("stream", "stream_meta"):
+        a, b = np.asarray(getattr(jb, f)), getattr(tb, f).numpy()
+        assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+@pytest.mark.parametrize("two_d", [True, False])
+@pytest.mark.parametrize("chunk", [1000, 4096, 9999])
+def test_edge_stream_bit_equal_across_chunks(chunk, two_d, monkeypatch):
+    """The stream is drawn and packed in chunks (a Youtube-scale stream
+    holds ~188M entries); with chunks far smaller than the toy stream,
+    boundaries fall inside strata, on them (4096 is min_len) and between
+    the two draws' halves, and the result is still JAX's host build."""
+    from smore_tpu_torch.sampling import banded as t_banded
+
+    monkeypatch.setattr(t_banded, "_STREAM_CHUNK", chunk)
+    jg, tg = _pair("comm")
+    jb = JBanded.build(jg, band_size=64, two_d=two_d).build_stream(
+        mult=4, seed=3)
+    tb = TBanded.build(tg, band_size=64, two_d=two_d,
+                       device=CPU).build_stream(mult=4, seed=3)
+    assert tb.stream.numel() > 2 * chunk
     for f in ("stream", "stream_meta"):
         a, b = np.asarray(getattr(jb, f)), getattr(tb, f).numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b), f
