@@ -88,7 +88,23 @@ Phases (any failure exits non-zero; there is no CPU path):
  21. ``line`` through the command line at Youtube scale, 40M samples, with
      -checkpoint: K4 launched, community AUC >= 0.58; the same command
      again resumes the finished checkpoint, trains nothing and must write
-     a byte-equal file; then ``line -order 1`` (K2 launched, AUC printed)
+     a byte-equal file; then ``line -order 1`` at 4M samples (K2
+     launched, AUC printed)
+ 22. the rec family in this process, on the card, on the implicit-feedback
+     set of experiments/bpr_parity.py (smore_tpu_torch.utils.rec_data,
+     seed 0: 6,000 users, 3,000 items, 311,748 training edges): MF, BPR,
+     WARP and Skew-OPT on the directed graph, HPE, PE, HOP-REC and NEMF
+     on the undirected one (the last two with the field file and at
+     walk_steps 2), dim 64, every other argument at its default; 1M
+     samples of warm-up, then 20M timed. Each reaches AUC and recall@10 >=
+     the JAX package's record less 0.03 (PE, without a record: finite
+     tables whose vertex rows grew past their init norm), except NEMF,
+     which trains 4M and prints its scores ungated to keep the smoke's
+     time (the CSE gate is NERANK's, phase 23); no kernel is launched;
+     samples/s printed
+ 23. ``bpr`` (directed by default) and ``nerank -field ... -walk_steps 2``
+     through the command line, 20M samples each, scored from the saved
+     files with the same gates; no kernel launched; the wall split
 Each in-process path runs 1M samples first (tables, stream and warm-up),
 then every kernel's launch count is set to 0, read after the timed 40M run
 and printed; a command-line run counts the launches of its own process.
@@ -99,10 +115,11 @@ go to build/chip_smoke/ inside the checkout.
     python3 chip_smoke.py --profile DIR
 
 also profiles 4M more samples of the multiblock, fused, order-1,
-neg_band, held fused, held scatter-only and unbanded main paths, and one
-DeepWalk run on the 20k graph, with torch.profiler and writes the
-kernel-time tables and Chrome traces to DIR (a measurement aid, off by
-default so that the smoke does not depend on the profiler).
+neg_band, held fused, held scatter-only and unbanded main paths, one
+DeepWalk run on the 20k graph and 2M samples of BPR and of NEMF, with
+torch.profiler and writes the kernel-time tables and Chrome traces to DIR
+(a measurement aid, off by default so that the smoke does not depend on
+the profiler).
 """
 
 from __future__ import annotations
@@ -955,9 +972,11 @@ def _cli_timers() -> dict:
 
     Graph.load_edge_list = staticmethod(timed("load", Graph.load_edge_list))
     PairModelBase.save_weights = timed("save", PairModelBase.save_weights)
-    for cls in (models.LINE, models.DeepWalk, models.Walklets,
-                models.Node2Vec, models.APP):
+    for name in models.__all__:
+        cls = getattr(models, name)
         cls.train = timed("train", cls.train)
+    for cls in (models.NEMF, models.NERANK):  # they write their own rows
+        cls.save_weights = timed("save", cls.save_weights)
     return times
 
 
@@ -1219,13 +1238,18 @@ def _cli_table(g, path: str) -> np.ndarray:
     return table
 
 
+# the order-1 CLI run repeats phase 11's route: a shorter depth makes room
+# for the rec phases (PERF.md §6)
+LINE_O1_CLI_SAMPLES = 4
+
+
 def phase_line_cli(g) -> int:
     """``line`` through the CLI at Youtube scale: 40M samples on the
     multiblock route with a checkpoint (K4 launched, the community AUC
     gated), the same command again (it resumes the finished checkpoint:
     nothing trains, no kernel launches, the same bytes are written), and
-    order 1 (K2 launched, its AUC printed). Returns the first run's K4
-    launches."""
+    order 1 at 4M samples (K2 launched, its AUC printed; phase 11 trains
+    the route at 40M). Returns the first run's K4 launches."""
     import filecmp
     import shutil
 
@@ -1261,17 +1285,156 @@ def phase_line_cli(g) -> int:
     os.remove(b)
     o1 = os.path.join(OUT, "line_cli_o1.txt")
     r3 = run_cli(["line", "-train", path, "-save", o1, "-order", "1",
-                  "-sample_times", str(SAMPLE_TIMES)])
+                  "-sample_times", str(LINE_O1_CLI_SAMPLES)])
     require(r3["launches"]["band_scatter_add"] > 0,
             f"line -order 1 through the CLI did not launch K2: "
             f"{r3['launches']}")
     auc1 = yt_community_auc(_cli_table(g, o1), g.names)
-    log(f"line o1 (CLI, Youtube scale): community AUC {auc1:.4f} (no gate); "
+    log(f"line o1 (CLI, Youtube scale, {LINE_O1_CLI_SAMPLES}M samples): "
+        f"community AUC {auc1:.4f} (no gate); "
         f"{r3['samples'] / max(r3['train_s'], 1e-9):,.0f} samples/s; "
         f"{_wall(r3)}; launches {r3['launches']}")
     for f in (a, o1):
         os.remove(f)
     return k4
+
+
+# ------------------------------------------------------------ the rec family
+# experiments/bpr_parity.py's implicit-feedback set and the JAX package's
+# quality records on it at 20M samples after a 1M warm-up (PERF_NOTES.md:
+# 447-449, 773-777; BASELINE.md:54), a range taken at its lower end; each
+# gate is the record less bench.py's 0.03 margin. The reference CLIs of
+# mf, bpr, warp and skewopt load the graph directed; the JAX harnesses
+# loaded the others undirected, with the field file for HOP-REC and the
+# CSE models, which ran at walk_steps 2 (experiments/longtail_parity.py).
+REC_SAMPLES, REC_WARM = 20, 1  # millions of samples
+# shorter, ungated runs that keep the smoke's time (PERF.md §6): NEMF
+# costs ~2.2 s a million samples; NERANK, the other CSE head, keeps the
+# gate at 20M through the CLI
+REC_SHORT = {"nemf": 4}
+REC_MARGIN = 0.03
+REC_RUNS = (  # (model, class, directed, field file, train kwargs, record)
+    ("mf", "MF", True, False, {}, (0.8700, 0.927)),
+    ("bpr", "BPR", True, False, {}, (0.8709, 0.9186)),
+    ("warp", "WARP", True, False, {}, (0.8703, 0.9234)),
+    ("skewopt", "SkewOPT", True, False, {}, (0.8707, 0.9223)),
+    ("hpe", "HPE", False, False, {}, (0.8719, 0.9267)),
+    ("pe", "PE", False, False, {}, None),
+    ("hoprec", "HOPREC", False, True, dict(walk_steps=2), (0.8715, 0.9256)),
+    ("nemf", "NEMF", False, True, dict(walk_steps=2), (0.8709, 0.9266)),
+)
+# NERANK trains through the command line only (phase 23)
+REC_RECORDS = dict({r[0]: r[5] for r in REC_RUNS},
+                   nerank=(0.8726, 0.9266))
+
+
+def rec_files() -> dict:
+    """The bpr_parity set and its field file under OUT (made once)."""
+    from smore_tpu_torch.utils import rec_data
+
+    os.makedirs(OUT, exist_ok=True)
+    f = {k: os.path.join(OUT, f"bpr_{k}") for k in ("train.txt", "test.npz",
+                                                    "field.txt")}
+    rec_data.make_dataset(f["train.txt"], f["test.npz"], seed=0)
+    rec_data.make_field_file(f["train.txt"], f["field.txt"])
+    return f
+
+
+def _rec_gate(model: str, path: str, files: dict, record,
+              gated: bool = True) -> str:
+    """Score a saved embedding file with bpr_parity's evaluate and apply
+    the model's gate (``gated``); returns the line's scores and gate."""
+    from smore_tpu_torch.utils import rec_data
+
+    ue, ie = rec_data.load_embeddings_ui(path, D)
+    require(np.isfinite(ue).all() and np.isfinite(ie).all(),
+            f"{model}: non-finite rows")
+    auc, rec10 = rec_data.evaluate(files["test.npz"], ue, ie)
+    if record is None:
+        norm = float(np.linalg.norm(np.concatenate([ue, ie]), axis=1).mean())
+        require(norm > 2 * INIT_NORM, f"{model}: vertex row norm {norm:.4f} "
+                f"stayed at its init scale {INIT_NORM:.4f}")
+        return (f"AUC {auc:.4f} recall@10 {rec10:.4f} (no record; gate: "
+                f"finite, mean vertex row norm {norm:.4f} > 2 x init)")
+    gate = (record[0] - REC_MARGIN, record[1] - REC_MARGIN)
+    if not gated:
+        return (f"AUC {auc:.4f} recall@10 {rec10:.4f} (not gated; JAX "
+                f"{record[0]} / {record[1]} at {REC_SAMPLES}M)")
+    require(auc >= gate[0] and rec10 >= gate[1],
+            f"{model}: AUC {auc:.4f} / recall@10 {rec10:.4f} under the gate "
+            f"{gate[0]:.4f} / {gate[1]:.4f}")
+    return (f"AUC {auc:.4f} recall@10 {rec10:.4f} (JAX {record[0]} / "
+            f"{record[1]}, gate >= {gate[0]:.4f} / {gate[1]:.4f})")
+
+
+def phase_rec(files: dict, device) -> dict:
+    """Eight rec models in this process: warm-up, the timed 20M run (NEMF
+    4M) with every kernel count at 0 (they must stay there), the gates.
+    Returns the models by name."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.graph.graph import Graph
+
+    card = _card()
+    out = {}
+    for model, cls_name, directed, field, kw, record in REC_RUNS:
+        g = Graph.load_edge_list(files["train.txt"], undirected=not directed)
+        if field:
+            g.load_field_meta(files["field.txt"])
+        m = getattr(models, cls_name)(g, seed=0, device=device)
+        m.init(dim=D)
+        t0 = time.perf_counter()
+        m.train(sample_times=REC_WARM, verbose=False, **kw)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        counters = _counters()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        m.train(sample_times=REC_SHORT.get(model, REC_SAMPLES),
+                verbose=False, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = {name: c.launches for name, c in counters.items()}
+        require(not any(counts.values()), f"{model} launched {counts}")
+        for k, t in m.state.items():
+            require(bool(torch.isfinite(t).all()), f"{model}: non-finite {k}")
+        path = os.path.join(OUT, f"rec_{model}.txt")
+        m.save_weights(path)
+        d = m.last_driver
+        log(f"{model} ({'directed' if directed else 'undirected'}"
+            f"{', field file' if field else ''}{', ' + str(kw) if kw else ''};"
+            f" batch {d.samples_per_step // d.micro_steps} x "
+            f"{d.micro_steps}): {d.executed_samples:,} samples in {dt:.3f} s "
+            f"= {d.executed_samples / dt:,.0f} samples/s (warm-up "
+            f"{warm:.1f} s); "
+            f"{_rec_gate(model, path, files, record, model not in REC_SHORT)}"
+            f"; no kernel launched [{card}]")
+        os.remove(path)
+        out[model] = m
+    return out
+
+
+def phase_rec_cli(files: dict) -> None:
+    """``bpr`` (its directed default) and ``nerank`` (field file, walk_steps
+    2) through the command line, 20M samples each, scored from the saved
+    files by the same gates; no kernel launched."""
+    card = _card()
+    common = ["-dimensions", str(D), "-sample_times", str(REC_SAMPLES)]
+    for model, extra in (
+        ("bpr", []),
+        ("nerank", ["-field", files["field.txt"], "-walk_steps", "2"]),
+    ):
+        save = os.path.join(OUT, f"rec_cli_{model}.txt")
+        r = run_cli([model, "-train", files["train.txt"], "-save", save]
+                    + common + extra)
+        require(not any(r["launches"].values()),
+                f"{model} through the CLI launched {r['launches']}")
+        scores = _rec_gate(model, save, files, REC_RECORDS[model])
+        log(f"{model} (CLI, {' '.join(extra) or 'directed default'}): "
+            f"{r['samples']:,} samples in {r['train_s']:.2f} s = "
+            f"{r['samples'] / max(r['train_s'], 1e-9):,.0f} samples/s; "
+            f"{scores}; {_wall(r)} [{card}]")
+        os.remove(save)
 
 
 def phase_profile(m, out_dir: str, name: str, warm=None, run=None,
@@ -1341,6 +1504,11 @@ def main() -> None:
                  device)
     timed("line through the CLI", phase_line_cli, g_yt)
     log(f"CLI, walk and checkpoint phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    files = rec_files()
+    rec = timed("rec family", phase_rec, files, device)
+    timed("rec family through the CLI", phase_rec_cli, files)
+    log(f"rec phases: {time.perf_counter() - t0:.1f} s")
     if args.profile:
         phase_profile(m_yt, args.profile, "line_yt")
         phase_profile(m_fused, args.profile, "line_yt_fused",
@@ -1360,6 +1528,11 @@ def main() -> None:
                        negative_samples=5, alpha=0.025, verbose=False)
         phase_profile(m_dw, args.profile, "deepwalk_20k", warm=walk_kw,
                       run=walk_kw)
+        for name, kw in (("bpr", {}), ("nemf", dict(walk_steps=2))):
+            phase_profile(rec[name], args.profile, f"{name}_rec",
+                          warm=dict(sample_times=REC_WARM, verbose=False,
+                                    **kw),
+                          run=dict(sample_times=2, verbose=False, **kw))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {

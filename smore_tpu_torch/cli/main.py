@@ -1,12 +1,16 @@
 """``python -m smore_tpu_torch``: one entry point, one subcommand per model.
 
 Port of ``smore_tpu/cli/main.py`` for the models ported so far (``line``,
-``deepwalk``, ``walklets``, ``node2vec``, ``app``), with the same flags,
-defaults and output files. The reference CLIs' flag conventions hold:
-single-dash long flags, e.g.::
+the walk family ``deepwalk``, ``walklets``, ``node2vec``, ``app``, and the
+rec family ``mf``, ``bpr``, ``warp``, ``skewopt``, ``hpe``, ``pe``,
+``hoprec``, ``nemf``, ``nerank``), with the same flags, defaults and output
+files. The reference CLIs' flag conventions hold: single-dash long flags,
+e.g.::
 
     python -m smore_tpu_torch line -train net.txt -save rep.txt -order 2
     python -m smore_tpu_torch deepwalk -train net.txt -save rep.txt
+    python -m smore_tpu_torch hoprec -train net.txt -field meta.txt \
+        -save rep.txt
 
 One flag is the port's own: ``-device`` (default ``cuda``, the card;
 ``cpu`` to run on the host). Without a card the default raises at the first
@@ -24,8 +28,7 @@ _REGISTRY: Dict[str, Callable] = {}
 
 # the JAX package's other subcommands, in the order of ROADMAP.md Queue 1
 NOT_PORTED = (
-    "pe", "hpe", "hoprec", "mf", "bpr", "warp", "skewopt", "fastrp", "gcn",
-    "textgcn", "textgcndev", "fine", "msfine", "nemf", "nerank", "eco",
+    "fastrp", "gcn", "textgcn", "textgcndev", "fine", "msfine", "eco",
     "metapath2vec", "han", "ctdne", "sne", "transe", "rotate", "complex",
     "jodie", "sasrec", "gsasrec", "recdenoiser", "cpr", "tpr",
 )
@@ -87,10 +90,11 @@ def _warm_start(m, a) -> None:
         m.load_pretrain(a.load_c, table="context")
 
 
-def _load(cls, a):
-    """The model of class ``cls`` on -train's graph, on -device."""
+def _load(cls, a, **kw):
+    """The model of class ``cls`` (constructor arguments ``kw``) on
+    -train's graph, on -device."""
     return cls.load_edge_list(a.train, undirected=bool(a.undirected),
-                              device=a.device)
+                              device=a.device, **kw)
 
 
 @_cmd("line")
@@ -114,6 +118,128 @@ def _line(argv):
     m.train(sample_times=a.sample_times, negative_samples=a.negative_samples,
             alpha=a.alpha, group=a.group, **kw)
     m.save_weights(a.save)
+
+
+@_cmd("pe")
+def _pe(argv):
+    p = _base_parser("pe")
+    p.add_argument("-walk_meta", default=None,
+                   help="per-vertex walk-steps file (reference "
+                        "PE::LoadWalkMeta)")
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import PE
+
+    m = _load(PE, a)
+    if a.walk_meta:
+        m.load_walk_meta(a.walk_meta)
+    m.init(dim=a.dimensions)
+    _set_ckpt(m, a)
+    m.train(sample_times=a.sample_times, negative_samples=a.negative_samples,
+            alpha=a.alpha)
+    m.save_weights(a.save)
+
+
+@_cmd("hpe")
+def _hpe(argv):
+    p = _base_parser("hpe")
+    p.add_argument("-walk_steps", type=int, default=5)
+    p.add_argument("-reg", type=float, default=0.01)
+    p.add_argument("-load_v", default=None, help="pretrained vertex warm start")
+    p.add_argument("-load_c", default=None,
+                   help="pretrained context warm start")
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import HPE
+
+    m = _load(HPE, a)
+    m.init(dim=a.dimensions)
+    _warm_start(m, a)
+    _set_ckpt(m, a)
+    m.train(sample_times=a.sample_times, walk_steps=a.walk_steps,
+            negative_samples=a.negative_samples, reg=a.reg, alpha=a.alpha)
+    m.save_weights(a.save)
+
+
+def _simple_rec(name, cls_name, extra=()):
+    """mf, bpr, warp, skewopt: the reference CLIs load the graph DIRECTED
+    (there is no -undirected flag there), so -undirected defaults to 0
+    here; mf passes -reg and -negative_samples, skewopt -xi, -omega and
+    -eta to the constructor."""
+
+    def run(argv):
+        p = _base_parser(name)
+        p.set_defaults(undirected=0)
+        for flag, typ, dv in extra:
+            p.add_argument(flag, type=typ, default=dv)
+        a = p.parse_args(argv)
+        from smore_tpu_torch import models
+
+        ctor_kw = {}
+        if name == "skewopt":
+            ctor_kw = {"xi": a.xi, "omega": a.omega, "eta": a.eta}
+        elif name == "mf":
+            ctor_kw = {"reg": a.reg, "negative_samples": a.negative_samples}
+        m = _load(getattr(models, cls_name), a, **ctor_kw)
+        m.init(dim=a.dimensions)
+        _set_ckpt(m, a)
+        kw = {"batch": a.batch} if a.batch else {}
+        m.train(sample_times=a.sample_times, alpha=a.alpha, **kw)
+        m.save_weights(a.save)
+
+    return run
+
+
+_REG = ("-reg", float, 0.01)
+_REGISTRY["mf"] = _simple_rec("mf", "MF", [_REG])
+_REGISTRY["bpr"] = _simple_rec("bpr", "BPR", [_REG])
+_REGISTRY["warp"] = _simple_rec("warp", "WARP", [_REG])
+_REGISTRY["skewopt"] = _simple_rec(
+    "skewopt", "SkewOPT",
+    [_REG, ("-xi", float, 10.0), ("-omega", float, 3.0), ("-eta", int, 3)])
+
+
+@_cmd("hoprec")
+def _hoprec(argv):
+    p = _base_parser("hoprec")
+    p.add_argument("-field", required=True)
+    p.add_argument("-walk_steps", type=int, default=5)
+    p.add_argument("-margin", type=float, default=1.0)
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import HOPREC
+
+    m = _load(HOPREC, a)
+    m.graph.load_field_meta(a.field)
+    m.init(dim=a.dimensions)
+    _set_ckpt(m, a)
+    m.train(sample_times=a.sample_times, walk_steps=a.walk_steps,
+            margin=a.margin, alpha=a.alpha)
+    m.save_weights(a.save)
+
+
+def _field_model(name, cls_name):
+    """nemf, nerank: -field is required; -reg is accepted as the JAX CLI
+    does (the CSE heads fix their L2 at 0.025)."""
+
+    def run(argv):
+        p = _base_parser(name)
+        p.add_argument("-field", required=True)
+        p.add_argument("-walk_steps", type=int, default=5)
+        p.add_argument("-reg", type=float, default=0.01)
+        a = p.parse_args(argv)
+        from smore_tpu_torch import models
+
+        m = _load(getattr(models, cls_name), a)
+        m.graph.load_field_meta(a.field)
+        m.init(dim=a.dimensions)
+        _set_ckpt(m, a)
+        m.train(sample_times=a.sample_times, walk_steps=a.walk_steps,
+                negative_samples=a.negative_samples, alpha=a.alpha)
+        m.save_weights(a.save)
+
+    return run
+
+
+_REGISTRY["nemf"] = _field_model("nemf", "NEMF")
+_REGISTRY["nerank"] = _field_model("nerank", "NERANK")
 
 
 @_cmd("deepwalk")

@@ -2,7 +2,8 @@
 
 Port of ``smore_tpu/graph/graph.py`` (``from_arrays``, ``from_edges``,
 ``load_edge_list`` with its native and pure-Python loaders, the per-vertex
-accessors ``branch``, ``neighbors`` and ``neighbor_weights``). The store is
+accessors ``branch``, ``neighbors`` and ``neighbor_weights``, and the
+metadata loaders ``load_field_meta`` and ``load_walk_meta``). The store is
 host numpy and bit-equal to the JAX package's: the device never sees it,
 only the sampler tables built from it.
 """
@@ -10,8 +11,8 @@ only the sampler tables built from it.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Dict, Iterable, Iterator, List, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -52,7 +53,9 @@ class Graph:
     indptr (N+1,) int64 row offsets; indices (E,) int32 destination vids;
     weights (E,) float64; names / name2id the vertex interning (vids in
     first-appearance order); out_degree / in_degree (N,) float64 weighted
-    degrees.
+    degrees. Optional metadata: ``fields`` (N,) int32 field ids with
+    ``n_fields`` and ``field_names`` (``load_field_meta``), ``walk_steps``
+    (N,) int32 per-vertex walk lengths (``load_walk_meta``).
     """
 
     indptr: np.ndarray
@@ -62,6 +65,10 @@ class Graph:
     name2id: Dict[str, int]
     out_degree: np.ndarray
     in_degree: np.ndarray
+    fields: Optional[np.ndarray] = None
+    n_fields: int = 1
+    walk_steps: Optional[np.ndarray] = None
+    field_names: List[str] = field(default_factory=list)
 
     @property
     def n_vertices(self) -> int:
@@ -164,3 +171,42 @@ class Graph:
     @staticmethod
     def _load_edge_list_py(files: List[str], undirected: bool) -> "Graph":
         return Graph.from_edges(_parse_edges(files), undirected)
+
+    def _meta_lines(self, path: str) -> Iterator[Tuple[int, str]]:
+        """(vid, second token) of every line of the file(s) at ``path``
+        whose first token names a vertex; lines of fewer than two tokens
+        and unknown names are skipped."""
+        for fname in _iter_edge_files(path):
+            with open(fname, "r") as f:
+                for line in f:
+                    parts = line.split()
+                    if len(parts) < 2:
+                        continue
+                    vid = self.name2id.get(parts[0])
+                    if vid is not None:
+                        yield vid, parts[1]
+
+    def load_field_meta(self, path: str) -> None:
+        """``vertex field`` file(s) -> per-vertex field id (int32, 0 for a
+        vertex the file does not name), ids in first-appearance order of
+        the field names (reference LoadFieldMeta)."""
+        fields = np.zeros(self.n_vertices, dtype=np.int32)
+        fnames: Dict[str, int] = {}
+        for vid, name in self._meta_lines(path):
+            fields[vid] = fnames.setdefault(name, len(fnames))
+        self.fields = fields
+        self.n_fields = max(1, len(fnames))
+        self.field_names = sorted(fnames, key=fnames.get)
+
+    def load_walk_meta(self, path: str, default_steps: int = 3) -> None:
+        """``vertex steps`` file(s) -> per-vertex walk length (int32);
+        vertices the file does not name keep ``default_steps`` (the
+        reference's 3), and a step count that is not an integer is
+        skipped (reference LoadWalkMeta)."""
+        steps = np.full(self.n_vertices, default_steps, dtype=np.int32)
+        for vid, value in self._meta_lines(path):
+            try:
+                steps[vid] = int(value)
+            except ValueError:
+                continue
+        self.walk_steps = steps

@@ -268,6 +268,7 @@ class PairModelBase:
         self.tables: Optional[SamplerTables] = None
         self.state: State = {}
         self.dim: int = 0
+        self.last_driver: Optional[TrainDriver] = None  # of the last train()
 
     @classmethod
     def load_edge_list(cls, path: str, undirected: bool = True, **kw):

@@ -117,7 +117,6 @@ class LINE(PairModelBase):
         super().__init__(graph, seed, device)
         self.order = 2
         self.banded_tables: BandedTables | None = None
-        self.last_driver: TrainDriver | None = None
 
     def init(self, dim: int, order: int = 2) -> None:
         self.dim = dim

@@ -1,10 +1,16 @@
-"""The SGNS update core: gather rows, score, scale, scatter-add.
+"""The update core: gather rows, score, scale, scatter-add.
 
 Port of the SGNS part of ``smore_tpu/ops/update.py`` (``scatter_apply``,
 ``apply_two_tables``, ``sgns_grads``, ``sgns_step``, ``sgns_step_shared``,
 ``sgns_shared_negs_step``, and the banded large-table forms
 ``sgns_shared_negs_step_banded`` / ``_sgns_banded_step_fused`` and the
-band-persistent block ``sgns_banded_block``). A batched step applies every
+band-persistent block ``sgns_banded_block``) and of its recommendation
+updates (``mf_step``, ``bpr_step``, ``warp_step``, ``skewbpr_step``, their
+shared-pool forms ``mf_shared_negs_step``, ``bpr_shared_negs_step``,
+``warp_shared_pool_step``, ``skewbpr_shared_negs_step``, and HOP-REC's
+``fbpr_step``). The rec updates are gathers, per-row dot products, (B, Ks)
+products against the shared pool, elementwise math and scatter-adds, all
+plain torch ops, as they were plain XLA in the JAX package. A batched step applies every
 sample against the batch-start snapshot of the tables; duplicate rows in a batch sum
 their contributions (collision "sum"), or are divided by their occurrence
 count (collision "mean").
@@ -22,6 +28,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from smore_tpu_torch.ops.scatter import band_scatter_add
 from smore_tpu_torch.ops.sgns import sgns_shared_grads
@@ -415,3 +422,339 @@ def sgns_banded_block(
     out_band = (1.0 - in_band).reshape(-1, 1)
     w_context.index_add_(0, negs_rows, torch.cat(d_negs) * out_band)
     return w_vertex, w_context, torch.stack(losses).mean()
+
+
+# --------------------------------------------------------------------- #
+# RECOMMENDATION updates (MF, BPR, WARP, Skew-OPT, HOP-REC). Each computes
+# every delta from rows gathered before its first scatter, so the one-table
+# models (``shared_table=True``: the same tensor passed as both tables) see
+# the batch-start snapshot, as in the JAX package. ``mask`` (B,) 0/1 marks
+# the valid samples. Each returns (w_vertex, w_context, loss).
+# --------------------------------------------------------------------- #
+def _alpha_floor(alpha):
+    """max(alpha, 1e-12) as a tensor (alpha may be a float)."""
+    return torch.clamp(torch.as_tensor(alpha, dtype=torch.float32),
+                       min=1e-12)
+
+
+def mf_step(w_vertex, w_context, src, pos, negs, alpha, reg: float = 0.01,
+            mask: Optional[torch.Tensor] = None, shared_table: bool = False,
+            collision: str = "sum"):
+    """Matrix factorisation with per-sample negatives ``negs`` (B, K)
+    (reference UpdateFactorizedPair): g = alpha * (label - v.c), with the
+    L2 shrink alpha * reg on every row, (1 + K) times on the source. The
+    loss is the mean squared positive error."""
+    v = w_vertex[src]
+    cp = w_context[pos]
+    cn = w_context[negs]  # (B, K, D)
+    g_pos = _maybe_mask((1.0 - (v * cp).sum(-1)) * alpha, mask)
+    g_neg = (0.0 - torch.einsum("bd,bkd->bk", v, cn)) * alpha
+    if mask is not None:
+        g_neg = g_neg * mask[:, None]
+    B, K, D = cn.shape
+    ar = alpha * reg
+    d_src = (g_pos[:, None] * cp + torch.einsum("bk,bkd->bd", g_neg, cn)
+             - ar * (1 + K) * v)
+    d_pos = g_pos[:, None] * v - ar * cp
+    d_neg = g_neg[:, :, None] * v[:, None, :] - ar * cn
+    mask_k = None if mask is None else mask.repeat_interleave(K)
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(src, d_src, mask)],
+        [(pos, d_pos, mask), (negs.reshape(-1), d_neg.reshape(B * K, D),
+                              mask_k)],
+        shared_table=shared_table, collision=collision)
+    loss = (g_pos ** 2).mean() / _alpha_floor(alpha) ** 2
+    return w_vertex, w_context, loss
+
+
+def bpr_step(w_vertex, w_context, user, pos, negs, alpha,
+             reg_ctx: float = 0.0025, reg_vtx: float = 0.025,
+             mask: Optional[torch.Tensor] = None, update_vertex: bool = True,
+             shared_table: bool = False, collision: str = "sum"):
+    """BPR with R rounds of per-sample negatives ``negs`` (B, R)
+    (reference UpdateBPRPair), all rounds against the batch snapshot and
+    summed: context rows shrink by alpha * reg_ctx per round, the user row
+    by alpha * reg_vtx once."""
+    v = w_vertex[user]  # (B, D)
+    ci = w_context[pos]  # (B, D)
+    cj = w_context[negs]  # (B, R, D)
+    diff = ci[:, None, :] - cj
+    f = torch.einsum("bd,brd->br", v, diff)
+    g = torch.sigmoid(-f) * alpha
+    m1 = 1.0
+    if mask is not None:
+        g = g * mask[:, None]
+        m1 = mask[:, None]
+    B, R, D = cj.shape
+    ar_c = alpha * reg_ctx
+    d_ci = g.sum(1)[:, None] * v - ar_c * R * ci * m1
+    d_cj = -g[:, :, None] * v[:, None, :] - ar_c * cj * (
+        1.0 if mask is None else mask[:, None, None])
+    d_v = torch.einsum("br,brd->bd", g, diff) - alpha * reg_vtx * v * m1
+    mask_r = None if mask is None else mask.repeat_interleave(R)
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(user, d_v, mask)],
+        [(pos, d_ci, mask), (negs.reshape(-1), d_cj.reshape(B * R, D),
+                             mask_r)],
+        shared_table=shared_table, update_vertex=update_vertex,
+        collision=collision)
+    return w_vertex, w_context, F.softplus(-f).mean()
+
+
+def warp_step(w_vertex, w_context, user, pos, negs, alpha,
+              reg: float = 0.0025, mask: Optional[torch.Tensor] = None,
+              shared_table: bool = False, collision: str = "sum"):
+    """WARP / WSABIE over T candidate negatives ``negs`` (B, T) (reference
+    UpdateWARPPair): the FIRST candidate with a margin violation
+    v.(ci - cj) < 1 gets one BPR update with L2 alpha * reg on the three
+    rows; a sample without a violator is not updated."""
+    v = w_vertex[user]
+    ci = w_context[pos]
+    cj = w_context[negs]  # (B, T, D)
+    f = torch.einsum("bd,btd->bt", v, ci[:, None, :] - cj)
+    violated = f < 1.0
+    any_viol = violated.any(1)
+    # the first violator (0 when there is none: masked below); argmax
+    # returns the first maximal index and takes no bool tensor on the card
+    first = torch.argmax(violated.to(torch.float32), dim=1)
+    j = negs.gather(1, first[:, None])[:, 0]
+    cjf = w_context[j]  # gathered before any scatter
+    diff = ci - cjf
+    fsel = (v * diff).sum(-1)
+    act = any_viol.to(w_vertex.dtype)
+    if mask is not None:
+        act = act * mask
+    g = torch.sigmoid(-fsel) * alpha * act
+    ar = alpha * reg
+    d_v = g[:, None] * diff - ar * v * act[:, None]
+    d_ci = g[:, None] * v - ar * ci * act[:, None]
+    d_cj = -g[:, None] * v - ar * cjf * act[:, None]
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(user, d_v, act)],
+        [(pos, d_ci, act), (j, d_cj, act)],
+        shared_table=shared_table, collision=collision)
+    loss = (F.relu(1.0 - fsel) * act).sum() / torch.clamp(act.sum(), min=1.0)
+    return w_vertex, w_context, loss
+
+
+def _skew_grad(t, eta: int, omega: float, alpha, succ):
+    """Skew-OPT's gradient on t = (x - xi) / omega, clamped below at -2:
+    sigmoid(-t^eta) t^(eta-1) / omega, times alpha and the success mask.
+    ``eta`` is an int: t may be negative."""
+    t = torch.clamp(t, min=-2.0)
+    chain = torch.ones_like(t) if eta == 1 else t ** (eta - 1)
+    return torch.sigmoid(-(t ** eta)) * chain / omega * alpha * succ
+
+
+def skewbpr_step(w_vertex, w_context, user, pos, negs, alpha,
+                 xi: float = 0.0, omega: float = 1.0, eta: int = 1,
+                 reg: float = 0.01, mask: Optional[torch.Tensor] = None,
+                 shared_table: bool = False, collision: str = "sum"):
+    """Skew-OPT over R sequential rounds of per-sample negatives ``negs``
+    (B, R) (reference UpdateSBPRPair): a round with t = (x - xi) / omega
+    above 2 is skipped; a successful round shrinks ci and cj by alpha * reg
+    and applies +/- g v, and ci EVOLVES across the rounds, as the
+    reference's in-place updates do. The user delta is the average of
+    g (ci - cj) over the successful rounds, shrunk once if any succeeded.
+    The loss is the mean per-round softplus(-x)."""
+    v = w_vertex[user]
+    ci0 = w_context[pos]
+    cj = w_context[negs]  # (B, R, D)
+    B, R, D = cj.shape
+    ar = alpha * reg
+    ci = ci0
+    ev = torch.zeros_like(ci0)
+    n_succ = torch.zeros(B, dtype=w_vertex.dtype, device=w_vertex.device)
+    loss = 0.0
+    d_cj = []
+    for r in range(R):
+        cj_r = cj[:, r]
+        x = (v * (ci - cj_r)).sum(-1)
+        succ = ((x - xi) / omega <= 2.0).to(w_vertex.dtype)
+        if mask is not None:
+            succ = succ * mask
+        g = _skew_grad((x - xi) / omega, eta, omega, alpha, succ)
+        d_cj.append((-ar * cj_r - g[:, None] * v) * succ[:, None])
+        ev = ev + g[:, None] * (ci - cj_r)
+        ci = ci + (-ar * ci + g[:, None] * v) * succ[:, None]
+        n_succ = n_succ + succ
+        loss = loss + F.softplus(-x).mean()
+    any_succ = (n_succ > 0).to(w_vertex.dtype)
+    d_v = (ev / torch.clamp(n_succ, min=1.0)[:, None]
+           - ar * v * any_succ[:, None])
+    mask_r = None if mask is None else mask.repeat_interleave(R)
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(user, d_v, mask)],
+        [(pos, ci - ci0, mask),
+         (negs.reshape(-1), torch.stack(d_cj, 1).reshape(B * R, D), mask_r)],
+        shared_table=shared_table, collision=collision)
+    return w_vertex, w_context, loss / R
+
+
+# Shared-pool forms: one pool of Ks negatives per step, scored against every
+# sample in (B, Ks) products, gradients scaled by k_equiv / Ks so that the
+# expected update is the per-sample one.
+def bpr_shared_negs_step(w_vertex, w_context, user, pos, negs, alpha,
+                         k_equiv: int = 5, reg_ctx: float = 0.0025,
+                         reg_vtx: float = 0.025, shared_table: bool = False,
+                         collision: str = "sum"):
+    """``bpr_step`` against the shared pool ``negs`` (Ks,)."""
+    v = w_vertex[user]
+    ci = w_context[pos]
+    cn = w_context[negs]  # (Ks, D)
+    B, Ks = user.shape[0], negs.shape[0]
+    f_i = (v * ci).sum(-1)
+    f_j = v @ cn.T  # (B, Ks)
+    g = torch.sigmoid(f_j - f_i[:, None]) * (alpha * (k_equiv / Ks))
+    ar_c = alpha * reg_ctx
+    gs = g.sum(1)
+    d_ci = gs[:, None] * v - ar_c * k_equiv * ci
+    d_cn = -(g.T @ v) - (ar_c * (B * k_equiv / Ks)) * cn
+    d_v = gs[:, None] * ci - g @ cn - alpha * reg_vtx * v
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(user, d_v, None)],
+        [(pos, d_ci, None), (negs, d_cn, None)],
+        shared_table=shared_table, collision=collision)
+    return w_vertex, w_context, F.softplus(f_j - f_i[:, None]).mean()
+
+
+def mf_shared_negs_step(w_vertex, w_context, src, pos, negs, alpha,
+                        k_equiv: int = 5, reg: float = 0.01,
+                        shared_table: bool = False, collision: str = "sum"):
+    """``mf_step`` against the shared pool ``negs`` (Ks,)."""
+    v = w_vertex[src]
+    cp = w_context[pos]
+    cn = w_context[negs]
+    B, Ks = src.shape[0], negs.shape[0]
+    g_pos = (1.0 - (v * cp).sum(-1)) * alpha
+    g_neg = (0.0 - v @ cn.T) * (alpha * (k_equiv / Ks))
+    ar = alpha * reg
+    d_src = g_pos[:, None] * cp + g_neg @ cn - ar * (1 + k_equiv) * v
+    d_pos = g_pos[:, None] * v - ar * cp
+    d_cn = g_neg.T @ v - ar * (B * k_equiv / Ks) * cn
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(src, d_src, None)],
+        [(pos, d_pos, None), (negs, d_cn, None)],
+        shared_table=shared_table, collision=collision)
+    loss = (g_pos ** 2).mean() / _alpha_floor(alpha) ** 2
+    return w_vertex, w_context, loss
+
+
+def warp_shared_pool_step(w_vertex, w_context, user, pos, negs, u, alpha,
+                          trials: int = 32, reg: float = 0.0025,
+                          shared_table: bool = False,
+                          collision: str = "sum"):
+    """``warp_step`` against the shared pool ``negs`` (Ks,) with the trial
+    loop marginalised: over iid draws from the pool the first violator is
+    a uniformly random member of the violating set, and an update happens
+    with probability 1 - (1 - v)^trials, v the violating fraction. ``u``
+    (B, Ks + 1) uniforms: [:, :Ks] pick the violator (the argmax of the
+    uniforms masked to the violators), [:, Ks] gates the update."""
+    v = w_vertex[user]
+    ci = w_context[pos]
+    cn = w_context[negs]  # (Ks, D)
+    Ks = negs.shape[0]
+    f_i = (v * ci).sum(-1)
+    violated = (f_i[:, None] - v @ cn.T) < 1.0  # (B, Ks)
+    vfrac = violated.to(torch.float32).mean(1)
+    p_hit = 1.0 - (1.0 - vfrac) ** trials
+    act = (u[:, Ks] < p_hit).to(w_vertex.dtype)
+    k_sel = torch.argmax(u[:, :Ks].masked_fill(~violated, -1.0), dim=1)
+    j = negs[k_sel]  # (B,) vids
+    cjf = cn[k_sel]
+    diff = ci - cjf
+    fsel = (v * diff).sum(-1)
+    g = torch.sigmoid(-fsel) * alpha * act
+    ar = alpha * reg
+    d_v = g[:, None] * diff - ar * v * act[:, None]
+    d_ci = g[:, None] * v - ar * ci * act[:, None]
+    d_cj = -g[:, None] * v - ar * cjf * act[:, None]
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(user, d_v, act)],
+        [(pos, d_ci, act), (j, d_cj, act)],
+        shared_table=shared_table, collision=collision)
+    loss = (F.relu(1.0 - fsel) * act).sum() / torch.clamp(act.sum(), min=1.0)
+    return w_vertex, w_context, loss
+
+
+def skewbpr_shared_negs_step(w_vertex, w_context, user, pos, negs, alpha,
+                             k_equiv: int = 16, xi: float = 0.0,
+                             omega: float = 1.0, eta: int = 1,
+                             reg: float = 0.01, shared_table: bool = False,
+                             collision: str = "sum"):
+    """``skewbpr_step`` against the shared pool ``negs`` (Ks,): each of the
+    k_equiv sequential rounds is taken in expectation over the pool
+    (weight 1 / Ks), the positive row evolving across the rounds; the
+    pool's delta accumulates over them."""
+    v = w_vertex[user]
+    ci0 = w_context[pos]
+    cn = w_context[negs]  # (Ks, D)
+    B, Ks = user.shape[0], negs.shape[0]
+    ar = alpha * reg
+    w_pool = 1.0 / Ks
+    f_cn = v @ cn.T  # (B, Ks)
+    ci = ci0
+    ev = torch.zeros_like(ci0)
+    n_succ = torch.zeros(B, dtype=w_vertex.dtype, device=w_vertex.device)
+    d_cn = torch.zeros_like(cn)
+    loss = 0.0
+    for _ in range(k_equiv):
+        x = (v * ci).sum(-1)[:, None] - f_cn  # (B, Ks)
+        succ = ((x - xi) / omega <= 2.0).to(w_vertex.dtype)
+        g = _skew_grad((x - xi) / omega, eta, omega, alpha, succ)
+        succ_b = succ.sum(1) * w_pool  # expected success per round
+        g_sum = g.sum(1) * w_pool
+        d_cn = d_cn - w_pool * (g.T @ v + ar * succ.sum(0)[:, None] * cn)
+        ev = ev + g_sum[:, None] * ci - w_pool * (g @ cn)
+        ci = ci + (-ar * ci * succ_b[:, None] + g_sum[:, None] * v)
+        n_succ = n_succ + succ_b
+        loss = loss + F.softplus(-x).mean()
+    any_succ = (n_succ > 0).to(w_vertex.dtype)
+    d_v = (ev / torch.clamp(n_succ, min=1.0)[:, None]
+           - ar * v * any_succ[:, None])
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(user, d_v, None)],
+        [(pos, ci - ci0, None), (negs, d_cn, None)],
+        shared_table=shared_table, collision=collision)
+    return w_vertex, w_context, loss / k_equiv
+
+
+def fbpr_step(w_vertex, w_context, user, pos, negs, alpha, margin,
+              reg_ctx: float = 0.0025, reg_vtx: float = 0.025,
+              mask: Optional[torch.Tensor] = None, shared_table: bool = False,
+              collision: str = "sum"):
+    """Margin-filtered BPR (HOP-REC; reference UpdateFBPRPair) over R
+    rounds of ``negs`` (B, R). ``alpha`` and ``margin`` are scalars or (B,)
+    per-pair vectors. A round with f = v.(ci - cj) above the margin is
+    skipped, its shrink and update both; the user delta is averaged over
+    the active rounds and shrunk once if any was active."""
+    v = w_vertex[user]
+    ci = w_context[pos]
+    cj = w_context[negs]  # (B, R, D)
+    B, R, D = cj.shape
+    dt, dev = w_vertex.dtype, w_vertex.device
+    alpha_b = torch.as_tensor(alpha, dtype=dt, device=dev).expand(B)
+    margin_b = torch.as_tensor(margin, dtype=dt, device=dev).expand(B)
+    diff = ci[:, None, :] - cj
+    f = torch.einsum("bd,brd->br", v, diff)
+    active = (f <= margin_b[:, None]).to(dt)
+    g = torch.sigmoid(-f) * alpha_b[:, None] * active
+    if mask is not None:
+        g = g * mask[:, None]
+        active = active * mask[:, None]
+    n_act = active.sum(-1)
+    act_any = (n_act > 0).to(dt)
+    ar_c = (alpha_b * reg_ctx)[:, None]
+    d_ci = g.sum(1)[:, None] * v - ar_c * n_act[:, None] * ci
+    d_cj = (-g[:, :, None] * v[:, None, :]
+            - ar_c[:, :, None] * cj * active[:, :, None])
+    d_v = (torch.einsum("br,brd->bd", g, diff)
+           / torch.clamp(n_act, min=1.0)[:, None]
+           - (alpha_b * reg_vtx)[:, None] * v * act_any[:, None])
+    mask_r = None if mask is None else mask.repeat_interleave(R)
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(user, d_v, mask)],
+        [(pos, d_ci, mask), (negs.reshape(-1), d_cj.reshape(B * R, D),
+                             mask_r)],
+        shared_table=shared_table, collision=collision)
+    return w_vertex, w_context, F.softplus(-f).mean()

@@ -5,7 +5,8 @@
 - Kill at 50% and resume in a fresh model is step-identical (bit-equal
   tables) to an uninterrupted run, for LINE's unbanded route, LINE's banded
   multiblock route (forced on a toy graph, padded tables), DeepWalk (epoch
-  hoist) and APP: the learning rate is a function of the restored step
+  hoist), APP, BPR (hoisted shared pool) and NERANK (four tables): the
+  learning rate is a function of the restored step
   counter and the draws of the restored generator state. This holds on the
   CPU with one intra-op thread, where every sum runs in one order.
 - Resuming a finished run trains nothing; ``resume=False`` starts again and
@@ -27,7 +28,7 @@ from smore_tpu.io.embeddings import warm_start as j_warm_start
 from smore_tpu.models import DeepWalk as JDeepWalk
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.io.embeddings import warm_start
-from smore_tpu_torch.models import APP, LINE, DeepWalk
+from smore_tpu_torch.models import APP, BPR, LINE, NERANK, DeepWalk
 from smore_tpu_torch.models.base import TrainDriver
 from smore_tpu_torch.utils.checkpoint import (
     checkpoint_exists,
@@ -140,6 +141,14 @@ CASES = {
     # 1200 walks, batch 8, epoch hoist 8, one step a call: 19 calls
     "app": (_walker(APP), "toy", dict(
         walk_times=10, sample_times=2, jump=0.3, steps_per_call=8)),
+    # batch clamped to 60, 8 inner batches a step (the shared pool's
+    # hoist), 4 steps a call: 11 calls
+    "bpr": (_walker(BPR), "toy", dict(sample_times=0.02,
+                                      steps_per_call=32)),
+    # four tables, batch 60, 4 steps a call: 9 calls
+    "nerank": (_walker(NERANK), "toy", dict(
+        sample_times=0.002, walk_steps=2, negative_samples=3,
+        steps_per_call=4)),
 }
 
 

@@ -1,9 +1,11 @@
 """The port's command line, ``python -m smore_tpu_torch``, on the CPU.
 
 The checks of tests/test_cli.py and tests/test_cli_fidelity.py for the
-ported subcommands (``line`` and the walk family), run with ``-device
-cpu``; the JAX package's other subcommands exit 2; ``-checkpoint``
-resumes and ``-no_resume`` starts again.
+ported subcommands (``line``, the walk family and the rec family), run
+with ``-device cpu``; the rec family's ``mf``, ``bpr``, ``warp`` and
+``skewopt`` load the graph directed by default; the JAX package's other
+subcommands exit 2; ``-checkpoint`` resumes and ``-no_resume`` starts
+again.
 """
 
 import os
@@ -16,6 +18,7 @@ import torch
 
 from smore_tpu.cli.main import _REGISTRY as JAX_REGISTRY
 from smore_tpu_torch.cli.main import _REGISTRY, NOT_PORTED, main
+from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.io.embeddings import load_embeddings
 from smore_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -29,7 +32,8 @@ CPU = ["-device", "cpu"]  # the CLI defaults to the card
 
 def test_registry_covers_the_jax_cli():
     assert set(_REGISTRY) == {"line", "deepwalk", "walklets", "node2vec",
-                              "app"}
+                              "app", "mf", "bpr", "warp", "skewopt", "hpe",
+                              "pe", "hoprec", "nemf", "nerank"}
     assert not set(_REGISTRY) & set(NOT_PORTED)
     assert set(_REGISTRY) | set(NOT_PORTED) == set(JAX_REGISTRY)
 
@@ -42,7 +46,7 @@ def test_help_and_unknown(capsys):
     assert main(["nosuchmodel"]) == 1
 
 
-@pytest.mark.parametrize("cmd", ["hpe", "transe", "sasrec"])
+@pytest.mark.parametrize("cmd", ["gcn", "transe", "sasrec"])
 def test_jax_only_subcommand_exits_2(cmd, capsys, tmp_path):
     out = tmp_path / "rep.txt"
     assert main([cmd, "-train", "x.txt", "-save", str(out)] + CPU) == 2
@@ -95,6 +99,87 @@ def test_cli_walk_models_end_to_end(cmd, toy_edges, tmp_path):
                  "-negative_samples", "2"] + WALKS[cmd] + CPU) == 0
     header, emb = _emb(out)
     assert header == ["24", "8"] and len(emb) == 24
+
+
+REC = {
+    "mf": ["-reg", "0.02", "-negative_samples", "3"],
+    "bpr": [],
+    "warp": [],
+    "skewopt": ["-xi", "0.5", "-omega", "1", "-eta", "3"],
+    "hpe": ["-walk_steps", "3", "-reg", "0.02"],
+    "pe": [],
+    "hoprec": ["-walk_steps", "2", "-margin", "0.5"],
+    "nemf": ["-walk_steps", "2", "-reg", "0.02"],
+    "nerank": ["-walk_steps", "2"],
+}
+FIELD_CMDS = ("hoprec", "nemf", "nerank")
+
+
+def _field_file(tmp_path):
+    p = tmp_path / "field.txt"
+    p.write_text("".join(f"{k}{i} {k}\n" for k in "ui" for i in range(12)))
+    return str(p)
+
+
+@pytest.mark.parametrize("cmd", sorted(REC))
+def test_cli_rec_models_end_to_end(cmd, toy_edges, tmp_path):
+    out = str(tmp_path / "rep.txt")
+    extra = ["-field", _field_file(tmp_path)] if cmd in FIELD_CMDS else []
+    assert main([cmd, "-train", toy_edges, "-save", out, "-dimensions", "8",
+                 "-sample_times", "0.004"] + REC[cmd] + extra + CPU) == 0
+    header, emb = _emb(out)
+    assert header == ["24", "8"] and len(emb) == 24
+
+
+@pytest.mark.parametrize("cmd", FIELD_CMDS)
+def test_cli_field_models_require_field(cmd, toy_edges, tmp_path):
+    with pytest.raises(SystemExit):
+        main([cmd, "-train", toy_edges, "-save", str(tmp_path / "r.txt")]
+             + CPU)
+
+
+@pytest.mark.parametrize("cmd,directed", [
+    ("mf", True), ("bpr", True), ("warp", True), ("skewopt", True),
+    ("hpe", False), ("pe", False), ("hoprec", False), ("nemf", False)])
+def test_cli_rec_loading_direction(cmd, directed, toy_edges, tmp_path,
+                                   monkeypatch):
+    """The reference's mf, bpr, warp and skewopt CLIs load the graph
+    DIRECTED; -undirected 1 still doubles the edges. The others load it
+    undirected, as every other subcommand does."""
+    seen = []
+    load = Graph.load_edge_list
+
+    def recording(path, undirected=True, **kw):
+        seen.append(undirected)
+        return load(path, undirected=undirected, **kw)
+
+    monkeypatch.setattr(Graph, "load_edge_list", staticmethod(recording))
+    extra = ["-field", _field_file(tmp_path)] if cmd in FIELD_CMDS else []
+    base = [cmd, "-train", toy_edges, "-save", str(tmp_path / "rep.txt"),
+            "-dimensions", "8", "-sample_times", "0.001"] + extra + CPU
+    assert main(base) == 0
+    assert main(base + ["-undirected", "1"]) == 0
+    assert seen == [not directed, True]
+
+
+def test_cli_hpe_warm_start(toy_edges, tmp_path):
+    """-load_v/-load_c: a zero-budget run (one driver call still runs)
+    stays far nearer the warm-start file than a run from a fresh init."""
+    first = str(tmp_path / "first.txt")
+    base = ["hpe", "-train", toy_edges, "-dimensions", "8", "-walk_steps",
+            "2"] + CPU
+    assert main(base + ["-save", first, "-sample_times", "0.004"]) == 0
+    warm, cold = str(tmp_path / "warm.txt"), str(tmp_path / "cold.txt")
+    assert main(base + ["-save", warm, "-sample_times", "0", "-load_v",
+                        first, "-load_c", first]) == 0
+    assert main(base + ["-save", cold, "-sample_times", "0"]) == 0
+    a = load_embeddings(first)
+
+    def gap(path):
+        b = load_embeddings(path)
+        return np.median([float(np.abs(a[k] - b[k]).max()) for k in a])
+
+    assert gap(warm) < 0.5 * gap(cold)
 
 
 def test_cli_default_batch_stable_on_readme_toy_net(tmp_path):
@@ -185,7 +270,7 @@ def test_python_m_entry_point(toy_edges, tmp_path):
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert out.read_text().split("\n")[0] == "24 8"
-    r = subprocess.run([sys.executable, "-m", "smore_tpu_torch", "hpe"],
+    r = subprocess.run([sys.executable, "-m", "smore_tpu_torch", "gcn"],
                        env=env, cwd=ROOT, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 2 and "not ported" in r.stderr

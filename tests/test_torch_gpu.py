@@ -614,3 +614,143 @@ def test_edge_stream_built_on_the_card_matches_the_cpu(cuda, two_d):
     card = BandedTables.build(g, device=cuda, **kw).build_stream(mult=8)
     assert torch.equal(card.stream.cpu(), cpu.stream)
     assert torch.equal(card.stream_meta.cpu(), cpu.stream_meta)
+
+
+# ------------------------------------------------------------- rec family
+def _rec_inputs(device, seed=0, N=40, D=8, B=256, K=5, Ks=16):
+    """Unit-scale tables (margins violated and not, Skew-OPT rounds skipped
+    and taken) and indices into N rows (duplicates everywhere)."""
+    rng = np.random.default_rng(seed)
+    x = dict(
+        wv=rng.standard_normal((N, D)) * 0.7,
+        wc=rng.standard_normal((N, D)) * 0.7,
+        src=rng.integers(0, N, B), pos=rng.integers(0, N, B),
+        negs=rng.integers(0, N, (B, K)), negs16=rng.integers(0, N, (B, 16)),
+        pool=rng.integers(0, N, Ks), u=rng.random((B, Ks + 1)),
+        mask=(rng.random(B) < 0.7) * 1.0,
+        alpha_b=rng.uniform(0.01, 0.05, B), margin_b=rng.uniform(0.2, 1, B),
+    )
+    return {k: torch.from_numpy(np.asarray(
+        v, np.float32 if v.dtype.kind == "f" else np.int32)).to(device)
+        for k, v in x.items()}
+
+
+def _rec_call(name, a, shared):
+    from smore_tpu_torch.ops import update as U
+
+    wv = a["wv"]
+    wc = wv if shared else a["wc"]
+    alpha = torch.tensor(0.05, device=wv.device)
+    kw = dict(shared_table=shared, collision="sum")
+    m = dict(mask=a["mask"])
+    skew = dict(xi=0.5, omega=1.0, eta=3)
+    s, p = a["src"], a["pos"]
+    return {
+        "mf_step": lambda: U.mf_step(wv, wc, s, p, a["negs"], alpha, **m,
+                                     **kw),
+        "bpr_step": lambda: U.bpr_step(wv, wc, s, p, a["negs"], alpha, **m,
+                                       **kw),
+        "warp_step": lambda: U.warp_step(wv, wc, s, p, a["negs16"], alpha,
+                                         **m, **kw),
+        "skewbpr_step": lambda: U.skewbpr_step(wv, wc, s, p, a["negs16"],
+                                               alpha, **skew, **m, **kw),
+        "fbpr_step": lambda: U.fbpr_step(wv, wc, s, p, a["negs"][:, :1],
+                                         a["alpha_b"], a["margin_b"], **m,
+                                         **kw),
+        "bpr_shared_negs_step": lambda: U.bpr_shared_negs_step(
+            wv, wc, s, p, a["pool"], alpha, **kw),
+        "mf_shared_negs_step": lambda: U.mf_shared_negs_step(
+            wv, wc, s, p, a["pool"], alpha, **kw),
+        "warp_shared_pool_step": lambda: U.warp_shared_pool_step(
+            wv, wc, s, p, a["pool"], a["u"], alpha, trials=3, **kw),
+        "skewbpr_shared_negs_step": lambda: U.skewbpr_shared_negs_step(
+            wv, wc, s, p, a["pool"], alpha, **skew, **kw),
+    }[name]()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("name", [
+    "mf_step", "bpr_step", "warp_step", "skewbpr_step", "fbpr_step",
+    "bpr_shared_negs_step", "mf_shared_negs_step", "warp_shared_pool_step",
+    "skewbpr_shared_negs_step"])
+def test_rec_update_on_the_card_matches_the_cpu(cuda, name, shared):
+    """Each rec update on CUDA tensors against the same call on the CPU
+    (index_add_'s atomics sum duplicate rows in another order)."""
+    got = _rec_call(name, _rec_inputs(cuda), shared)
+    want = _rec_call(name, _rec_inputs("cpu"), shared)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_negative_field_sample_on_the_card_matches_the_cpu(cuda):
+    from smore_tpu_torch.sampling.fields import FieldTables
+
+    g, _ = _walk_graph()
+    g.fields = (np.arange(g.n_vertices) % 3).astype(np.int32)
+    g.n_fields = 3
+    tc, tg = (FieldTables.build(g, weights=g.out_degree, device=d)
+              for d in ("cpu", cuda))
+    for name in ("field_indptr", "field_pa", "field_vid", "field_of"):
+        assert torch.equal(getattr(tg, name).cpu(), getattr(tc, name))
+    gen = torch.Generator().manual_seed(0)
+    fids = torch.randint(0, 3, (4096, 16), generator=gen, dtype=torch.int32)
+    u2 = torch.rand(4096, 16, 2, generator=gen)
+    got = tg.negative_field_sample(None, fids.to(cuda), u2=u2.to(cuda))
+    want = tc.negative_field_sample(None, fids, u2=u2)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(tc.field_of_v(want), fids)
+
+
+@pytest.mark.gpu
+def test_bpr_checkpoint_on_the_card_restores_byte_equal(cuda, tmp_path,
+                                                        monkeypatch):
+    """BPR on the card (the hoisted shared pool), killed after its 2nd
+    checkpoint and resumed in a fresh model: the restored table and CUDA
+    generator state are the saved bytes."""
+    from smore_tpu_torch.models import BPR
+    from smore_tpu_torch.models.base import TrainDriver
+    from smore_tpu_torch.utils.checkpoint import load_checkpoint
+
+    g, _ = _walk_graph()
+    ck = str(tmp_path / "ck")
+    orig = TrainDriver._save_ckpt
+    saves = []
+
+    def killing_save(self, state, gen, done):
+        orig(self, state, gen, done)
+        saves.append(done)
+        if len(saves) == 2:
+            raise KeyboardInterrupt
+
+    kw = dict(sample_times=0.5, steps_per_call=32, verbose=False)
+    m = BPR(g, seed=0, device=cuda)
+    m.init(dim=32)
+    m.set_checkpoint(ck)
+    monkeypatch.setattr(TrainDriver, "_save_ckpt", killing_save)
+    with pytest.raises(KeyboardInterrupt):
+        m.train(**kw)
+    monkeypatch.undo()
+    saved, done, extra = load_checkpoint(ck)
+    restored = {}
+    orig_resume = TrainDriver._maybe_resume
+
+    def spy(self, state, gen):
+        out = orig_resume(self, state, gen)
+        restored.update({k: v.clone() for k, v in state.items()},
+                        gen=gen.get_state())
+        return out
+
+    monkeypatch.setattr(TrainDriver, "_maybe_resume", spy)
+    m2 = BPR(g, seed=0, device=cuda)
+    m2.init(dim=32)
+    m2.set_checkpoint(ck)
+    m2.train(**kw)
+    assert done == 2 * m2.last_driver.steps_per_call
+    assert torch.equal(restored.pop("gen"), extra["gen"])
+    assert torch.equal(restored["vertex"].cpu(), saved["vertex"])
+    assert m2.last_driver.executed_samples > 0
+    assert bool(torch.isfinite(m2.state["vertex"]).all())

@@ -27,11 +27,17 @@ MODULES = [
     "smore_tpu_torch.models.walklets",
     "smore_tpu_torch.models.node2vec",
     "smore_tpu_torch.models.app",
+    "smore_tpu_torch.models.rec",
+    "smore_tpu_torch.models.hoprec",
+    "smore_tpu_torch.models.hpe",
+    "smore_tpu_torch.models.cse",
     "smore_tpu_torch.models",
     "smore_tpu_torch.sampling.walks",
     "smore_tpu_torch.sampling.mappers",
+    "smore_tpu_torch.sampling.fields",
     "smore_tpu_torch.utils.bench_graphs",
     "smore_tpu_torch.utils.checkpoint",
+    "smore_tpu_torch.utils.rec_data",
     "smore_tpu_torch.cli.main",
 ]
 
