@@ -355,20 +355,26 @@ def _cuda_work(call, calls: int = 3) -> tuple:
 def _launch_report(tag: str, name: str, kernel, device_kernel: str,
                    grid: int, smem: int) -> None:
     """A persistent kernel's CUDA launches per call (must be 1: the host's
-    launch calls, one cooperative launch a call; the device may record
-    fewer kernels, never another kernel: no memset, copy or sum), its grid
-    and its ptxas report."""
+    launch calls, one cooperative launch a call, no memset, copy or sum),
+    its grid and its ptxas report. CUPTI drops some device records on the
+    H100 machines (0 to 3 of 3 kernels seen for the same calls), so the
+    host's launch calls decide the count; the device kernels that are
+    recorded must all be ``device_kernel``, and up to three profiles are
+    taken to see at least one."""
     from smore_tpu_torch.ops import _build
 
-    host, kernels = _cuda_work(kernel, calls=3)
+    for _ in range(3):
+        host, kernels = _cuda_work(kernel, calls=3)
+        require(host == ["cudaLaunchCooperativeKernel"] * 3
+                and len(kernels) <= 3
+                and all(device_kernel in k for k in kernels),
+                f"{tag}: 3 calls put {host} / {kernels} on the card, not 3 "
+                f"cooperative launches of {device_kernel}")
+        if kernels:
+            break
     log(f"{tag} CUDA launches per call (profiler, 3 calls): host "
         f"{len(host) / 3:g} {sorted(set(host))}, device kernels recorded "
-        f"{len(kernels)} {sorted(set(kernels))}")
-    require(host == ["cudaLaunchCooperativeKernel"] * 3
-            and 0 < len(kernels) <= 3
-            and all(device_kernel in k for k in kernels),
-            f"{tag}: 3 calls put {host} / {kernels} on the card, not 3 "
-            f"cooperative launches of {device_kernel}")
+        f"{len(kernels)} {sorted(set(kernels)) or '(none: CUPTI dropped them)'}")
     log(f"{tag} grid: {grid} co-resident blocks of 256 threads, {smem} B "
         "of shared memory each")
     for line in _build.build_info[name][1].splitlines():
