@@ -1,11 +1,12 @@
 """``python -m smore_tpu_torch``: one entry point, one subcommand per model.
 
 Port of ``smore_tpu/cli/main.py`` for the models ported so far (``line``,
-the walk family ``deepwalk``, ``walklets``, ``node2vec``, ``app``, and the
-rec family ``mf``, ``bpr``, ``warp``, ``skewopt``, ``hpe``, ``pe``,
-``hoprec``, ``nemf``, ``nerank``), with the same flags, defaults and output
-files. The reference CLIs' flag conventions hold: single-dash long flags,
-e.g.::
+the walk family ``deepwalk``, ``walklets``, ``node2vec``, ``app``, the rec
+family ``mf``, ``bpr``, ``warp``, ``skewopt``, ``hpe``, ``pe``,
+``hoprec``, ``nemf``, ``nerank``, and the community family ``gcn``,
+``textgcn``, ``textgcndev``, ``eco``, ``fine``, ``msfine``), with the same
+flags, defaults and output files. The reference CLIs' flag conventions
+hold: single-dash long flags, e.g.::
 
     python -m smore_tpu_torch line -train net.txt -save rep.txt -order 2
     python -m smore_tpu_torch deepwalk -train net.txt -save rep.txt
@@ -28,9 +29,8 @@ _REGISTRY: Dict[str, Callable] = {}
 
 # the JAX package's other subcommands, in the order of ROADMAP.md Queue 1
 NOT_PORTED = (
-    "fastrp", "gcn", "textgcn", "textgcndev", "fine", "msfine", "eco",
-    "metapath2vec", "han", "ctdne", "sne", "transe", "rotate", "complex",
-    "jodie", "sasrec", "gsasrec", "recdenoiser", "cpr", "tpr",
+    "transe", "rotate", "complex", "ctdne", "jodie", "metapath2vec", "han",
+    "sne", "cpr", "tpr", "fastrp", "sasrec", "gsasrec", "recdenoiser",
 )
 
 
@@ -216,8 +216,9 @@ def _hoprec(argv):
 
 
 def _field_model(name, cls_name):
-    """nemf, nerank: -field is required; -reg is accepted as the JAX CLI
-    does (the CSE heads fix their L2 at 0.025)."""
+    """gcn, textgcn, fine, msfine, nemf, nerank: -field is required; -reg
+    reaches GCN and TEXTGCN only, and the others accept it as the JAX CLI
+    does (the CSE heads fix their L2 at 0.025, FINE has none)."""
 
     def run(argv):
         p = _base_parser(name)
@@ -231,15 +232,60 @@ def _field_model(name, cls_name):
         m.graph.load_field_meta(a.field)
         m.init(dim=a.dimensions)
         _set_ckpt(m, a)
+        kw = {"reg": a.reg} if cls_name in ("GCN", "TEXTGCN") else {}
         m.train(sample_times=a.sample_times, walk_steps=a.walk_steps,
-                negative_samples=a.negative_samples, alpha=a.alpha)
+                negative_samples=a.negative_samples, alpha=a.alpha, **kw)
         m.save_weights(a.save)
 
     return run
 
 
-_REGISTRY["nemf"] = _field_model("nemf", "NEMF")
-_REGISTRY["nerank"] = _field_model("nerank", "NERANK")
+for _name, _cls in (("gcn", "GCN"), ("textgcn", "TEXTGCN"), ("fine", "FINE"),
+                    ("msfine", "MSFINE"), ("nemf", "NEMF"),
+                    ("nerank", "NERANK")):
+    _REGISTRY[_name] = _field_model(_name, _cls)
+
+
+@_cmd("textgcndev")
+def _textgcndev(argv):
+    p = _base_parser("textgcndev")
+    p.add_argument("-field", required=True)
+    p.add_argument("-num_events", type=int, default=5)
+    p.add_argument("-num_words", type=int, default=5)
+    p.add_argument("-reg", type=float, default=0.01)
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import TEXTGCNdev
+
+    m = _load(TEXTGCNdev, a)
+    m.graph.load_field_meta(a.field)
+    m.init(dim=a.dimensions)
+    # no checkpoint flags are wired in here, as in the JAX CLI
+    m.train(sample_times=a.sample_times, num_events=a.num_events,
+            num_words=a.num_words, negative_samples=a.negative_samples,
+            reg=a.reg, alpha=a.alpha)
+    m.save_weights(a.save)
+
+
+@_cmd("eco")
+def _eco(argv):
+    from smore_tpu_torch.models.eco import ECO, HEADS
+
+    p = _base_parser("eco")
+    p.add_argument("-field", default=None)
+    p.add_argument("-reg", type=float, default=0.01)
+    p.add_argument("-head", default="dchoice", choices=HEADS,
+                   help="dchoice = the reference's live branch; the others "
+                        "are its commented-out alternates, selectable here")
+    a = p.parse_args(argv)
+
+    m = _load(ECO, a, head=a.head)
+    if a.field:
+        m.graph.load_field_meta(a.field)
+    m.init(dim=a.dimensions)
+    _set_ckpt(m, a)
+    m.train(sample_times=a.sample_times, reg=a.reg,
+            negative_samples=a.negative_samples, alpha=a.alpha)
+    m.save_weights(a.save)
 
 
 @_cmd("deepwalk")

@@ -36,6 +36,7 @@ StepFn = Callable[[State, object, torch.Generator, torch.Tensor],
                   Tuple[State, torch.Tensor]]
 
 ALPHA_MIN_FRAC = 1e-4  # reference: alpha_min = alpha * 0.0001
+INIT_STREAM, TRAIN_STREAM = 0, 1  # generator streams of a model seed
 # freshness_policy: the sequential-update floor and the smallest batch
 FRESH_MIN_UPDATES = 1536
 FRESH_MIN_BATCH = 8
@@ -62,6 +63,26 @@ def hoisted_scan_step(draw_fn, update_fn, hoist: int) -> StepFn:
         return state, torch.stack(losses).mean()
 
     return step
+
+
+def draw_update_step(draw_fn, update_fn) -> StepFn:
+    """The StepFn of a model whose step is ``draw_fn(ctx, gen)`` (the
+    draws, independent of the state) then ``update_fn(state, x, alpha) ->
+    (state, loss)``."""
+
+    def step(state, ctx, gen, alpha):
+        return update_fn(state, draw_fn(ctx, gen), alpha)
+
+    return step
+
+
+def tiny_graph_pool(n_rows: int, shared_negatives: int) -> int:
+    """The shared negative pool's size on a graph of ``n_rows`` vertices:
+    none under four pools' worth, where a pool drawn with replacement from
+    a set not much larger than itself puts the batch's negative mass on a
+    few rows each step (sum-collision overshoot, NaN on toy nets); per-sample
+    negatives there."""
+    return 0 if n_rows < 4 * shared_negatives else shared_negatives
 
 
 def freshness_policy(total_units: int, batch: int, hoist: int) -> tuple:
@@ -98,11 +119,15 @@ def clamp_batch(n_rows: int, batch: int, group: int = 1) -> int:
 
 
 def init_embedding(gen: torch.Generator, rows: int, dim: int,
-                   device: torch.device | str = "cuda") -> torch.Tensor:
-    """Reference init: uniform(-0.5, 0.5) / dim."""
+                   device: torch.device | str = "cuda",
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Reference init: uniform(-0.5, 0.5) / dim, or times ``scale`` when
+    given (ECO: 1.0)."""
     u = torch.rand(rows, dim, generator=gen, dtype=torch.float32,
                    device=device)
-    return (u - 0.5) / dim
+    if scale is None:
+        return (u - 0.5) / dim
+    return (u - 0.5) * scale
 
 
 def zeros_embedding(rows: int, dim: int,
@@ -353,3 +378,22 @@ class PairModelBase:
     def save_weights(self, path: str, table: str = "vertex") -> None:
         save_embeddings(path, self.graph.names,
                         self.state[table].detach().cpu().numpy())
+
+    def _drive(self, step: StepFn, ctx, samples_per_step: int, alpha: float,
+               sample_times: float, steps_per_call: int,
+               verbose: bool) -> None:
+        """Train the tables with ``step`` for ``sample_times`` million
+        samples on the training stream of the model's seed, with the
+        checkpoint settings; the driver stays as ``last_driver``."""
+        self.last_driver = driver = TrainDriver(
+            step,
+            ctx=ctx,
+            samples_per_step=samples_per_step,
+            alpha=alpha,
+            total_samples=int(sample_times * 1_000_000),
+            steps_per_call=steps_per_call,
+            device=self.device,
+            **self._ckpt_kw(),
+        )
+        self.state = driver.train(self.state, self._generator(TRAIN_STREAM),
+                                  verbose=verbose)

@@ -8,7 +8,9 @@ band-persistent block ``sgns_banded_block``) and of its recommendation
 updates (``mf_step``, ``bpr_step``, ``warp_step``, ``skewbpr_step``, their
 shared-pool forms ``mf_shared_negs_step``, ``bpr_shared_negs_step``,
 ``warp_shared_pool_step``, ``skewbpr_shared_negs_step``, and HOP-REC's
-``fbpr_step``). The rec updates are gathers, per-row dot products, (B, Ks)
+``fbpr_step``), and of the rest: ``pu_sgd_step``, ``pu_sigmoid_step``,
+``pu_bpr_step``, ``cosine_step``, ``length_step`` and ``grouping_step``.
+The rec updates are gathers, per-row dot products, (B, Ks)
 products against the shared pool, elementwise math and scatter-adds, all
 plain torch ops, as they were plain XLA in the JAX package. A batched step applies every
 sample against the batch-start snapshot of the tables; duplicate rows in a batch sum
@@ -758,3 +760,176 @@ def fbpr_step(w_vertex, w_context, user, pos, negs, alpha, margin,
                              mask_r)],
         shared_table=shared_table, collision=collision)
     return w_vertex, w_context, F.softplus(-f).mean()
+
+
+# The rest of the JAX package's updates: the positive-unlabeled forms, the
+# cosine and the norm-product updates and the grouping pair. No JAX model
+# calls them; they are ported so that ops/update.py is whole.
+def pu_sgd_step(w_vertex, w_context, src, ctx, labels, alpha,
+                reg: float = 0.01, mask: Optional[torch.Tensor] = None,
+                collision: str = "sum"):
+    """Positive-unlabeled MF (reference Opt_PUSGD): g = label - v.c; a
+    positive (label 1) takes the risk-weighted gradient alpha * g + 1, an
+    unlabeled one g; both rows shrink by alpha * reg. The loss is the mean
+    of g squared."""
+    v = w_vertex[src]
+    c = w_context[ctx]
+    f = (v * c).sum(-1)
+    g = labels - f
+    gw = _maybe_mask(torch.where(labels == 1.0, alpha * g + 1.0, g), mask)
+    m1 = 1.0 if mask is None else mask[:, None]
+    d_v = alpha * (gw[:, None] * c - reg * v * m1)
+    d_c = alpha * (gw[:, None] * v - reg * c * m1)
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(src, d_v, mask)], [(ctx, d_c, mask)],
+        collision=collision)
+    return w_vertex, w_context, (g * g).mean()
+
+
+def pu_sigmoid_step(w_vertex, w_context, src, ctx, labels, alpha,
+                    reg: float = 0.0025,
+                    mask: Optional[torch.Tensor] = None,
+                    collision: str = "sum"):
+    """Positive-unlabeled sigmoid SGD (reference Opt_PUSigmoidSGD): a
+    positive moves v by alpha (sigmoid(-f) + 2 alpha) c and c by
+    alpha sigmoid(-f) v, an unlabeled pair both by -alpha sigmoid(f) times
+    the other row; every row shrinks by alpha * reg."""
+    v = w_vertex[src]
+    c = w_context[ctx]
+    f = (v * c).sum(-1)
+    is_pos = labels == 1.0
+    s_neg_f = torch.sigmoid(-f)
+    s_pos_f = torch.sigmoid(f)
+    m1 = 1.0 if mask is None else mask[:, None]
+    gv_pos = alpha * (s_neg_f + 2.0 * alpha)
+    gc_pos = alpha * s_neg_f
+    d_v = torch.where(is_pos[:, None], gv_pos[:, None] * c - alpha * reg * v,
+                      -(alpha * s_pos_f)[:, None] * c - alpha * reg * v) * m1
+    d_c = torch.where(is_pos[:, None], gc_pos[:, None] * v - alpha * reg * c,
+                      -(alpha * s_pos_f)[:, None] * v - alpha * reg * c) * m1
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context, [(src, d_v, mask)], [(ctx, d_c, mask)],
+        collision=collision)
+    ce = torch.where(is_pos, -torch.log(torch.sigmoid(f) + _EPS),
+                     -torch.log(1.0 - torch.sigmoid(f) + _EPS))
+    if mask is None:
+        return w_vertex, w_context, ce.mean()
+    return w_vertex, w_context, (ce * mask).sum() / torch.clamp(mask.sum(),
+                                                                min=1.0)
+
+
+def pu_bpr_step(w_vertex, w_context, user, pos, negs, alpha,
+                mask: Optional[torch.Tensor] = None,
+                shared_table: bool = False, collision: str = "sum"):
+    """Positive-unlabeled BPR (reference Opt_PUBPRSGD): its live branch is
+    ``bpr_step`` with both L2 weights 0 (the PU reweighting is commented
+    out in the reference)."""
+    return bpr_step(w_vertex, w_context, user, pos, negs, alpha, reg_ctx=0.0,
+                    reg_vtx=0.0, mask=mask, shared_table=shared_table,
+                    collision=collision)
+
+
+def _norms(v, c, eps: float = 1e-8):
+    return (torch.linalg.vector_norm(v, dim=-1, keepdim=True) + eps,
+            torch.linalg.vector_norm(c, dim=-1, keepdim=True) + eps)
+
+
+def _two_table_masked(w_vertex, w_context, src, pos, negs, d_v, d_cp, d_cn,
+                      mask, collision):
+    """Scatter a (src, pos, negs (B, K)) update whose deltas are already
+    computed: the masked rows are zeroed, the context table first."""
+    if mask is not None:
+        d_v = d_v * mask[:, None]
+        d_cp = d_cp * mask[:, None]
+        d_cn = d_cn * mask[:, None, None]
+    B, K, D = d_cn.shape
+    mask_k = None if mask is None else mask.repeat_interleave(K)
+    scatter_apply(w_context, [(pos, d_cp, mask),
+                              (negs.reshape(-1), d_cn.reshape(B * K, D),
+                               mask_k)], collision)
+    scatter_apply(w_vertex, [(src, d_v, mask)], collision)
+    return w_vertex, w_context
+
+
+def cosine_step(w_vertex, w_context, src, pos, negs, alpha,
+                mask: Optional[torch.Tensor] = None, collision: str = "sum"):
+    """Cosine-similarity SGD (reference UpdateCosinePair on
+    Opt_CosineSGD): the positive pair pulled toward cosine 1, each of the
+    K negatives ``negs`` (B, K) toward -1, with the gradient of
+    (label - cos(v, c)) on both rows. The loss is the two mean squared
+    errors."""
+
+    def cos_deltas(v, c, label):
+        vl, cl = _norms(v, c)
+        f = (v * c).sum(-1, keepdim=True) / (vl * cl)
+        err = (label - f) * alpha
+        d_v = err * (c / (vl * cl) - v * f / (vl * vl))
+        d_c = err * (v / (vl * cl) - c * f / (cl * cl))
+        return d_v, d_c, f
+
+    v = w_vertex[src]
+    cp = w_context[pos]
+    cn = w_context[negs]  # (B, K, D)
+    d_v1, d_cp, f_pos = cos_deltas(v, cp, 1.0)
+    d_v2, d_cn, f_neg = cos_deltas(v[:, None, :], cn, -1.0)
+    w_vertex, w_context = _two_table_masked(
+        w_vertex, w_context, src, pos, negs, d_v1 + d_v2.sum(1), d_cp, d_cn,
+        mask, collision)
+    loss = ((1.0 - f_pos) ** 2).mean() + ((-1.0 - f_neg) ** 2).mean()
+    return w_vertex, w_context, loss
+
+
+def length_step(w_vertex, w_context, src, pos, negs, alpha,
+                mask: Optional[torch.Tensor] = None, collision: str = "sum"):
+    """Norm-product SGD (reference UpdateLengthPair on Opt_LengthSGD):
+    gradient DESCENT on (|v| |c| - label)^2, label 1 for the positive and 0
+    for the K negatives ``negs`` (B, K), so each delta is minus the
+    gradient. The loss is the two mean squared errors."""
+
+    def len_deltas(v, c, label):
+        vl, cl = _norms(v, c)
+        vc = vl * cl
+        d_v = -alpha * 2.0 * v * cl * (vc - label) / vl
+        d_c = -alpha * 2.0 * c * vl * (vc - label) / cl
+        return d_v, d_c, vc
+
+    v = w_vertex[src]
+    cp = w_context[pos]
+    cn = w_context[negs]
+    d_v1, d_cp, vc_pos = len_deltas(v, cp, 1.0)
+    d_v2, d_cn, vc_neg = len_deltas(v[:, None, :], cn, 0.0)
+    w_vertex, w_context = _two_table_masked(
+        w_vertex, w_context, src, pos, negs, d_v1 + d_v2.sum(1), d_cp, d_cn,
+        mask, collision)
+    loss = ((vc_pos - 1.0) ** 2).mean() + (vc_neg ** 2).mean()
+    return w_vertex, w_context, loss
+
+
+def grouping_step(w_vertex, w_context, vgroup, cgroup, labels, alpha,
+                  reg: float = 0.01, mask: Optional[torch.Tensor] = None,
+                  shared_table: bool = False, collision: str = "sum"):
+    """The grouping pair (reference UpdateGroupingPair): one Opt_SGD step on
+    the SUM of a group of vertex rows ``vgroup`` (B, Gv) against the sum of
+    context rows ``cgroup`` (B, Gc), g = alpha * (label - f), and the same
+    back-error added to every member of each group. The loss is the mean
+    squared error."""
+    v_sum = w_vertex[vgroup].sum(1)
+    c_sum = w_context[cgroup].sum(1)
+    f = (v_sum * c_sum).sum(-1)
+    g = _maybe_mask((labels - f) * alpha, mask)
+    m1 = 1.0 if mask is None else mask[:, None]
+    d_v = g[:, None] * c_sum - alpha * reg * v_sum * m1
+    d_c = g[:, None] * v_sum - alpha * reg * c_sum * m1
+    B, Gv = vgroup.shape
+    Gc = cgroup.shape[1]
+    D = d_v.shape[-1]
+    mask_v = None if mask is None else mask.repeat_interleave(Gv)
+    mask_c = None if mask is None else mask.repeat_interleave(Gc)
+    w_vertex, w_context = apply_two_tables(
+        w_vertex, w_context,
+        [(vgroup.reshape(-1), d_v[:, None, :].expand(B, Gv, D).reshape(
+            B * Gv, D), mask_v)],
+        [(cgroup.reshape(-1), d_c[:, None, :].expand(B, Gc, D).reshape(
+            B * Gc, D), mask_c)],
+        shared_table=shared_table, collision=collision)
+    return w_vertex, w_context, ((labels - f) ** 2).mean()

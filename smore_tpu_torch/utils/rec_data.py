@@ -3,7 +3,8 @@ scorer (numpy only).
 
 The port's own copy of ``experiments/bpr_parity.py``'s ``make_dataset``,
 ``evaluate`` and ``load_ref_embeddings`` and of
-``experiments/longtail_parity.py``'s ``make_field_file``, with the file
+``experiments/longtail_parity.py``'s ``make_field_file`` and
+``load_wide_embeddings``, with the file
 paths as arguments, so that the port's smoke test depends on nothing of the
 JAX package. The copy is held to the originals byte for byte by
 tests/test_torch_rec_data.py: the same seed writes the same files.
@@ -123,3 +124,20 @@ def load_embeddings_ui(path: str, dim: int) -> Tuple[np.ndarray, np.ndarray]:
             rows.append(np.array(p[1:], dtype=np.float32))
     return split_by_name(names, np.asarray(rows), dim)
 
+
+
+def load_wide_embeddings(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """A saved embedding file as label-order (users, items) matrices of the
+    rows' own width (FINE and msFINE write two field rows side by side, 2 *
+    dim columns, so the width is read from the rows, not the header)."""
+    with open(path) as f:
+        f.readline()
+        lines = f.readlines()
+    width = len(lines[0].split()) - 1
+    ue = np.zeros((N_USERS, width), dtype=np.float32)
+    ie = np.zeros((N_ITEMS, width), dtype=np.float32)
+    for line in lines:
+        p = line.split()
+        (ue if p[0][0] == "u" else ie)[int(p[0][1:])] = np.array(
+            p[1:], dtype=np.float32)
+    return ue, ie

@@ -5,7 +5,8 @@
 - Kill at 50% and resume in a fresh model is step-identical (bit-equal
   tables) to an uninterrupted run, for LINE's unbanded route, LINE's banded
   multiblock route (forced on a toy graph, padded tables), DeepWalk (epoch
-  hoist), APP, BPR (hoisted shared pool) and NERANK (four tables): the
+  hoist), APP, BPR (hoisted shared pool), NERANK (four tables), ECO (one
+  table) and FINE (two shadow tables): the
   learning rate is a function of the restored step
   counter and the draws of the restored generator state. This holds on the
   CPU with one intra-op thread, where every sum runs in one order.
@@ -28,7 +29,7 @@ from smore_tpu.io.embeddings import warm_start as j_warm_start
 from smore_tpu.models import DeepWalk as JDeepWalk
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.io.embeddings import warm_start
-from smore_tpu_torch.models import APP, BPR, LINE, NERANK, DeepWalk
+from smore_tpu_torch.models import APP, BPR, ECO, FINE, LINE, NERANK, DeepWalk
 from smore_tpu_torch.models.base import TrainDriver
 from smore_tpu_torch.utils.checkpoint import (
     checkpoint_exists,
@@ -147,6 +148,13 @@ CASES = {
                                       steps_per_call=32)),
     # four tables, batch 60, 4 steps a call: 9 calls
     "nerank": (_walker(NERANK), "toy", dict(
+        sample_times=0.002, walk_steps=2, negative_samples=3,
+        steps_per_call=4)),
+    # one table, 5 rounds folded into each batch of 60: 9 calls
+    "eco": (_walker(ECO), "toy", dict(
+        sample_times=0.002, negative_samples=3, steps_per_call=4)),
+    # two shadow tables and the context walk, batch 60: 9 calls
+    "fine": (_walker(FINE), "toy", dict(
         sample_times=0.002, walk_steps=2, negative_samples=3,
         steps_per_call=4)),
 }

@@ -1,7 +1,7 @@
 """The port's command line, ``python -m smore_tpu_torch``, on the CPU.
 
 The checks of tests/test_cli.py and tests/test_cli_fidelity.py for the
-ported subcommands (``line``, the walk family and the rec family), run
+ported subcommands (``line``, the walk, rec and community families), run
 with ``-device cpu``; the rec family's ``mf``, ``bpr``, ``warp`` and
 ``skewopt`` load the graph directed by default; the JAX package's other
 subcommands exit 2; ``-checkpoint`` resumes and ``-no_resume`` starts
@@ -33,7 +33,10 @@ CPU = ["-device", "cpu"]  # the CLI defaults to the card
 def test_registry_covers_the_jax_cli():
     assert set(_REGISTRY) == {"line", "deepwalk", "walklets", "node2vec",
                               "app", "mf", "bpr", "warp", "skewopt", "hpe",
-                              "pe", "hoprec", "nemf", "nerank"}
+                              "pe", "hoprec", "nemf", "nerank", "gcn",
+                              "textgcn", "textgcndev", "eco", "fine",
+                              "msfine"}
+    assert len(NOT_PORTED) == 14
     assert not set(_REGISTRY) & set(NOT_PORTED)
     assert set(_REGISTRY) | set(NOT_PORTED) == set(JAX_REGISTRY)
 
@@ -46,7 +49,7 @@ def test_help_and_unknown(capsys):
     assert main(["nosuchmodel"]) == 1
 
 
-@pytest.mark.parametrize("cmd", ["gcn", "transe", "sasrec"])
+@pytest.mark.parametrize("cmd", NOT_PORTED)
 def test_jax_only_subcommand_exits_2(cmd, capsys, tmp_path):
     out = tmp_path / "rep.txt"
     assert main([cmd, "-train", "x.txt", "-save", str(out)] + CPU) == 2
@@ -136,6 +139,65 @@ def test_cli_field_models_require_field(cmd, toy_edges, tmp_path):
     with pytest.raises(SystemExit):
         main([cmd, "-train", toy_edges, "-save", str(tmp_path / "r.txt")]
              + CPU)
+
+
+# the community family: rows written (TEXTGCN and TEXTGCNdev skip the
+# items, field 1) and columns (FINE and msFINE write both field rows)
+COMMUNITY = {
+    "gcn": (["-walk_steps", "2", "-reg", "0.02"], 24, 8),
+    "textgcn": (["-walk_steps", "2"], 12, 8),
+    "textgcndev": (["-num_events", "2", "-num_words", "2", "-reg", "0.02"],
+                   12, 8),
+    "eco": (["-reg", "0.02"], 24, 8),
+    "fine": (["-walk_steps", "2"], 24, 16),
+    "msfine": (["-walk_steps", "1"], 24, 16),
+}
+
+
+@pytest.mark.parametrize("cmd", sorted(COMMUNITY))
+def test_cli_community_models_end_to_end(cmd, toy_edges, tmp_path):
+    out = str(tmp_path / "rep.txt")
+    flags, rows, cols = COMMUNITY[cmd]
+    assert main([cmd, "-train", toy_edges, "-save", out, "-dimensions", "8",
+                 "-sample_times", "0.002", "-field", _field_file(tmp_path)]
+                + flags + CPU) == 0
+    header, emb = _emb(out)
+    assert header == [str(rows), str(cols)] and len(emb) == rows
+
+
+@pytest.mark.parametrize("cmd", ["gcn", "textgcn", "textgcndev", "fine",
+                                 "msfine"])
+def test_cli_community_models_require_field(cmd, toy_edges, tmp_path):
+    with pytest.raises(SystemExit):
+        main([cmd, "-train", toy_edges, "-save", str(tmp_path / "r.txt")]
+             + CPU)
+
+
+@pytest.mark.parametrize("head", ["dchoice", "hop_choice", "recall_rank"])
+def test_cli_eco_heads_without_field(head, toy_edges, tmp_path, monkeypatch):
+    """-field is optional for eco; -head reaches the model."""
+    from smore_tpu_torch.models import ECO
+
+    heads = []
+    init = ECO.__init__
+
+    def recording(self, *a, **kw):
+        init(self, *a, **kw)
+        heads.append(self.head)
+
+    monkeypatch.setattr(ECO, "__init__", recording)
+    out = str(tmp_path / "rep.txt")
+    assert main(["eco", "-train", toy_edges, "-save", out, "-dimensions", "8",
+                 "-sample_times", "0.002", "-head", head] + CPU) == 0
+    assert heads == [head]
+    header, _ = _emb(out)
+    assert header == ["24", "8"]
+
+
+def test_cli_eco_rejects_unknown_head(toy_edges, tmp_path):
+    with pytest.raises(SystemExit):
+        main(["eco", "-train", toy_edges, "-save", str(tmp_path / "r.txt"),
+              "-head", "nope"] + CPU)
 
 
 @pytest.mark.parametrize("cmd,directed", [
@@ -270,7 +332,8 @@ def test_python_m_entry_point(toy_edges, tmp_path):
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert out.read_text().split("\n")[0] == "24 8"
-    r = subprocess.run([sys.executable, "-m", "smore_tpu_torch", "gcn"],
+    r = subprocess.run([sys.executable, "-m", "smore_tpu_torch",
+                        NOT_PORTED[0]],
                        env=env, cwd=ROOT, capture_output=True, text=True,
                        timeout=300)
     assert r.returncode == 2 and "not ported" in r.stderr

@@ -754,3 +754,154 @@ def test_bpr_checkpoint_on_the_card_restores_byte_equal(cuda, tmp_path,
     assert torch.equal(restored["vertex"].cpu(), saved["vertex"])
     assert m2.last_driver.executed_samples > 0
     assert bool(torch.isfinite(m2.state["vertex"]).all())
+
+
+# ------------------------------------------------------- community family
+def _community_inputs(device, seed=0, N=40, D=8, B=256, K=4, S=3, Kp=16,
+                      nf=2):
+    """Tables at the community updates' scale (the exp-based choice updates
+    need small dot products), indices into N rows with duplicates
+    everywhere, a two-field projection (shadow tables of N * nf rows)."""
+    rng = np.random.default_rng(seed)
+    fields_of = rng.integers(0, nf, N)
+    x = dict(
+        w=rng.standard_normal((N, D)) * 0.3,
+        w2=rng.standard_normal((N, D)) * 0.3,
+        sv=rng.standard_normal((N * nf, D)) * 0.3,
+        sc=rng.standard_normal((N * nf, D)) * 0.3,
+        a=rng.integers(0, N, B), b=rng.integers(0, N, B),
+        c=rng.integers(0, N, B), negs=rng.integers(0, N, (B, K)),
+        bs=rng.integers(0, N, (B, S)), bs2=rng.integers(0, N, (B, S)),
+        sets=rng.integers(0, N, (B, K, S)),
+        rounds=rng.integers(0, N, (B, 5, K)),
+        pool=rng.integers(0, N, Kp), pool_s=rng.integers(0, N, (Kp, S)),
+        walk_negs=rng.integers(0, N, (B, S, K)),
+        field_pool=np.stack([rng.choice(np.flatnonzero(fields_of == f), Kp)
+                             for f in range(nf)]),
+        fields_of=fields_of,
+        walk_mask=np.cumprod(rng.random((B, S)) < 0.85, axis=1) * 1.0,
+        mask=(rng.random(B) < 0.7) * 1.0,
+        labels=(rng.random(B) < 0.5) * 1.0,
+    )
+    return {k: torch.from_numpy(np.asarray(
+        v, np.float32 if v.dtype.kind == "f" else np.int32)).to(device)
+        for k, v in x.items()}
+
+
+def _community_call(name, x):
+    from smore_tpu_torch.ops import community as C
+    from smore_tpu_torch.ops import update as U
+
+    alpha = torch.tensor(0.05, device=x["w"].device)
+    w, w2, m = x["w"], x["w2"], x["mask"]
+    a, b, c = x["a"], x["b"], x["c"]
+    field = (x["sv"], x["sc"], a, x["bs"], x["walk_mask"])
+    return {
+        "cbow_step": lambda: C.cbow_step(w, x["bs"], x["bs2"], x["sets"],
+                                         alpha, mask=m),
+        "cbow_step_shared_negs": lambda: C.cbow_step_shared_negs(
+            w, x["bs"], x["bs2"], x["pool_s"], alpha, mask=m),
+        "dchoice_step": lambda: C.dchoice_step(w, a, b, c, x["negs"], alpha),
+        "dchoice_step_shared_negs": lambda: C.dchoice_step_shared_negs(
+            w, a, b, c, x["pool"], alpha),
+        "choice_softmax_step": lambda: C.choice_softmax_step(
+            w, a, b, x["negs"], alpha, mask=m),
+        "choice_softmax_step_shared_negs":
+            lambda: C.choice_softmax_step_shared_negs(w, a, b, x["pool"],
+                                                      alpha, mask=m),
+        "raw_choice_step": lambda: C.raw_choice_step(w, w2, a, b, x["negs"],
+                                                     alpha, mask=m),
+        "choice_step": lambda: C.choice_step(w, w2, a, b, x["rounds"],
+                                             x["negs"], alpha),
+        "field_community_step": lambda: C.field_community_step(
+            *field, x["walk_negs"], x["fields_of"], 2, alpha),
+        "field_community_step_ms": lambda: C.field_community_step(
+            *field, x["walk_negs"], x["fields_of"], 2, alpha,
+            ms_variant=True),
+        "field_community_step_shared_negs":
+            lambda: C.field_community_step_shared_negs(
+                *field, x["field_pool"], x["fields_of"], 2, alpha),
+        "field_community_step_shared_negs_ms":
+            lambda: C.field_community_step_shared_negs(
+                *field, x["field_pool"], x["fields_of"], 2, alpha,
+                ms_variant=True),
+        "pu_sgd_step": lambda: U.pu_sgd_step(w, w2, a, b, x["labels"], alpha,
+                                             mask=m),
+        "pu_sigmoid_step": lambda: U.pu_sigmoid_step(w, w2, a, b, x["labels"],
+                                                     alpha, mask=m),
+        "pu_bpr_step": lambda: U.pu_bpr_step(w, w2, a, b, x["negs"], alpha,
+                                             mask=m),
+        "cosine_step": lambda: U.cosine_step(w, w2, a, b, x["negs"], alpha,
+                                             mask=m),
+        "length_step": lambda: U.length_step(w, w2, a, b, x["negs"], alpha,
+                                             mask=m),
+        "grouping_step": lambda: U.grouping_step(w, w2, x["bs"], x["bs2"],
+                                                 x["labels"], alpha, mask=m),
+    }[name]()
+
+
+COMMUNITY_OPS = [
+    "cbow_step", "cbow_step_shared_negs", "dchoice_step",
+    "dchoice_step_shared_negs", "choice_softmax_step",
+    "choice_softmax_step_shared_negs", "raw_choice_step", "choice_step",
+    "field_community_step", "field_community_step_ms",
+    "field_community_step_shared_negs", "field_community_step_shared_negs_ms",
+    "pu_sgd_step", "pu_sigmoid_step", "pu_bpr_step", "cosine_step",
+    "length_step", "grouping_step"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", COMMUNITY_OPS)
+def test_community_update_on_the_card_matches_the_cpu(cuda, name):
+    """Each community op and each of the last six updates on CUDA tensors
+    against the same call on the CPU (index_add_'s atomics sum duplicate
+    rows in another order)."""
+    got = _community_call(name, _community_inputs(cuda))
+    want = _community_call(name, _community_inputs("cpu"))
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def _field_graph():
+    """A 200 x 300 user-item graph in two taste clusters, users field 0."""
+    rng = np.random.default_rng(5)
+    edges = [(f"u{u}", f"i{i}", 1.0) for u in range(200)
+             for i in rng.choice(np.arange(u % 2, 300, 2), 12, replace=False)]
+    g = Graph.from_edges(edges, undirected=True)
+    g.fields = np.array([0 if nm[0] == "u" else 1 for nm in g.names],
+                        np.int32)
+    g.n_fields = 2
+    return g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,kw", [
+    ("GCN", dict(walk_steps=2)), ("TEXTGCN", dict(walk_steps=2)),
+    ("TEXTGCNdev", dict(num_events=2, num_words=2)), ("ECO", {}),
+    ("ECO", dict(head="hop_choice")), ("ECO", dict(head="recall_rank")),
+    ("FINE", dict(walk_steps=2)), ("MSFINE", dict(walk_steps=2))])
+def test_community_model_trains_on_the_card(cuda, name, kw):
+    """One train() call of each community model on the card: every table on
+    the card, finite and moved, no kernel launched."""
+    from smore_tpu_torch import models
+
+    kw = dict(kw)
+    ctor = {"head": kw.pop("head")} if "head" in kw else {}
+    m = getattr(models, name)(_field_graph(), seed=0, device=cuda, **ctor)
+    m.init(dim=16)
+    before = {k: v.clone() for k, v in m.state.items()}
+    counters = (sgns_banded_multiblock, sgns_shared_grads, sgns_banded_fused,
+                band_scatter_add, sgns_banded_multiblock_nb)
+    for c in counters:
+        c.launches = 0
+    m.train(sample_times=0.02, steps_per_call=4, verbose=False, **kw)
+    assert not any(c.launches for c in counters)
+    moved = False
+    for k, v in m.state.items():
+        assert v.device.type == "cuda"
+        assert bool(torch.isfinite(v).all()), k
+        moved |= not torch.equal(v, before[k])
+    assert moved and m.last_driver.executed_samples >= 20_000

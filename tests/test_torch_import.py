@@ -31,6 +31,10 @@ MODULES = [
     "smore_tpu_torch.models.hoprec",
     "smore_tpu_torch.models.hpe",
     "smore_tpu_torch.models.cse",
+    "smore_tpu_torch.models.gcn",
+    "smore_tpu_torch.models.eco",
+    "smore_tpu_torch.models.fine",
+    "smore_tpu_torch.ops.community",
     "smore_tpu_torch.models",
     "smore_tpu_torch.sampling.walks",
     "smore_tpu_torch.sampling.mappers",
@@ -38,6 +42,7 @@ MODULES = [
     "smore_tpu_torch.utils.bench_graphs",
     "smore_tpu_torch.utils.checkpoint",
     "smore_tpu_torch.utils.rec_data",
+    "smore_tpu_torch.utils.structured_data",
     "smore_tpu_torch.cli.main",
 ]
 
