@@ -132,11 +132,11 @@ go to build/chip_smoke/ inside the checkout.
 
 also profiles 4M more samples of the multiblock, fused, order-1,
 neg_band, held fused, held scatter-only and unbanded main paths, one
-DeepWalk run on the 20k graph and 2M samples of BPR, NEMF, ECO and FINE,
-with
-torch.profiler and writes the kernel-time tables and Chrome traces to DIR
-(a measurement aid, off by default so that the smoke does not depend on
-the profiler).
+DeepWalk run on the 20k graph and 2M samples of BPR, NEMF, GCN, TEXTGCN,
+TEXTGCNdev, FINE and ECO with torch.profiler, prints each run's device
+idle share and the torch ops and CUDA launches a driver step issues, and
+writes the kernel-time tables and Chrome traces to DIR (a measurement
+aid, off by default so that the smoke does not depend on the profiler).
 """
 
 from __future__ import annotations
@@ -978,31 +978,31 @@ def _cli_timers() -> dict:
     save_weights) so that each adds its seconds to the returned dict."""
     from smore_tpu_torch import models
     from smore_tpu_torch.graph.graph import Graph
-    from smore_tpu_torch.models.base import PairModelBase
 
     times = {"load": 0.0, "train": 0.0, "save": 0.0}
+    depth = dict.fromkeys(times, 0)
 
     def timed(key, fn):
         def run(*args, **kw):
+            # only the outermost call adds its time: an override that calls
+            # super() and an inherited method are wrapped twice
+            depth[key] += 1
             t0 = time.perf_counter()
             try:
                 return fn(*args, **kw)
             finally:
-                if torch.cuda.is_initialized():
-                    torch.cuda.synchronize()
-                times[key] += time.perf_counter() - t0
-        run.timed = True
+                depth[key] -= 1
+                if depth[key] == 0:
+                    if torch.cuda.is_initialized():
+                        torch.cuda.synchronize()
+                    times[key] += time.perf_counter() - t0
         return run
 
     Graph.load_edge_list = staticmethod(timed("load", Graph.load_edge_list))
-    PairModelBase.save_weights = timed("save", PairModelBase.save_weights)
     for name in models.__all__:
         cls = getattr(models, name)
-        # each method once: a subclass may inherit one wrapped already
         for attr, key in (("train", "train"), ("save_weights", "save")):
-            fn = getattr(cls, attr)
-            if not getattr(fn, "timed", False):
-                setattr(cls, attr, timed(key, fn))
+            setattr(cls, attr, timed(key, getattr(cls, attr)))
     return times
 
 
@@ -1491,8 +1491,6 @@ COMM_RUNS = (  # (model, class, set, train kwargs, millions timed, record)
     ("fine", "FINE", "fine", dict(walk_steps=2), 4, 0.9993),
     ("eco", "ECO", "bpr", {}, 10, (0.8688, 0.9265)),
 )
-# the probes of the structured sets: (row-name prefix, members per topic)
-COMM_PROBES = {"gcn": ("t", 75), "textgcn": ("d", 150), "fine": ("i", 100)}
 MSFINE_RECORD, MSFINE_SAMPLES = (0.8724, 0.9268), 10  # PERF_NOTES.md:952
 
 
@@ -1503,7 +1501,7 @@ def structured_files() -> dict:
 
     os.makedirs(OUT, exist_ok=True)
     out = {}
-    for name in COMM_PROBES:
+    for name in sd.PROBES:
         out[name] = tuple(os.path.join(OUT, f"sp_{name}_{k}.txt")
                           for k in ("net", "field"))
         getattr(sd, f"make_{name}_dataset")(*out[name])
@@ -1515,7 +1513,7 @@ def _topic_gate(model: str, path: str, probe: str, record) -> str:
     record less REC_MARGIN (print it when ``record`` is None)."""
     from smore_tpu_torch.utils import structured_data as sd
 
-    prefix, per_topic = COMM_PROBES[probe]
+    prefix, per_topic = sd.PROBES[probe]
     auc = sd.topic_auc(path, prefix, sd.topic_of(per_topic))
     if record is None:
         return f"{prefix}-row same-topic AUC {auc:.4f} (not gated)"
@@ -1617,8 +1615,9 @@ def phase_community_cli(files: dict) -> None:
 
 def phase_profile(m, out_dir: str, name: str, warm=None, run=None,
                   **kw) -> None:
-    """Kernel time by name and the card's busy share over 4M samples after
-    1M (``run`` and ``warm``: other train() arguments, for a walk model)."""
+    """Kernel time by name, the card's busy share and the host's ops and
+    launches a driver step over 4M samples after 1M (``run`` and ``warm``:
+    other train() arguments, for a walk model)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1641,11 +1640,27 @@ def phase_profile(m, out_dir: str, name: str, warm=None, run=None,
     busy = sum(e.self_device_time_total for e in avg
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation) / 1e6
-    samples = m.last_driver.executed_samples
-    log(f"profile {name}: {samples:,} samples, wall {wall:.3f} s, device "
-        f"busy {busy:.3f} s ({100 * busy / wall:.1f}%), idle "
-        f"{100 * (1 - busy / wall):.1f}%")
+    d = m.last_driver
+    steps = d.executed_samples / d.samples_per_step
+    ops, nested, work = _host_ops(prof.events())
+    log(f"profile {name}: {d.executed_samples:,} samples, wall {wall:.3f} "
+        f"s, device busy {busy:.3f} s ({100 * busy / wall:.1f}%), idle "
+        f"{100 * (1 - busy / wall):.1f}%; a driver step of "
+        f"{d.samples_per_step:,} samples: {ops / steps:.1f} torch ops "
+        f"({nested / steps:.1f} aten calls with the nested ones), "
+        f"{work / steps:.1f} CUDA launch, memset and copy calls [{_card()}]")
     log(table)
+
+
+def _host_ops(events) -> tuple:
+    """What the host issued in a profile: the aten ops that Python code
+    called (an aten op not inside another), every aten call, and the
+    runtime calls that put work on the card."""
+    aten = [e for e in events if e.name.startswith("aten::")]
+    ops = sum(1 for e in aten if e.cpu_parent is None
+              or not e.cpu_parent.name.startswith("aten::"))
+    work = sum(1 for e in events if e.name.startswith(_RUNTIME_WORK))
+    return ops, len(aten), work
 
 
 def main() -> None:
@@ -1716,7 +1731,7 @@ def main() -> None:
                           warm=dict(sample_times=REC_WARM, verbose=False,
                                     **kw),
                           run=dict(sample_times=2, verbose=False, **kw))
-        for name, kw in (("eco", {}), ("fine", dict(walk_steps=2))):
+        for name, _, _, kw, _, _ in COMM_RUNS:
             phase_profile(comm[name], args.profile, f"{name}_community",
                           warm=dict(sample_times=REC_WARM, verbose=False,
                                     **kw),

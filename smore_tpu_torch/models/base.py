@@ -380,20 +380,23 @@ class PairModelBase:
                         self.state[table].detach().cpu().numpy())
 
     def _drive(self, step: StepFn, ctx, samples_per_step: int, alpha: float,
-               sample_times: float, steps_per_call: int,
-               verbose: bool) -> None:
-        """Train the tables with ``step`` for ``sample_times`` million
-        samples on the training stream of the model's seed, with the
-        checkpoint settings; the driver stays as ``last_driver``."""
+               total_samples: int, steps_per_call: int, verbose: bool,
+               micro_steps: int = 1, state: Optional[State] = None) -> State:
+        """Train ``state`` (default: the model's tables) with ``step`` for
+        ``total_samples`` samples on the training stream of the model's
+        seed, ``steps_per_call`` micro-steps a call, with the checkpoint
+        settings. Returns the trained tables (updated in place); the
+        driver stays as ``last_driver``."""
         self.last_driver = driver = TrainDriver(
             step,
             ctx=ctx,
             samples_per_step=samples_per_step,
             alpha=alpha,
-            total_samples=int(sample_times * 1_000_000),
-            steps_per_call=steps_per_call,
+            total_samples=total_samples,
+            steps_per_call=max(1, steps_per_call // micro_steps),
+            micro_steps=micro_steps,
             device=self.device,
             **self._ckpt_kw(),
         )
-        self.state = driver.train(self.state, self._generator(TRAIN_STREAM),
-                                  verbose=verbose)
+        return driver.train(self.state if state is None else state,
+                            self._generator(TRAIN_STREAM), verbose=verbose)

@@ -27,8 +27,8 @@ import torch
 
 from smore_tpu_torch.io.embeddings import save_embeddings
 from smore_tpu_torch.models.base import (
+    INIT_STREAM,
     PairModelBase,
-    TrainDriver,
     clamp_batch,
     init_embedding,
     zeros_embedding,
@@ -37,7 +37,6 @@ from smore_tpu_torch.models.hpe import community_walk_pairs
 from smore_tpu_torch.ops.update import mf_step, sgns_shared_negs_step, warp_step
 from smore_tpu_torch.sampling.fields import FieldTables
 
-_INIT, _TRAIN = 0, 1  # generator streams of a model seed
 RANK_NEGATIVES = 16  # NERANK's field-matched candidates per sample
 HEAD_REG = 0.025
 COMMUNITY_RATE = 0.05  # the community updates' share of alpha
@@ -54,7 +53,7 @@ class _CSEBase(PairModelBase):
     def init(self, dim: int) -> None:
         self.dim = dim
         n = self.graph.n_vertices
-        gen = self._generator(_INIT)
+        gen = self._generator(INIT_STREAM)
         self.state = {
             "vertexU": init_embedding(gen, n, dim, device=self.device),
             "vertexI": init_embedding(gen, n, dim, device=self.device),
@@ -164,19 +163,10 @@ class _CSEBase(PairModelBase):
     ) -> None:
         self.walk_steps = walk_steps
         batch = clamp_batch(self.graph.n_vertices, batch)
-        self.last_driver = driver = TrainDriver(
+        self.state = self._drive(
             self._make_step(batch, negative_samples, shared_negatives,
-                            collision),
-            ctx=self._make_ctx(),
-            samples_per_step=batch,
-            alpha=alpha,
-            total_samples=int(sample_times * 1_000_000),
-            steps_per_call=steps_per_call,
-            device=self.device,
-            **self._ckpt_kw(),
-        )
-        self.state = driver.train(self.state, self._generator(_TRAIN),
-                                  verbose=verbose)
+                            collision), self._make_ctx(), batch, alpha,
+            int(sample_times * 1_000_000), steps_per_call, verbose)
 
     def save_weights(self, path: str, table: str = "vertex") -> None:
         """Field-0 rows from vertexU, the others from vertexI."""

@@ -179,6 +179,7 @@ class ECO(PairModelBase):
         shared_negatives = (0 if self.head == "recall_rank" else
                             tiny_graph_pool(self.graph.n_vertices,
                                             shared_negatives))
-        self._drive(self._make_step(batch, negative_samples, collision,
-                                    shared_negatives), self._make_ctx(),
-                    batch, alpha, sample_times, steps_per_call, verbose)
+        self.state = self._drive(
+            self._make_step(batch, negative_samples, collision,
+                            shared_negatives), self._make_ctx(), batch, alpha,
+            int(sample_times * 1_000_000), steps_per_call, verbose)

@@ -151,9 +151,10 @@ class FINE(PairModelBase):
         n = self.graph.n_vertices
         batch = clamp_batch(n, batch)
         shared_negatives = min(tiny_graph_pool(n, shared_negatives), batch)
-        self._drive(self._make_step(batch, negative_samples, collision,
-                                    shared_negatives), self._make_ctx(),
-                    batch, alpha, sample_times, steps_per_call, verbose)
+        self.state = self._drive(
+            self._make_step(batch, negative_samples, collision,
+                            shared_negatives), self._make_ctx(), batch, alpha,
+            int(sample_times * 1_000_000), steps_per_call, verbose)
 
     def save_weights(self, path: str, table: str = "vertex") -> None:
         """Each vertex's field-0 and field-1 vertex rows side by side (the

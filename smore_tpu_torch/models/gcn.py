@@ -177,9 +177,10 @@ class GCN(PairModelBase):
             # diverges even at batch 1
             collision = "mean"
         shared_negatives = min(tiny_graph_pool(n, shared_negatives), batch)
-        self._drive(self._make_step(batch, negative_samples, collision,
-                                    shared_negatives), self._make_ctx(),
-                    batch, alpha, sample_times, steps_per_call, verbose)
+        self.state = self._drive(
+            self._make_step(batch, negative_samples, collision,
+                            shared_negatives), self._make_ctx(), batch, alpha,
+            int(sample_times * 1_000_000), steps_per_call, verbose)
 
     def _fields(self) -> np.ndarray:
         g = self.graph
@@ -348,9 +349,10 @@ class TEXTGCNdev(GCN):
             # a word bag bigger than the graph: "sum" diverges at batch 1
             collision = "mean"
         shared_negatives = min(tiny_graph_pool(n, shared_negatives), batch)
-        self._drive(self._make_step(batch, negative_samples, collision,
-                                    shared_negatives), self._make_ctx(),
-                    batch, alpha, sample_times, steps_per_call, verbose)
+        self.state = self._drive(
+            self._make_step(batch, negative_samples, collision,
+                            shared_negatives), self._make_ctx(), batch, alpha,
+            int(sample_times * 1_000_000), steps_per_call, verbose)
 
     def save_weights(self, path: str, table: str = "vertex") -> None:
         """Users (field 0) from ``vertex``, words from ``context``, events

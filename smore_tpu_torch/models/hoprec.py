@@ -24,16 +24,14 @@ import numpy as np
 import torch
 
 from smore_tpu_torch.models.base import (
+    INIT_STREAM,
     PairModelBase,
-    TrainDriver,
     clamp_batch,
     init_embedding,
 )
 from smore_tpu_torch.ops.update import fbpr_step
 from smore_tpu_torch.sampling.fields import FieldTables
 from smore_tpu_torch.sampling.tables import SamplerTables
-
-_INIT, _TRAIN = 0, 1  # generator streams of a model seed
 
 
 def hop_chain(tables: SamplerTables, vid: torch.Tensor, walk_steps: int,
@@ -61,7 +59,7 @@ class HOPREC(PairModelBase):
     def init(self, dim: int) -> None:
         self.dim = dim
         self.state = {"vertex": init_embedding(
-            self._generator(_INIT), self.graph.n_vertices, dim,
+            self._generator(INIT_STREAM), self.graph.n_vertices, dim,
             device=self.device)}
         self.build_sampler()
 
@@ -138,15 +136,6 @@ class HOPREC(PairModelBase):
         self.walk_steps = walk_steps
         self.margin = margin
         batch = clamp_batch(self.graph.n_vertices, batch)
-        self.last_driver = driver = TrainDriver(
-            self._make_step(batch, collision),
-            ctx=self._make_ctx(),
-            samples_per_step=batch,
-            alpha=alpha,
-            total_samples=int(sample_times * 1_000_000),
-            steps_per_call=steps_per_call,
-            device=self.device,
-            **self._ckpt_kw(),
-        )
-        self.state = driver.train(self.state, self._generator(_TRAIN),
-                                  verbose=verbose)
+        self.state = self._drive(
+            self._make_step(batch, collision), self._make_ctx(), batch, alpha,
+            int(sample_times * 1_000_000), steps_per_call, verbose)

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from smore_tpu_torch.models.base import (
+    INIT_STREAM,
     PairModelBase,
-    TrainDriver,
     clamp_batch,
     hoisted_scan_step,
     init_embedding,
@@ -37,9 +37,9 @@ from smore_tpu_torch.ops.update import sgns_shared_negs_step
 from smore_tpu_torch.sampling.tables import SamplerTables
 from smore_tpu_torch.sampling.walks import random_walk
 
-# generator streams of a model seed; the bank's stands for the JAX
+# the walk bank's generator stream of a model seed; it stands for the JAX
 # package's fold_in(key, 77)
-_INIT, _TRAIN, _BANK = 0, 1, 77
+_BANK = 77
 _INVALID = 1 << 30  # the bank's flag bit: vids must stay below 2^30
 
 
@@ -118,7 +118,7 @@ class _TwoTableModel(PairModelBase):
         self.dim = dim
         n = self.graph.n_vertices
         self.state = {
-            "vertex": init_embedding(self._generator(_INIT), n, dim,
+            "vertex": init_embedding(self._generator(INIT_STREAM), n, dim,
                                      device=self.device),
             "context": zeros_embedding(n, dim, self.device),
         }
@@ -224,20 +224,12 @@ class HPE(_TwoTableModel):
             bank = build_walk_bank(tables, self._generator(_BANK),
                                    self.graph.n_vertices, walk_bank,
                                    walk_steps)
-        self.last_driver = driver = TrainDriver(
+        self.state = self._drive(
             self._make_step(batch, negative_samples, shared_negatives,
                             collision, hoist, use_bank=bank is not None),
-            ctx=(tables, bank),
-            samples_per_step=batch * hoist,
-            alpha=alpha,
-            total_samples=int(sample_times * 1_000_000),
-            steps_per_call=max(1, steps_per_call // hoist),
-            micro_steps=hoist,
-            device=self.device,
-            **self._ckpt_kw(),
-        )
-        self.state = driver.train(self.state, self._generator(_TRAIN),
-                                  verbose=verbose)
+            (tables, bank), batch * hoist, alpha,
+            int(sample_times * 1_000_000), steps_per_call, verbose,
+            micro_steps=hoist)
 
 
 class PE(_TwoTableModel):
@@ -330,16 +322,8 @@ class PE(_TwoTableModel):
         dyn_steps = (torch.zeros(0, dtype=torch.int32, device=self.device)
                      if dyn is None else torch.from_numpy(
                          np.asarray(dyn, np.int32)).to(self.device))
-        self.last_driver = driver = TrainDriver(
+        self.state = self._drive(
             self._make_step(batch, negative_samples, shared_negatives,
-                            collision),
-            ctx=(self.build_sampler(), dyn_steps),
-            samples_per_step=batch,
-            alpha=alpha,
-            total_samples=int(sample_times * 1_000_000),
-            steps_per_call=steps_per_call,
-            device=self.device,
-            **self._ckpt_kw(),
-        )
-        self.state = driver.train(self.state, self._generator(_TRAIN),
-                                  verbose=verbose)
+                            collision), (self.build_sampler(), dyn_steps),
+            batch, alpha, int(sample_times * 1_000_000), steps_per_call,
+            verbose)

@@ -42,8 +42,8 @@ import torch
 
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.models.base import (
+    INIT_STREAM,
     PairModelBase,
-    TrainDriver,
     clamp_batch,
     hoisted_scan_step,
     init_embedding,
@@ -71,9 +71,6 @@ from smore_tpu_torch.sampling.banded import (
 # package's threshold, set by TPU scatter costs; kept so both packages
 # route the same graphs the same way)
 BANDED_AUTO_THRESHOLD = 262_144
-
-
-_INIT, _TRAIN = 0, 1  # generator streams of a model seed
 
 
 def multiblock_draw(bt: BandedTables, gen: torch.Generator, batch: int,
@@ -122,7 +119,7 @@ class LINE(PairModelBase):
         self.dim = dim
         self.order = order
         n = self.graph.n_vertices
-        vertex = init_embedding(self._generator(_INIT), n, dim,
+        vertex = init_embedding(self._generator(INIT_STREAM), n, dim,
                                 device=self.device)
         if order == 1:
             self.state = {"vertex": vertex}
@@ -359,22 +356,12 @@ class LINE(PairModelBase):
                                edge_stream, verbose)
             return
 
-        self.last_driver = driver = TrainDriver(
+        self.state = self._drive(
             self._make_step(batch, negative_samples, collision,
                             shared_negatives, group, use_pallas is True,
                             hoist),
-            ctx=self.build_sampler(),
-            samples_per_step=batch * hoist,
-            alpha=alpha,
-            total_samples=total,
-            steps_per_call=max(1, steps_per_call // hoist),
-            micro_steps=hoist,
-            device=self.device,
-            **self._ckpt_kw(),
-        )
-        # the tables are updated in place
-        self.state = driver.train(self.state, self._generator(_TRAIN),
-                                  verbose=verbose)
+            self.build_sampler(), batch * hoist, alpha, total,
+            steps_per_call, verbose, micro_steps=hoist)
 
     def _train_banded(self, total, negative_samples, alpha, batch,
                       auto_batch, steps_per_call, shared_negatives, group,
@@ -482,19 +469,10 @@ class LINE(PairModelBase):
                                  device=self.device)
             padded[:n] = v
             state[k] = padded
-        self.last_driver = driver = TrainDriver(
-            step_fn,
-            ctx=bt,
-            samples_per_step=batch * hoist,
-            alpha=alpha,
-            total_samples=total,
-            steps_per_call=max(1, steps_per_call // hoist),
-            micro_steps=hoist,
-            device=self.device,
-            **self._ckpt_kw(),
-        )
         # a checkpoint holds (and a resume restores) these padded tables
-        out = driver.train(state, self._generator(_TRAIN), verbose=verbose)
+        out = self._drive(step_fn, bt, batch * hoist, alpha, total,
+                          steps_per_call, verbose, micro_steps=hoist,
+                          state=state)
         self.state = {k: v[:n] for k, v in out.items()}
 
     def save_weights(self, path: str, table: str = "vertex") -> None:

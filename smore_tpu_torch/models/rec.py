@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from smore_tpu_torch.models.base import (
+    INIT_STREAM,
     PairModelBase,
-    TrainDriver,
     clamp_batch,
     hoisted_scan_step,
     init_embedding,
@@ -34,8 +34,6 @@ from smore_tpu_torch.ops.update import (
     warp_shared_pool_step,
     warp_step,
 )
-
-_INIT, _TRAIN = 0, 1  # generator streams of a model seed
 
 
 def no_mesh(mesh) -> None:
@@ -54,7 +52,7 @@ class _SharedTableRec(PairModelBase):
     def init(self, dim: int) -> None:
         self.dim = dim
         self.state = {"vertex": init_embedding(
-            self._generator(_INIT), self.graph.n_vertices, dim,
+            self._generator(INIT_STREAM), self.graph.n_vertices, dim,
             device=self.device)}
         self.build_sampler()
 
@@ -163,20 +161,11 @@ class _SharedTableRec(PairModelBase):
             shared_negatives = min(shared_negatives, batch)
         if hoist == 0:
             hoist = 8 if shared_negatives else 1
-        self.last_driver = driver = TrainDriver(
+        self.state = self._drive(
             self._make_step(batch, collision, hoist, shared_negatives),
-            ctx=self.build_sampler(),
-            samples_per_step=batch * hoist,
-            alpha=alpha,
-            total_samples=int(sample_times * 1_000_000),
-            steps_per_call=max(1, steps_per_call // hoist),
-            micro_steps=hoist,
-            device=self.device,
-            **self._ckpt_kw(),
-        )
-        # the table is updated in place
-        self.state = driver.train(self.state, self._generator(_TRAIN),
-                                  verbose=verbose)
+            self.build_sampler(), batch * hoist, alpha,
+            int(sample_times * 1_000_000), steps_per_call, verbose,
+            micro_steps=hoist)
 
 
 class MF(_SharedTableRec):

@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from smore_tpu_torch.models.base import (
+    INIT_STREAM,
     PairModelBase,
-    TrainDriver,
     freshness_policy,
     hoisted_scan_step,
     init_embedding,
@@ -28,7 +28,6 @@ from smore_tpu_torch.models.base import (
 )
 from smore_tpu_torch.ops.update import sgns_shared_negs_step
 
-_INIT, _TRAIN = 0, 1  # generator streams of a model seed
 
 # the epoch hoist: graphs up to this many vertices, at most this many
 # batches in one block of draws
@@ -50,7 +49,7 @@ class WalkSGNSBase(PairModelBase):
         self.dim = dim
         n = self.graph.n_vertices
         self.state = {
-            "vertex": init_embedding(self._generator(_INIT), n, dim,
+            "vertex": init_embedding(self._generator(INIT_STREAM), n, dim,
                                      device=self.device),
             "context": zeros_embedding(n, dim, self.device),
         }
@@ -149,18 +148,9 @@ class WalkSGNSBase(PairModelBase):
         if n <= EPOCH_MAX_VERTICES and steps_per_epoch <= EPOCH_MAX_BATCHES:
             epoch_starts = True
             hoist = steps_per_epoch
-        self.last_driver = driver = TrainDriver(
+        # the schedule counts walks
+        self.state = self._drive(
             self._make_step(batch_walks, negatives, shared_negatives,
                             collision, hoist, epoch_starts),
-            ctx=self._make_ctx(),
-            samples_per_step=batch_walks * hoist,  # the schedule counts walks
-            alpha=alpha,
-            total_samples=total_walks,
-            steps_per_call=max(1, steps_per_call // hoist),
-            micro_steps=hoist,
-            device=self.device,
-            **self._ckpt_kw(),
-        )
-        # the tables are updated in place
-        self.state = driver.train(self.state, self._generator(_TRAIN),
-                                  verbose=verbose)
+            self._make_ctx(), batch_walks * hoist, alpha, total_walks,
+            steps_per_call, verbose, micro_steps=hoist)

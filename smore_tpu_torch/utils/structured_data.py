@@ -35,6 +35,10 @@ SEED = 9
 GCN_TAGS_PER_TOPIC = 75
 TEXTGCN_DOCS_PER_TOPIC = 150
 FINE_ITEMS_PER_GENRE = 100
+# each set's probe: (the prefix of the rows it scores, members per topic)
+PROBES = {"gcn": ("t", GCN_TAGS_PER_TOPIC),
+          "textgcn": ("d", TEXTGCN_DOCS_PER_TOPIC),
+          "fine": ("i", FINE_ITEMS_PER_GENRE)}
 
 
 def topic_of(per_topic: int) -> Callable[[str], int]:
@@ -50,7 +54,8 @@ def _write(train_path: str, field_path: str, lines, field) -> None:
 
 
 def make_textgcn_dataset(train_path: str, field_path: str, topics: int = 20,
-                         words_pt: int = 150, docs_pt: int = 150,
+                         words_pt: int = 150,
+                         docs_pt: int = TEXTGCN_DOCS_PER_TOPIC,
                          stop: int = 500, links: int = 12,
                          stop_links: int = 3) -> None:
     """The doc-word graph with planted topics and a field-1 stopword pool;
@@ -77,7 +82,7 @@ def make_textgcn_dataset(train_path: str, field_path: str, topics: int = 20,
 
 
 def make_gcn_dataset(train_path: str, field_path: str, topics: int = 20,
-                     ents_pt: int = 200, tags_pt: int = 75,
+                     ents_pt: int = 200, tags_pt: int = GCN_TAGS_PER_TOPIC,
                      links: int = 10) -> None:
     """The entity-tag graph with planted topics; does nothing when the
     training file exists."""
@@ -99,7 +104,8 @@ def make_gcn_dataset(train_path: str, field_path: str, topics: int = 20,
 
 
 def make_fine_dataset(train_path: str, field_path: str, genres: int = 20,
-                      users_pg: int = 150, items_pg: int = 100,
+                      users_pg: int = 150,
+                      items_pg: int = FINE_ITEMS_PER_GENRE,
                       links: int = 12) -> None:
     """The user-item graph with genre communities (two fields); does nothing
     when the training file exists."""

@@ -23,6 +23,7 @@ import pytest
 import torch
 
 import smore_tpu.models.walk_base as JWB
+import smore_tpu_torch.models.base as TBASE
 import smore_tpu_torch.models.walk_base as TWB
 from smore_tpu.graph.graph import Graph as JGraph
 from smore_tpu.models import APP as JAPP
@@ -102,7 +103,9 @@ def _policy(cls, module, n, monkeypatch, **train_kw):
                     inner_passes=getattr(self, "inner_passes", 1))
         return None
 
-    monkeypatch.setattr(module, "TrainDriver", _Stop)
+    # the port's models build their driver in PairModelBase._drive
+    monkeypatch.setattr(TBASE if module is TWB else module, "TrainDriver",
+                        _Stop)
     monkeypatch.setattr(cls, "_make_step", make_step)
     monkeypatch.setattr(cls, "_make_ctx", lambda self: None)
     kw = {"device": CPU} if module is TWB else {}
