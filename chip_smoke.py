@@ -1,8 +1,9 @@
 """Chip smoke test of the PyTorch port: builds the CUDA kernels and drives
 LINE's banded routes at Youtube scale and its unbanded path on the
 50k-vertex bench graph, then the command line (``python -m
-smore_tpu_torch``), the walk family and checkpoint/resume, the rec family
-and the community family, on one NVIDIA card.
+smore_tpu_torch``), the walk family and checkpoint/resume, the rec family,
+the community family and the knowledge-graph and typed-graph families, on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -121,6 +122,28 @@ Phases (any failure exits non-zero; there is no CPU path):
  25. ``msfine -field ... -walk_steps 2 -sample_times 10`` through the
      command line on that set, scored from its wide file (both field rows)
      with the same kind of gate; no kernel launched; the wall split
+ 26. the knowledge-graph and typed-graph families in this process, on the
+     card, on the sets of smore_tpu_torch.utils.oracle_data (the port's
+     copy of experiments/go_oracle_parity.py's) at that script's settings
+     and dim 64 (RotatE and ComplEx: init(64), as the CLI passes it):
+     TransE, RotatE, ComplEx (30 epochs, batch 1024, MRR against 50
+     corrupted heads), SNE (sign AUC), CTDNE (community AUC),
+     Metapath2Vec and HAN (author topic AUC), CPR and TPR (held-out AUC),
+     FastRP (community AUC, the mean of 5 projection seeds); each gated at
+     its JAX record less 0.03 (TYPED_RECORDS, computed on the CPU by
+     experiments/kg_typed_records.py); no kernel launched (every count set
+     to 0 before each model); triples/s, samples/s or nodes/s printed
+ 27. at a real size: TransE at FB15k-237's shape (make_kg: 14,500
+     entities, 237 relations, 272,076 triples; dim 64, batch 1024), one
+     warm-up epoch then 5 timed: triples/s and MRR printed, gated on
+     finite tables, unit entity rows and an MRR above the untrained
+     tables'; FastRP (iterations 3, dim 64) on phase 8's Youtube-scale
+     graph: seconds and community AUC printed, gated on finite rows, each
+     unit or all zero (a vertex whose neighbourhood's sparse projection
+     drew nothing), the zero rows counted
+ 28. ``rotate`` and ``cpr`` through the command line at phase 26's
+     settings, scored from their saved files by phase 26's gates; no
+     kernel launched; the wall split
 Each in-process path runs 1M samples first (tables, stream and warm-up),
 then every kernel's launch count is set to 0, read after the timed 40M run
 and printed; a command-line run counts the launches of its own process.
@@ -132,9 +155,10 @@ go to build/chip_smoke/ inside the checkout.
 
 also profiles 4M more samples of the multiblock, fused, order-1,
 neg_band, held fused, held scatter-only and unbanded main paths, one
-DeepWalk run on the 20k graph and 2M samples of BPR, NEMF, GCN, TEXTGCN,
-TEXTGCNdev, FINE and ECO with torch.profiler, prints each run's device
-idle share and the torch ops and CUDA launches a driver step issues, and
+DeepWalk run on the 20k graph, 2M samples of BPR, NEMF, GCN, TEXTGCN,
+TEXTGCNdev, FINE and ECO, 2 epochs of TransE at FB15k-237's shape and 2
+epochs of HAN on the hetero set with torch.profiler, prints each run's
+device idle share and the torch ops and CUDA launches a step issues, and
 writes the kernel-time tables and Chrome traces to DIR (a measurement
 aid, off by default so that the smoke does not depend on the profiler).
 """
@@ -978,6 +1002,10 @@ def _cli_timers() -> dict:
     save_weights) so that each adds its seconds to the returned dict."""
     from smore_tpu_torch import models
     from smore_tpu_torch.graph.graph import Graph
+    from smore_tpu_torch.graph.hetero import HeteroGraph
+    from smore_tpu_torch.graph.knowledge import KnowledgeGraph
+    from smore_tpu_torch.graph.signed import SignedNetwork
+    from smore_tpu_torch.graph.temporal import TemporalGraph
 
     times = {"load": 0.0, "train": 0.0, "save": 0.0}
     depth = dict.fromkeys(times, 0)
@@ -999,10 +1027,20 @@ def _cli_timers() -> dict:
         return run
 
     Graph.load_edge_list = staticmethod(timed("load", Graph.load_edge_list))
+    for store, attr in ((KnowledgeGraph, "load_triples"),
+                        (SignedNetwork, "load_edge_list"),
+                        (HeteroGraph, "load_edge_list"),
+                        (TemporalGraph, "load_edge_list")):
+        setattr(store, attr, staticmethod(timed("load", getattr(store,
+                                                                 attr))))
+    # FastRP generates instead of training; the KG models save two files
     for name in models.__all__:
         cls = getattr(models, name)
-        for attr, key in (("train", "train"), ("save_weights", "save")):
-            setattr(cls, attr, timed(key, getattr(cls, attr)))
+        for attr, key in (("train", "train"), ("generate", "train"),
+                          ("save_weights", "save"),
+                          ("save_embeddings", "save")):
+            if hasattr(cls, attr):
+                setattr(cls, attr, timed(key, getattr(cls, attr)))
     return times
 
 
@@ -1393,6 +1431,16 @@ def _rec_gate(model: str, path: str, files: dict, record,
             f"{record[1]}, gate >= {gate[0]:.4f} / {gate[1]:.4f})")
 
 
+def _no_launch(model: str, counters: dict) -> None:
+    counts = {name: c.launches for name, c in counters.items()}
+    require(not any(counts.values()), f"{model} launched {counts}")
+
+
+def _finite(model: str, state: dict) -> None:
+    for k, t in state.items():
+        require(bool(torch.isfinite(t).all()), f"{model}: non-finite {k}")
+
+
 def _warm_then_time(m, model: str, millions: float, kw: dict,
                     fresh: bool = False) -> tuple:
     """1M samples of warm-up (fresh tables after it when ``fresh``), then
@@ -1412,10 +1460,8 @@ def _warm_then_time(m, model: str, millions: float, kw: dict,
     m.train(sample_times=millions, verbose=False, **kw)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {name: c.launches for name, c in counters.items()}
-    require(not any(counts.values()), f"{model} launched {counts}")
-    for k, t in m.state.items():
-        require(bool(torch.isfinite(t).all()), f"{model}: non-finite {k}")
+    _no_launch(model, counters)
+    _finite(model, m.state)
     return warm, dt
 
 
@@ -1613,11 +1659,321 @@ def phase_community_cli(files: dict) -> None:
     os.remove(save)
 
 
+# the knowledge-graph and typed-graph family (phases 26-28): the JAX
+# package's records at dim 64 (experiments/kg_typed_records.py on the CPU,
+# the lowest of model seeds 0-2; FastRP the mean of its five projection
+# seeds; PERF.md), each gated less REC_MARGIN
+TYPED_RECORDS = dict(transe=0.1391, rotate=0.5211, complex=0.6553,
+                     sne=0.9065, ctdne=1.0, metapath2vec=0.9984, han=0.9998,
+                     cpr=0.9800, tpr=0.9634, fastrp=0.6580)
+# FB15k-237's shape (Toutanova & Chen 2015: 14,541 entities, 237 relations,
+# 272,115 training triples) from make_kg: 14,500 entities, 272,076 triples
+FB15K_SHAPE = dict(n_clusters=145, per=100, n_rel=237, triples_per_rel=1148)
+
+
+def _typed_gate(model: str, score: float, what: str) -> str:
+    record = TYPED_RECORDS[model]
+    gate = record - REC_MARGIN
+    require(score >= gate, f"{model}: {what} {score:.4f} under the gate "
+            f"{gate:.4f}")
+    return f"{what} {score:.4f} (JAX {record}, gate >= {gate:.4f})"
+
+
+def typed_files() -> dict:
+    """The oracle sets of utils/oracle_data.py under OUT: {name: path} and
+    the held-out pairs of the CPR and TPR sets."""
+    from smore_tpu_torch.utils import oracle_data as od
+
+    os.makedirs(OUT, exist_ok=True)
+    f = {k: os.path.join(OUT, f"oracle_{k}.txt") for k in (
+        "kg", "signed", "temporal", "hetero", "cpr_t", "cpr_s", "tpr_ui",
+        "tpr_iw", "community")}
+    od.make_kg(f["kg"])
+    od.make_signed(f["signed"])
+    od.make_temporal(f["temporal"])
+    od.make_hetero(f["hetero"])
+    f["cpr_test"] = od.make_two_domains(f["cpr_t"], f["cpr_s"])
+    f["tpr_test"] = od.make_text_rec(f["tpr_ui"], f["tpr_iw"])
+    if os.path.exists(f["community"]):
+        os.remove(f["community"])  # make_community keeps an existing file
+    od.make_community(f["community"])
+    return f
+
+
+def phase_typed(f: dict, device) -> dict:
+    """The ten knowledge-graph and typed-graph models in this process on
+    the oracle sets at go_oracle_parity's settings, dim D: every kernel
+    count 0 before each, none launched, finite tables, each gated at its
+    JAX record less REC_MARGIN; the rate printed."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.graph.graph import Graph
+    from smore_tpu_torch.utils import oracle_data as od
+
+    card = _card()
+    counters = _counters()
+    out = {}
+
+    def fresh():
+        for c in counters.values():
+            c.launches = 0
+
+    kr = od.RUNS["kg"]
+    for model, cls in (("transe", models.TransE), ("rotate", models.RotatE),
+                       ("complex", models.ComplEx)):
+        m = cls.load_triples(f["kg"], seed=0, device=device)
+        m.init(dim=D)
+        fresh()
+        t0 = time.perf_counter()
+        m.train(verbose=False, **kr)
+        dt = time.perf_counter() - t0
+        triples = kr["epochs"] * (m.kg.n_triples // kr["batch"]) * kr["batch"]
+        _no_launch(model, counters)
+        _finite(model, m.state)
+        mrr, h3 = od.kg_mrr(model, m.state_numpy(), m.kg, D)
+        log(f"{model} ({m.kg.n_triples:,} triples, {kr}): "
+            f"{triples:,} triples in {dt:.3f} s = {triples / dt:,.0f} "
+            f"triples/s; {_typed_gate(model, mrr, 'MRR')} hits@3 {h3:.4f}; "
+            f"no kernel launched [{card}]")
+        out[model] = m
+
+    def driven(model, m, dt, score, unit="samples"):
+        d = m.last_driver
+        log(f"{model}: {d.executed_samples:,} {unit} in {dt:.3f} s = "
+            f"{d.executed_samples / dt:,.0f} {unit}/s "
+            f"({d.samples_per_step // d.micro_steps:,} a step x "
+            f"{d.micro_steps}); {score}; no kernel launched [{card}]")
+
+    def timed_train(model, m, **kw):
+        fresh()
+        t0 = time.perf_counter()
+        m.train(verbose=False, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _no_launch(model, counters)
+        _finite(model, m.state)
+        out[model] = m
+        return dt
+
+    r = dict(od.RUNS["sne"])
+    m = models.SNE.load_edge_list(f["signed"], undirected=False, seed=0,
+                                  beta=r.pop("beta"),
+                                  negative_samples=r.pop("negative_samples"),
+                                  device=device)
+    m.init(dim=D)
+    dt = timed_train("sne", m, **r)
+    st = m.state_numpy()
+    driven("sne", m, dt, _typed_gate("sne", od.sign_auc(
+        m.net, st["source"], st["target"]), "sign AUC"))
+
+    r = dict(od.RUNS["ctdne"])
+    m = models.CTDNE.load_edge_list(f["temporal"], seed=0, device=device,
+                                    time_window=r.pop("time_window"))
+    m.init(dim=D)
+    dt = timed_train("ctdne", m, **r)
+    driven("ctdne", m, dt, _typed_gate("ctdne", od.community_auc_emb(
+        m.state_numpy()["vertex"], od.temporal_labels(m.tg.names)),
+        "community AUC"), "walks")
+
+    r = dict(od.RUNS["metapath2vec"])
+    m = models.Metapath2Vec.load_edge_list(f["hetero"], seed=0,
+                                           device=device)
+    for mp in r.pop("meta_paths"):
+        m.add_meta_path(mp)
+    m.init(dim=D)
+    dt = timed_train("metapath2vec", m, **r)
+    driven("metapath2vec", m, dt, _typed_gate(
+        "metapath2vec", od.author_auc(m.hg.names,
+                                      m.state_numpy()["vertex"]),
+        "author topic AUC"), "walks")
+
+    r = dict(od.RUNS["han"])
+    m = models.HAN.load_edge_list(f["hetero"], seed=0, device=device)
+    for mp in r.pop("meta_paths"):
+        m.add_meta_path(mp)
+    m.init(dim=D, learning_rate=r.pop("learning_rate"))
+    dt = timed_train("han", m, **r)
+    nodes = r["epochs"] * (m.hg.n_vertices // 512 + 1) * 512
+    log(f"han: {nodes:,} node updates in {dt:.3f} s = {nodes / dt:,.0f} "
+        f"nodes/s (batch 512, groups of 32); {_typed_gate('han', od.author_auc(m.hg.names, m.state_numpy()['embed']), 'author topic AUC')}"
+        f"; no kernel launched [{card}]")
+
+    tu, ti = f["cpr_test"]
+    m = models.CPR.load_domains(f["cpr_t"], f["cpr_s"], seed=0, device=device)
+    m.init(dim=D)
+    dt = timed_train("cpr", m, **od.RUNS["cpr"])
+    st = m.state_numpy()
+    driven("cpr", m, dt, _typed_gate("cpr", od.cpr_auc(
+        m.target, m.source, tu, ti, st["user"], st["target"],
+        m.target.name2id), "AUC"))
+
+    r = dict(od.RUNS["tpr"])
+    tu, ti = f["tpr_test"]
+    tw = r.pop("text_weight")
+    m = models.TPR.load_graphs(f["tpr_ui"], f["tpr_iw"], seed=0,
+                               text_weight=tw, device=device)
+    m.init(dim=D)
+    dt = timed_train("tpr", m, **r)
+    st = m.state_numpy()
+    driven("tpr", m, dt, _typed_gate("tpr", od.tpr_auc(
+        m.ui, m.iw, tu, ti, st["user"], st["item"], st["word"],
+        m.ui.name2id, m.iw.name2id, tw), "AUC"))
+
+    g = Graph.load_edge_list(f["community"], undirected=True)
+    labels = od.community_labels(g.names)
+    fresh()
+    scores, secs = [], 0.0
+    for seed in od.RUNS["fastrp"]["seeds"]:
+        m = models.FastRP(g, seed=seed, iterations=od.RUNS["fastrp"][
+            "iterations"], device=device)
+        t0 = time.perf_counter()
+        m.generate(dim=D)
+        torch.cuda.synchronize()
+        secs += time.perf_counter() - t0
+        _finite("fastrp", m.state)
+        scores.append(od.community_auc_emb(m.state["vertex"].cpu().numpy(),
+                                           labels))
+    _no_launch("fastrp", counters)
+    log(f"fastrp ({g.n_vertices} vertices, iterations 3, 5 seeds): "
+        f"{secs / 5 * 1e3:.2f} ms a projection; "
+        f"{_typed_gate('fastrp', float(np.mean(scores)), '5-seed mean community AUC')}"
+        f" (seeds {', '.join(f'{x:.4f}' for x in scores)}); no kernel "
+        f"launched [{card}]")
+    return out
+
+
+def phase_typed_scale(g_yt, device):
+    """TransE at FB15k-237's shape (one warm-up epoch, then 5 timed; MRR
+    above the untrained tables', unit entity rows) and FastRP on the
+    Youtube-scale graph (finite rows, unit or all zero). Returns the TransE
+    model."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.utils import oracle_data as od
+    from smore_tpu_torch.utils.bench_graphs import yt_community_auc
+
+    card = _card()
+    counters = _counters()
+    path = os.path.join(OUT, "fb15k_shape.txt")
+    t0 = time.perf_counter()
+    od.make_kg(path, **FB15K_SHAPE)
+    m = models.TransE.load_triples(path, seed=0, device=device)
+    kg = m.kg
+    log(f"FB15k-237-shaped set: {kg.n_entities:,} entities, "
+        f"{kg.n_relations} relations, {kg.n_triples:,} triples "
+        f"({time.perf_counter() - t0:.1f} s to make and load)")
+    m.init(dim=D)
+    mrr0 = od.kg_mrr("transe", m.state_numpy(), kg, D)[0]
+    m.train(epochs=1, batch=1024, alpha=0.01, verbose=False)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    m.train(epochs=5, batch=1024, alpha=0.01, verbose=False)
+    dt = time.perf_counter() - t0
+    _no_launch("transe", counters)
+    _finite("transe", m.state)
+    norms = m.state["entity"].norm(dim=1)
+    require(bool(((norms - 1).abs() < 1e-4).all()),
+            "transe: entity rows not unit")
+    mrr, h3 = od.kg_mrr("transe", m.state_numpy(), kg, D)
+    require(mrr > mrr0, f"transe: MRR {mrr:.4f} not above the untrained "
+            f"{mrr0:.4f}")
+    triples = 5 * (kg.n_triples // 1024) * 1024
+    log(f"transe at FB15k-237's shape (dim {D}, batch 1024, 1 warm-up "
+        f"epoch, then 5 timed on a fresh lr schedule): "
+        f"{triples:,} triples in {dt:.3f} s = {triples / dt:,.0f} "
+        f"triples/s; MRR {mrr:.4f} hits@3 {h3:.4f} (untrained {mrr0:.4f}); "
+        f"unit entity rows; no kernel launched [{card}]")
+
+    for c in counters.values():
+        c.launches = 0
+    frp = models.FastRP(g_yt, seed=42, iterations=3, device=device)
+    frp.generate(dim=D)  # warm-up (allocator, first index_add_)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frp.generate(dim=D)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    _no_launch("fastrp", counters)
+    x = frp.state["vertex"]
+    _finite("fastrp", frp.state)
+    # a row is 0 where the sparse projection (5% of entries non-zero) drew
+    # nothing for the vertex and its neighbourhood, as in the JAX package
+    norm = x.norm(dim=1)
+    zero = norm == 0
+    require(bool(((norm - 1).abs() < 1e-4)[~zero].all()),
+            "fastrp: rows neither unit nor zero")
+    auc = yt_community_auc(x.cpu().numpy(), g_yt.names)
+    log(f"fastrp at Youtube scale ({g_yt.n_vertices:,} vertices, "
+        f"{g_yt.n_edges:,} directed edges, iterations 3, dim {D}): "
+        f"{dt:.3f} s; community AUC {auc:.4f} (not gated); finite rows, "
+        f"unit but {int(zero.sum()):,} all-zero; no kernel launched "
+        f"[{card}]")
+    return m
+
+
+def phase_typed_cli(f: dict) -> None:
+    """``rotate`` and ``cpr`` through the command line at phase 26's
+    settings, scored from their saved files by phase 26's gates."""
+    from smore_tpu_torch.graph.graph import Graph
+    from smore_tpu_torch.graph.knowledge import KnowledgeGraph
+    from smore_tpu_torch.io.embeddings import load_embeddings
+    from smore_tpu_torch.utils import oracle_data as od
+
+    card = _card()
+    kr = od.RUNS["kg"]
+    ent, rel = (os.path.join(OUT, f"cli_rotate_{k}.txt") for k in "er")
+    r = run_cli(["rotate", "-train", f["kg"], "-save_entity", ent,
+                 "-save_relation", rel, "-dimensions", str(D), "-epochs",
+                 str(kr["epochs"]), "-batch_size", str(kr["batch"]),
+                 "-alpha", str(kr["alpha"]), "-margin", "6.0"])
+    require(not any(r["launches"].values()),
+            f"rotate through the CLI launched {r['launches']}")
+    kg = KnowledgeGraph.load_triples(f["kg"])
+    e, rl = load_embeddings(ent), load_embeddings(rel)
+    st = {"entity": np.stack([e[nm] for nm in kg.entities]),
+          # the relation file holds cos | sin of each phase
+          "relation": np.stack([np.arctan2(rl[nm][D:], rl[nm][:D])
+                                for nm in kg.relations_names])}
+    require(st["entity"].shape == (kg.n_entities, 2 * D),
+            f"rotate wrote {st['entity'].shape}")
+    require(all(np.isfinite(v).all() for v in st.values()),
+            "rotate: non-finite rows")
+    mrr, _ = od.kg_mrr("rotate", st, kg, D)
+    log(f"rotate (CLI, -epochs {kr['epochs']} -batch_size {kr['batch']}): "
+        f"{_typed_gate('rotate', mrr, 'MRR')}; {_wall(r)} [{card}]")
+    for p in (ent, rel):
+        os.remove(p)
+
+    tu, ti = f["cpr_test"]
+    files = [os.path.join(OUT, f"cli_cpr_{k}.txt") for k in ("u", "t", "s")]
+    r = run_cli(["cpr", "-train_target", f["cpr_t"], "-train_source",
+                 f["cpr_s"], "-save_user", files[0], "-save_target",
+                 files[1], "-save_source", files[2], "-dimensions", str(D),
+                 "-update_times", str(od.RUNS["cpr"]["update_times"]),
+                 "-alpha", str(od.RUNS["cpr"]["alpha"])])
+    require(not any(r["launches"].values()),
+            f"cpr through the CLI launched {r['launches']}")
+    g_t = Graph.load_edge_list(f["cpr_t"], undirected=True)
+    g_s = Graph.load_edge_list(f["cpr_s"], undirected=True)
+    u, t = load_embeddings(files[0]), load_embeddings(files[1])
+    user = np.stack([u[nm] for nm in g_t.names])
+    target = np.stack([t[nm] for nm in g_t.names])
+    require(np.isfinite(user).all() and np.isfinite(target).all(),
+            "cpr: non-finite rows")
+    auc = od.cpr_auc(g_t, g_s, tu, ti, user, target, g_t.name2id)
+    log(f"cpr (CLI, -update_times {od.RUNS['cpr']['update_times']}): "
+        f"{r['samples']:,} samples in {r['train_s']:.2f} s; "
+        f"{_typed_gate('cpr', auc, 'AUC')}; {_wall(r)} [{card}]")
+    for p in files:
+        os.remove(p)
+
+
 def phase_profile(m, out_dir: str, name: str, warm=None, run=None,
-                  **kw) -> None:
+                  steps=None, **kw) -> None:
     """Kernel time by name, the card's busy share and the host's ops and
     launches a driver step over 4M samples after 1M (``run`` and ``warm``:
-    other train() arguments, for a walk model)."""
+    other train() arguments, for a walk model). A model trained by its own
+    loop (KG, HAN) gives ``steps``: (steps of the profiled run, samples a
+    step, what a sample is)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1640,15 +1996,18 @@ def phase_profile(m, out_dir: str, name: str, warm=None, run=None,
     busy = sum(e.self_device_time_total for e in avg
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation) / 1e6
-    d = m.last_driver
-    steps = d.executed_samples / d.samples_per_step
+    if steps is None:
+        d = m.last_driver
+        steps = (d.executed_samples / d.samples_per_step, d.samples_per_step,
+                 "samples")
+    n, per_step, unit = steps
     ops, nested, work = _host_ops(prof.events())
-    log(f"profile {name}: {d.executed_samples:,} samples, wall {wall:.3f} "
+    log(f"profile {name}: {round(n * per_step):,} {unit}, wall {wall:.3f} "
         f"s, device busy {busy:.3f} s ({100 * busy / wall:.1f}%), idle "
-        f"{100 * (1 - busy / wall):.1f}%; a driver step of "
-        f"{d.samples_per_step:,} samples: {ops / steps:.1f} torch ops "
-        f"({nested / steps:.1f} aten calls with the nested ones), "
-        f"{work / steps:.1f} CUDA launch, memset and copy calls [{_card()}]")
+        f"{100 * (1 - busy / wall):.1f}%; a step of "
+        f"{per_step:,} {unit}: {ops / n:.1f} torch ops "
+        f"({nested / n:.1f} aten calls with the nested ones), "
+        f"{work / n:.1f} CUDA launch, memset and copy calls [{_card()}]")
     log(table)
 
 
@@ -1707,6 +2066,13 @@ def main() -> None:
     comm = timed("community family", phase_community, sp, files, device)
     timed("msfine through the CLI", phase_community_cli, files)
     log(f"community phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tf = typed_files()
+    typed = timed("KG and typed-graph family", phase_typed, tf, device)
+    m_fb = timed("TransE and FastRP at scale", phase_typed_scale, g_yt,
+                 device)
+    timed("rotate and cpr through the CLI", phase_typed_cli, tf)
+    log(f"KG and typed-graph phases: {time.perf_counter() - t0:.1f} s")
     if args.profile:
         phase_profile(m_yt, args.profile, "line_yt")
         phase_profile(m_fused, args.profile, "line_yt_fused",
@@ -1736,6 +2102,21 @@ def main() -> None:
                           warm=dict(sample_times=REC_WARM, verbose=False,
                                     **kw),
                           run=dict(sample_times=2, verbose=False, **kw))
+        kg = m_fb.kg
+        epoch = (kg.n_triples // 1024, 1024, "triples")
+        phase_profile(m_fb, args.profile, "transe_fb15k_shape",
+                      warm=dict(epochs=1, batch=1024, alpha=0.01,
+                                verbose=False),
+                      run=dict(epochs=2, batch=1024, alpha=0.01,
+                               verbose=False),
+                      steps=(2 * epoch[0],) + epoch[1:])
+        han = typed["han"]
+        han_kw = dict(walk_times=5, walk_steps=4, verbose=False)
+        phase_profile(han, args.profile, "han_hetero",
+                      warm=dict(epochs=1, **han_kw),
+                      run=dict(epochs=2, **han_kw),
+                      steps=(2 * (han.hg.n_vertices // 512 + 1), 512,
+                             "node updates"))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {

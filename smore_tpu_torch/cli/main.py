@@ -3,15 +3,20 @@
 Port of ``smore_tpu/cli/main.py`` for the models ported so far (``line``,
 the walk family ``deepwalk``, ``walklets``, ``node2vec``, ``app``, the rec
 family ``mf``, ``bpr``, ``warp``, ``skewopt``, ``hpe``, ``pe``,
-``hoprec``, ``nemf``, ``nerank``, and the community family ``gcn``,
-``textgcn``, ``textgcndev``, ``eco``, ``fine``, ``msfine``), with the same
-flags, defaults and output files. The reference CLIs' flag conventions
+``hoprec``, ``nemf``, ``nerank``, the community family ``gcn``,
+``textgcn``, ``textgcndev``, ``eco``, ``fine``, ``msfine``, the
+knowledge-graph family ``transe``, ``rotate``, ``complex`` and the
+typed-graph family ``sne``, ``fastrp``, ``cpr``, ``tpr``,
+``metapath2vec``, ``han``, ``ctdne``), with the same flags, defaults and
+output files. The reference CLIs' flag conventions
 hold: single-dash long flags, e.g.::
 
     python -m smore_tpu_torch line -train net.txt -save rep.txt -order 2
     python -m smore_tpu_torch deepwalk -train net.txt -save rep.txt
     python -m smore_tpu_torch hoprec -train net.txt -field meta.txt \
         -save rep.txt
+    python -m smore_tpu_torch transe -train triples.txt -save_entity e.txt \
+        -save_relation r.txt
 
 One flag is the port's own: ``-device`` (default ``cuda``, the card;
 ``cpu`` to run on the host). Without a card the default raises at the first
@@ -28,10 +33,7 @@ from typing import Callable, Dict
 _REGISTRY: Dict[str, Callable] = {}
 
 # the JAX package's other subcommands, in the order of ROADMAP.md Queue 1
-NOT_PORTED = (
-    "transe", "rotate", "complex", "ctdne", "jodie", "metapath2vec", "han",
-    "sne", "cpr", "tpr", "fastrp", "sasrec", "gsasrec", "recdenoiser",
-)
+NOT_PORTED = ("jodie", "sasrec", "gsasrec", "recdenoiser")
 
 
 def _cmd(name):
@@ -355,6 +357,207 @@ def _app(argv):
     m.train(walk_times=a.walk_times, sample_times=int(a.sample_times),
             jump=a.jump, negative_samples=a.negative_samples, alpha=a.alpha)
     m.save_weights(a.save)
+
+
+@_cmd("fastrp")
+def _fastrp(argv):
+    p = _base_parser("fastrp")
+    p.add_argument("-iterations", type=int, default=3)
+    p.add_argument("-normalization", type=float, default=0.0)
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import FastRP
+
+    m = _load(FastRP, a, iterations=a.iterations,
+              normalization_strength=a.normalization)
+    m.generate(dim=a.dimensions)
+    m.save_weights(a.save)
+
+
+def _ckpt_kw(a) -> dict:
+    """-checkpoint/-checkpoint_every/-no_resume as train() arguments (the
+    typed-graph and KG models take them there, as in the JAX CLI)."""
+    return {"checkpoint": a.checkpoint, "checkpoint_every": a.checkpoint_every,
+            "resume": not a.no_resume}
+
+
+def _typed_walk_model(name, cls_name):
+    """metapath2vec and han: -meta_path (comma-separated types,
+    repeatable) on a ``src srcType dst dstType edgeType`` file; han adds
+    -epochs and takes -alpha as its learning rate."""
+
+    def run(argv):
+        p = _base_parser(name, walk=True)
+        p.add_argument("-meta_path", action="append", required=True,
+                       help="comma-separated type sequence; repeatable")
+        if name == "han":
+            p.add_argument("-epochs", type=int, default=5)
+        a = p.parse_args(argv)
+        from smore_tpu_torch import models
+
+        m = _load(getattr(models, cls_name), a)
+        for mp in a.meta_path:
+            m.add_meta_path(mp.split(","))
+        if name == "han":
+            m.init(dim=a.dimensions, learning_rate=a.alpha)
+            m.train(walk_times=a.walk_times, walk_steps=a.walk_steps,
+                    epochs=a.epochs, **_ckpt_kw(a))
+        else:
+            m.init(dim=a.dimensions)
+            m.train(walk_times=a.walk_times, walk_steps=a.walk_steps,
+                    window_size=a.window_size,
+                    negative_samples=a.negative_samples, alpha=a.alpha,
+                    **_ckpt_kw(a))
+        m.save_weights(a.save)
+
+    return run
+
+
+_REGISTRY["metapath2vec"] = _typed_walk_model("metapath2vec", "Metapath2Vec")
+_REGISTRY["han"] = _typed_walk_model("han", "HAN")
+
+
+@_cmd("ctdne")
+def _ctdne(argv):
+    p = _base_parser("ctdne", walk=True)
+    p.add_argument("-time_window", type=float, default=None)
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import CTDNE
+
+    # ``src dst timestamp`` lines, directed (-undirected is not read)
+    m = CTDNE.load_edge_list(a.train, time_window=a.time_window,
+                             device=a.device)
+    m.init(dim=a.dimensions)
+    m.train(walk_times=a.walk_times, walk_steps=a.walk_steps,
+            window_size=a.window_size, negative_samples=a.negative_samples,
+            alpha=a.alpha, **_ckpt_kw(a))
+    m.save_weights(a.save)
+
+
+@_cmd("sne")
+def _sne(argv):
+    p = _base_parser("sne")
+    p.add_argument("-epochs", type=int, default=10)
+    p.add_argument("-beta", type=float, default=1.0)
+    p.add_argument("-samples_per_edge", type=int, default=5,
+                   help="samples per edge per epoch")
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import SNE
+
+    m = _load(SNE, a, beta=a.beta, negative_samples=a.negative_samples)
+    m.init(dim=a.dimensions)
+    m.train(epochs=a.epochs, samples_per_edge=a.samples_per_edge,
+            alpha=a.alpha, **_ckpt_kw(a))
+    m.save_weights(a.save)
+
+
+def _own_parser(name: str) -> argparse.ArgumentParser:
+    """The parser of a subcommand with its own input and output flags:
+    -threads (ignored), the checkpoint flags and -device."""
+    p = argparse.ArgumentParser(prog=f"python -m smore_tpu_torch {name}",
+                                allow_abbrev=False)
+    p.add_argument("-threads", type=int, default=1,
+                   help="accepted for compatibility; ignored")
+    p.add_argument("-checkpoint", default=None,
+                   help="checkpoint directory: save the full training state "
+                        "periodically and resume from it if present")
+    p.add_argument("-checkpoint_every", type=int, default=1)
+    p.add_argument("-no_resume", action="store_true")
+    p.add_argument("-device", default="cuda",
+                   help="torch device to train on: cuda (default) or cpu")
+    return p
+
+
+def _kg_model(name, cls_name, extra=()):
+    """transe, rotate, complex: ``head relation tail [weight]`` triples,
+    entity and relation files; -checkpoint_every counts epochs."""
+
+    def run(argv):
+        p = _own_parser(name)
+        p.add_argument("-train", required=True)
+        p.add_argument("-save_entity", required=True)
+        p.add_argument("-save_relation", required=True)
+        p.add_argument("-dimensions", type=int, default=64)
+        p.add_argument("-epochs", type=int, default=100)
+        p.add_argument("-batch_size", type=int, default=1024)
+        p.add_argument("-alpha", type=float, default=0.01)
+        p.add_argument("-margin", type=float, default=1.0)
+        for flag, typ, dv in extra:
+            p.add_argument(flag, type=typ, default=dv)
+        a = p.parse_args(argv)
+        from smore_tpu_torch import models
+
+        kw = {"margin": a.margin, "device": a.device}
+        if cls_name == "TransE":
+            kw["norm"] = a.norm
+        if cls_name == "RotatE":
+            kw["adversarial_temp"] = a.adversarial_temp
+        m = getattr(models, cls_name).load_triples(a.train, **kw)
+        m.init(dim=a.dimensions)
+        m.train(epochs=a.epochs, batch=a.batch_size, alpha=a.alpha,
+                **_ckpt_kw(a))
+        m.save_embeddings(a.save_entity, a.save_relation)
+
+    return run
+
+
+_REGISTRY["transe"] = _kg_model("transe", "TransE", [("-norm", int, 2)])
+_REGISTRY["rotate"] = _kg_model("rotate", "RotatE",
+                                [("-adversarial_temp", float, 1.0)])
+_REGISTRY["complex"] = _kg_model("complex", "ComplEx")
+
+
+@_cmd("cpr")
+def _cpr(argv):
+    p = _own_parser("cpr")
+    p.add_argument("-train_target", required=True)
+    p.add_argument("-train_source", required=True)
+    p.add_argument("-save_user", required=True)
+    p.add_argument("-save_target", required=True)
+    p.add_argument("-save_source", required=True)
+    p.add_argument("-dimensions", type=int, default=64)
+    p.add_argument("-update_times", type=float, default=10)
+    p.add_argument("-alpha", type=float, default=0.025)
+    p.add_argument("-margin", type=float, default=1.0)
+    p.add_argument("-user_reg", type=float, default=0.01)
+    p.add_argument("-item_reg", type=float, default=0.01)
+    p.add_argument("-negative_samples", type=int, default=5,
+                   help="accepted for parity; print-only in the reference")
+    p.add_argument("-undirected", type=int, default=1)
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import CPR
+
+    m = CPR.load_domains(a.train_target, a.train_source, margin=a.margin,
+                         undirected=bool(a.undirected), user_reg=a.user_reg,
+                         item_reg=a.item_reg, device=a.device)
+    m.init(dim=a.dimensions)
+    m.train(update_times=a.update_times, alpha=a.alpha, **_ckpt_kw(a))
+    m.save_weights(a.save_user, a.save_target, a.save_source)
+
+
+@_cmd("tpr")
+def _tpr(argv):
+    p = _own_parser("tpr")
+    p.add_argument("-train_ui", required=True)
+    p.add_argument("-train_iw", required=True)
+    p.add_argument("-save_user", required=True)
+    p.add_argument("-save_item", required=True)
+    p.add_argument("-save_word", required=True)
+    p.add_argument("-dimensions", type=int, default=64)
+    p.add_argument("-sample_times", type=float, default=10)
+    p.add_argument("-alpha", type=float, default=0.025)
+    p.add_argument("-text_weight", type=float, default=0.3)
+    p.add_argument("-lambda", type=float, default=0.025, dest="lam",
+                   help="L2 regularization")
+    p.add_argument("-undirected", type=int, default=1)
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import TPR
+
+    m = TPR.load_graphs(a.train_ui, a.train_iw, text_weight=a.text_weight,
+                        undirected=bool(a.undirected), lam=a.lam,
+                        device=a.device)
+    m.init(dim=a.dimensions)
+    m.train(sample_times=a.sample_times, alpha=a.alpha, **_ckpt_kw(a))
+    m.save_weights(a.save_user, a.save_item, a.save_word)
 
 
 def main(argv=None) -> int:

@@ -135,6 +135,18 @@ def zeros_embedding(rows: int, dim: int,
     return torch.zeros(rows, dim, dtype=torch.float32, device=device)
 
 
+def seeded_generator(seed: int, stream: int,
+                     device: torch.device | str = "cuda") -> torch.Generator:
+    """A generator on ``device``, seeded from (model seed, stream): the
+    counterpart of the JAX package's keys split from ``PRNGKey(seed)``, so
+    init and training draw independent streams and every ``train()`` call
+    replays the same draws."""
+    s = np.random.SeedSequence([seed, stream]).generate_state(1, np.uint64)[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(s))
+    return gen
+
+
 def alpha_schedule(step0: int, steps: int, micro_steps: int, alpha: float,
                    inv_total: float) -> np.ndarray:
     """The learning rates of ``steps`` consecutive steps from ``step0``:
@@ -317,15 +329,7 @@ class PairModelBase:
         raise NotImplementedError
 
     def _generator(self, stream: int) -> torch.Generator:
-        """A generator on the model's device, seeded from (model seed,
-        stream): the counterpart of the JAX package's keys split from
-        ``PRNGKey(seed)``, so init and training draw independent streams and
-        every ``train()`` call replays the same draws."""
-        seed = np.random.SeedSequence([self.seed, stream]).generate_state(
-            1, np.uint64)[0]
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(int(seed))
-        return gen
+        return seeded_generator(self.seed, stream, self.device)
 
     def set_checkpoint(self, path: Optional[str], every: int = 1,
                        resume: bool = True) -> None:

@@ -33,6 +33,16 @@ from smore_tpu_torch.ops.update import sgns_shared_negs_step
 # batches in one block of draws
 EPOCH_MAX_VERTICES = 131_072
 EPOCH_MAX_BATCHES = 1024
+# the typed and temporal walk models' hoist: the walks of this many starts
+# in one draw (their walks are many small ops a step), at most 64 batches
+DRAW_HOIST_WALKS = 2048
+
+
+def draw_hoist(batch_walks: int) -> int:
+    """Batches of walks drawn at once by Metapath2Vec and CTDNE: the walks
+    do not depend on the tables, so drawing several batches' walks in one
+    pass keeps the law and divides the walk's host ops by the hoist."""
+    return max(1, min(64, DRAW_HOIST_WALKS // max(1, batch_walks)))
 
 
 def _no_mesh(mesh, sharding: str) -> None:

@@ -2,7 +2,9 @@
 
 Port of ``smore_tpu/sampling/tables.py``: the vertex and negative
 distributions, ``build_negative_table`` (the banded path's negative law)
-and ``SamplerTables``, the unbanded path's device sampler. A draw is
+and ``SamplerTables``, the unbanded path's device sampler, and ``VertexLaw``
+(one alias table or the uniform law, the negatives of the typed and
+temporal walk models). A draw is
 
     i ~ U{0..n-1};  u ~ U[0,1);  out = where(u < prob[i], value[i], alias[i])
 
@@ -17,6 +19,7 @@ JAX package's unpacked twins of the packed arrays (``vertex_prob``,
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -305,3 +308,37 @@ class SamplerTables:
             u_neg = self._uniform(gen, (n_negs, 2))
         negs = self.negative_sample(gen, (n_negs,), u2=u_neg)
         return src, pos, negs
+
+
+@dataclass
+class VertexLaw:
+    """A law over ``n_vertices`` vertices for negative draws, with
+    SamplerTables' ``negative_sample`` interface: the alias table ``pa``
+    (n, 2) f32 [prob, alias], or uniform when ``pa`` is None (the typed and
+    temporal walk models' negatives)."""
+
+    n_vertices: int
+    device: torch.device
+    pa: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def from_weights(weights: np.ndarray, power: float = 0.75,
+                     device: torch.device | str = "cuda") -> "VertexLaw":
+        """The law weights^power (the JAX package's
+        ``AliasTable.from_weights``: -1 alias slots point to themselves)."""
+        prob, alias = build_alias(weights, power=power)
+        alias = np.where(alias < 0, np.arange(len(alias)), alias)
+        pa = np.stack([prob, alias], 1).astype(np.float32)
+        return VertexLaw(len(prob), torch.device(device),
+                         torch.from_numpy(pa).to(device))
+
+    def negative_sample(self, gen: torch.Generator, shape,
+                        u2: torch.Tensor | None = None) -> torch.Tensor:
+        if self.pa is None:
+            return torch.randint(0, self.n_vertices, tuple(shape),
+                                 generator=gen, device=self.device,
+                                 dtype=torch.int32)
+        if u2 is None:
+            u2 = torch.rand(tuple(shape) + (2,), generator=gen,
+                            device=self.device)
+        return _alias_pick(u2, self.pa)

@@ -1,8 +1,8 @@
 """The port's command line, ``python -m smore_tpu_torch``, on the CPU.
 
 The checks of tests/test_cli.py and tests/test_cli_fidelity.py for the
-ported subcommands (``line``, the walk, rec and community families), run
-with ``-device cpu``; the rec family's ``mf``, ``bpr``, ``warp`` and
+ported subcommands (``line``, the walk, rec, community, knowledge-graph
+and typed-graph families), run with ``-device cpu``; the rec family's ``mf``, ``bpr``, ``warp`` and
 ``skewopt`` load the graph directed by default; the JAX package's other
 subcommands exit 2; ``-checkpoint`` resumes and ``-no_resume`` starts
 again.
@@ -35,8 +35,11 @@ def test_registry_covers_the_jax_cli():
                               "app", "mf", "bpr", "warp", "skewopt", "hpe",
                               "pe", "hoprec", "nemf", "nerank", "gcn",
                               "textgcn", "textgcndev", "eco", "fine",
-                              "msfine"}
-    assert len(NOT_PORTED) == 14
+                              "msfine", "transe", "rotate", "complex", "sne",
+                              "fastrp", "cpr", "tpr", "metapath2vec", "han",
+                              "ctdne"}
+    assert len(NOT_PORTED) == 4
+    assert set(NOT_PORTED) == {"jodie", "sasrec", "gsasrec", "recdenoiser"}
     assert not set(_REGISTRY) & set(NOT_PORTED)
     assert set(_REGISTRY) | set(NOT_PORTED) == set(JAX_REGISTRY)
 
@@ -318,6 +321,119 @@ def test_checkpoint_then_no_resume(tmp_path):
     assert c == run(str(tmp_path / "d.txt"), "3")
     assert c != a
     assert not load_checkpoint(ck)[0]["vertex"].equal(saved_a)
+
+
+def _typed_inputs(d):
+    """Toy inputs of the knowledge-graph and typed-graph subcommands:
+    {name: path} and the row count of each kind of output file."""
+    rng = np.random.default_rng(3)
+    files = {
+        # 12 people, 6 foods, 2 cuisines, 2 relations
+        "kg": "".join([f"f{j} in c{j % 2}\n" for j in range(6)]
+                      + [f"p{i} likes f{j}\n" for i in range(12)
+                         for j in rng.choice(6, 3, replace=False)]),
+        "signed": "".join([f"v{a} v{b} +1\n" for a in range(6)
+                           for b in range(a + 1, 6)]
+                          + [f"v{a} v{a + 6} -1\n" for a in range(6)]),
+        "hetero": "".join([f"a{a} author p{p} paper writes\n"
+                           for a in range(6) for p in rng.choice(8, 3,
+                                                                 replace=False)]
+                          + [f"p{p} paper v{p % 2} venue published_at\n"
+                             for p in range(8)]),
+        "temporal": "".join(f"n{a} n{b} {t}\n" for a, b, t in zip(
+            rng.integers(0, 10, 60), rng.integers(0, 10, 60),
+            rng.integers(0, 20, 60))),
+        "target": "".join(f"u{u} t{i} 1\n" for u in range(8)
+                          for i in rng.choice(6, 3, replace=False)),
+        "source": "".join(f"u{u} s{i} 1\n" for u in range(6)
+                          for i in rng.choice(5, 2, replace=False)),
+        "ui": "".join(f"u{u} i{i} 1\n" for u in range(8)
+                      for i in rng.choice(6, 3, replace=False)),
+        "iw": "".join(f"i{i} w{w} 1\n" for i in range(6)
+                      for w in rng.choice(4, 2, replace=False)),
+    }
+    paths = {}
+    for k, text in files.items():
+        paths[k] = str(d / f"{k}.txt")
+        with open(paths[k], "w") as f:
+            f.write(text)
+    return paths
+
+
+def _vertices(path):
+    return Graph.load_edge_list(path).n_vertices
+
+
+# subcommand -> (argv given the inputs and the output directory, [(output
+# flag, rows, columns)])
+def _typed_case(cmd, p, out):
+    dim = ["-dimensions", "8"]
+    if cmd in ("transe", "rotate", "complex"):
+        argv = ["-train", p["kg"], "-save_entity", f"{out}/e.txt",
+                "-save_relation", f"{out}/r.txt", "-epochs", "2",
+                "-batch_size", "16"] + dim
+        w = 8 if cmd == "transe" else 16  # complex rows: re | im
+        return argv, [("e.txt", 20, w), ("r.txt", 2, w)]
+    if cmd == "sne":
+        return (["-train", p["signed"], "-save", f"{out}/rep.txt", "-epochs",
+                 "2", "-samples_per_edge", "1"] + dim,
+                [("rep.txt", 12, 16)])  # [source | target]
+    if cmd == "fastrp":
+        return (["-train", p["target"], "-save",
+                 f"{out}/rep.txt", "-iterations", "2"] + dim,
+                [("rep.txt", _vertices(p["target"]), 8)])
+    if cmd in ("metapath2vec", "han"):
+        argv = ["-train", p["hetero"], "-save", f"{out}/rep.txt",
+                "-meta_path", "author,paper,author", "-walk_times", "2",
+                "-walk_steps", "4"] + dim
+        if cmd == "han":
+            argv += ["-meta_path", "author,paper,venue,paper,author",
+                     "-epochs", "1"]
+        return argv, [("rep.txt", 16, 8)]
+    if cmd == "ctdne":
+        return (["-train", p["temporal"], "-save", f"{out}/rep.txt",
+                 "-walk_times", "2", "-walk_steps", "5", "-window_size",
+                 "2"] + dim, [("rep.txt", 10, 8)])
+    if cmd == "cpr":
+        nt, ns = _vertices(p["target"]), _vertices(p["source"])
+        return (["-train_target", p["target"], "-train_source", p["source"],
+                 "-save_user", f"{out}/u.txt", "-save_target",
+                 f"{out}/t.txt", "-save_source", f"{out}/s.txt",
+                 "-update_times", "0.001"] + dim,
+                [("u.txt", max(nt, ns), 8), ("t.txt", nt, 8),
+                 ("s.txt", ns, 8)])
+    nu, nw = _vertices(p["ui"]), _vertices(p["iw"])
+    return (["-train_ui", p["ui"], "-train_iw", p["iw"], "-save_user",
+             f"{out}/u.txt", "-save_item", f"{out}/i.txt", "-save_word",
+             f"{out}/w.txt", "-sample_times", "0.001"] + dim,
+            [("u.txt", nu, 8), ("i.txt", nu, 8), ("w.txt", nw, 8)])
+
+
+TYPED = ["transe", "rotate", "complex", "sne", "fastrp", "cpr", "tpr",
+         "metapath2vec", "han", "ctdne"]
+
+
+@pytest.mark.parametrize("cmd", TYPED)
+def test_cli_typed_models_end_to_end(cmd, tmp_path):
+    """Each new subcommand on a toy file: every output file with its
+    header and row count, finite values."""
+    argv, outs = _typed_case(cmd, _typed_inputs(tmp_path), str(tmp_path))
+    assert main([cmd] + argv + CPU) == 0
+    for name, rows, cols in outs:
+        header, emb = _emb(str(tmp_path / name))
+        assert header == [str(rows), str(cols)], name
+        assert len(emb) == rows and all(len(v) == cols
+                                        for v in emb.values())
+
+
+def test_cli_kg_checkpoint_resumes(tmp_path):
+    p = _typed_inputs(tmp_path)
+    ck = str(tmp_path / "ck")
+    argv, _ = _typed_case("transe", p, str(tmp_path))
+    assert main(["transe"] + argv + CPU + ["-checkpoint", ck]) == 0
+    state, epochs, extra = load_checkpoint(ck)
+    assert epochs == 2 and extra["epochs"] == 2
+    assert set(state) == {"entity", "relation"}
 
 
 def test_python_m_entry_point(toy_edges, tmp_path):

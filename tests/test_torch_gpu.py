@@ -905,3 +905,89 @@ def test_community_model_trains_on_the_card(cuda, name, kw):
         assert bool(torch.isfinite(v).all()), k
         moved |= not torch.equal(v, before[k])
     assert moved and m.last_driver.executed_samples >= 20_000
+
+
+_KERNELS = (sgns_banded_multiblock, sgns_shared_grads, sgns_banded_fused,
+            band_scatter_add, sgns_banded_multiblock_nb)
+
+
+def _moved_on_card(before, state):
+    moved = False
+    for k, v in state.items():
+        assert v.device.type == "cuda"
+        assert bool(torch.isfinite(v).all()), k
+        moved |= not torch.equal(v, before[k])
+    return moved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["TransE", "RotatE", "ComplEx"])
+def test_kg_model_trains_on_the_card(cuda, name, tmp_path):
+    """Two epochs of each knowledge-graph model on the card (the smoke's
+    KG set, cut to 4 clusters): tables on the card, finite and moved, no
+    kernel launched, link prediction above chance."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.utils.oracle_data import make_kg
+
+    path = make_kg(str(tmp_path / "kg.txt"), n_clusters=4, per=50, n_rel=3,
+                   triples_per_rel=600)
+    m = getattr(models, name).load_triples(path, seed=0, device=cuda)
+    m.init(dim=16)
+    before = {k: v.clone() for k, v in m.state.items()}
+    for c in _KERNELS:
+        c.launches = 0
+    m.train(epochs=2, batch=128, alpha=0.01, verbose=False)
+    assert not any(c.launches for c in _KERNELS)
+    assert _moved_on_card(before, m.state)
+    assert m.evaluate_link_prediction(test_triples=200)[0] > 1 / 11
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["SNE", "FastRP", "CPR", "TPR",
+                                  "Metapath2Vec", "HAN", "CTDNE"])
+def test_typed_model_trains_on_the_card(cuda, name, tmp_path):
+    """A few steps of each typed-graph model on the card on the smoke's
+    sets: tables on the card, finite and moved (FastRP: unit rows), no
+    kernel launched."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.utils import oracle_data as od
+
+    cls = getattr(models, name)
+    d = str(tmp_path)
+    if name == "SNE":
+        m = cls.load_edge_list(od.make_signed(f"{d}/s.txt"),
+                               undirected=False, device=cuda)
+        run = dict(epochs=1, batch=512)
+    elif name == "FastRP":
+        m = cls.load_edge_list(od.make_community(f"{d}/c.txt"), device=cuda)
+        m.generate(dim=16)
+        x = m.state["vertex"]
+        assert x.device.type == "cuda"
+        torch.testing.assert_close(x.norm(dim=1),
+                                   torch.ones(len(x), device=cuda))
+        return
+    elif name == "CPR":
+        od.make_two_domains(f"{d}/t.txt", f"{d}/s.txt")
+        m = cls.load_domains(f"{d}/t.txt", f"{d}/s.txt", device=cuda)
+        run = dict(update_times=0.01)
+    elif name == "TPR":
+        od.make_text_rec(f"{d}/ui.txt", f"{d}/iw.txt")
+        m = cls.load_graphs(f"{d}/ui.txt", f"{d}/iw.txt", device=cuda)
+        run = dict(sample_times=0.01)
+    elif name == "CTDNE":
+        m = cls.load_edge_list(od.make_temporal(f"{d}/t.txt"),
+                               time_window=20.0, device=cuda)
+        run = dict(walk_times=1, walk_steps=10)
+    else:
+        m = cls.load_edge_list(od.make_hetero(f"{d}/h.txt"), device=cuda)
+        for mp in od.RUNS["han"]["meta_paths"]:
+            m.add_meta_path(mp)
+        run = (dict(walk_times=2, walk_steps=4, epochs=1) if name == "HAN"
+               else dict(walk_times=1, walk_steps=8))
+    m.init(dim=16)
+    before = {k: v.clone() for k, v in m.state.items()}
+    for c in _KERNELS:
+        c.launches = 0
+    m.train(verbose=False, **run)
+    assert not any(c.launches for c in _KERNELS)
+    assert _moved_on_card(before, m.state)

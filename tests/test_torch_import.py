@@ -34,6 +34,18 @@ MODULES = [
     "smore_tpu_torch.models.gcn",
     "smore_tpu_torch.models.eco",
     "smore_tpu_torch.models.fine",
+    "smore_tpu_torch.graph.knowledge",
+    "smore_tpu_torch.graph.signed",
+    "smore_tpu_torch.graph.hetero",
+    "smore_tpu_torch.graph.temporal",
+    "smore_tpu_torch.models.kg",
+    "smore_tpu_torch.models.sne",
+    "smore_tpu_torch.models.fastrp",
+    "smore_tpu_torch.models.cpr",
+    "smore_tpu_torch.models.metapath2vec",
+    "smore_tpu_torch.models.han",
+    "smore_tpu_torch.models.ctdne",
+    "smore_tpu_torch.utils.oracle_data",
     "smore_tpu_torch.ops.community",
     "smore_tpu_torch.models",
     "smore_tpu_torch.sampling.walks",
