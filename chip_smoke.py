@@ -2,15 +2,16 @@
 LINE's banded routes at Youtube scale and its unbanded path on the
 50k-vertex bench graph, then the command line (``python -m
 smore_tpu_torch``), the walk family and checkpoint/resume, the rec family,
-the community family and the knowledge-graph and typed-graph families, on
-one NVIDIA card.
+the community family, the knowledge-graph and typed-graph families, JODIE
+and the SASRec family, on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; there is no CPU path):
   1. device: a CUDA card must be present; prints its name and power limit
-  2. build: compiles smore_tpu_torch/csrc/*.cu with nvcc, one process per
-     source, all started together (first use)
+  2. build: compiles smore_tpu_torch/csrc/*.cu with nvcc (the five SGNS
+     kernels and jodie_epoch), one process per source, all started
+     together (first use)
   3. K4 vs twin at the banded path's shapes (S=16 micro-steps, B=2048,
      band 16400, Ks=128, D=64, 68 x 16400 table rows) and on the
      all-collide inputs of tests/torch_superstep_inputs.py (every source
@@ -144,6 +145,28 @@ Phases (any failure exits non-zero; there is no CPU path):
  28. ``rotate`` and ``cpr`` through the command line at phase 26's
      settings, scored from their saved files by phase 26's gates; no
      kernel launched; the wall split
+ 29. the jodie_epoch kernel (csrc/jodie_epoch.cu, one block scans an
+     epoch) against its plain loop on one epoch of go_oracle_parity's
+     interaction set (smore_tpu_torch.utils.seq_data.make_interactions:
+     8,000 events, 40 users, 60 items) at dim 64, bce_lr 0.2: the four
+     tables and the loss must agree; a call must be ONE launch of
+     jodie_epoch_scan; both times and the bound printed
+ 30. JODIE in this process on that set at run_jodie's settings (8 epochs,
+     lr 0.05) and dim 64, both arms (bce_lr at its default and 0.2): one
+     jodie_epoch launch an epoch, no other kernel; the static tables'
+     pairwise accuracy gated at its JAX record less 0.03 (SEQ_RECORDS,
+     computed on the CPU by experiments/seq_records.py); epoch time and
+     events/s printed
+ 31. SASRec, gSASRec and Rec-Denoiser in this process on sasrec_eval's
+     Markov set (seq_data.make_data: 4,000 users, 2,000 items, 30 steps)
+     at its full-autodiff settings (dim 64, max_seq_len 30, 2 blocks, 1
+     head, dropout 0.2, 5 negatives, lr 3e-3, batch 128, 100 epochs, the
+     last item held out): no kernel launched; recall@10 gated at its JAX
+     record less 0.03; steps/s and sequences/s printed
+ 32. ``jodie`` and ``sasrec -forward_only 1 -eval_holdout 1`` through the
+     command line at those settings: exit 0, well-formed files of finite
+     rows, jodie_epoch launched once an epoch; the forward-only recall@10
+     printed beside its JAX record; the wall split
 Each in-process path runs 1M samples first (tables, stream and warm-up),
 then every kernel's launch count is set to 0, read after the timed 40M run
 and printed; a command-line run counts the launches of its own process.
@@ -156,8 +179,8 @@ go to build/chip_smoke/ inside the checkout.
 also profiles 4M more samples of the multiblock, fused, order-1,
 neg_band, held fused, held scatter-only and unbanded main paths, one
 DeepWalk run on the 20k graph, 2M samples of BPR, NEMF, GCN, TEXTGCN,
-TEXTGCNdev, FINE and ECO, 2 epochs of TransE at FB15k-237's shape and 2
-epochs of HAN on the hetero set with torch.profiler, prints each run's
+TEXTGCNdev, FINE and ECO, 2 epochs of TransE at FB15k-237's shape, of
+HAN on the hetero set, of JODIE and of SASRec with torch.profiler, prints each run's
 device idle share and the torch ops and CUDA launches a step issues, and
 writes the kernel-time tables and Chrome traces to DIR (a measurement
 aid, off by default so that the smoke does not depend on the profiler).
@@ -255,6 +278,7 @@ def phase_device() -> torch.device:
 
 def _counters():
     """The launch-counting wrappers of every kernel, by kernel name."""
+    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
     from smore_tpu_torch.ops.scatter import band_scatter_add
     from smore_tpu_torch.ops.sgns import sgns_shared_grads
     from smore_tpu_torch.ops.sgns_banded import (
@@ -265,14 +289,20 @@ def _counters():
 
     return {f.__name__: f for f in (sgns_banded_multiblock, sgns_shared_grads,
                                     sgns_banded_fused, band_scatter_add,
-                                    sgns_banded_multiblock_nb)}
+                                    sgns_banded_multiblock_nb, jodie_epoch)}
 
 
 def phase_build() -> None:
-    from smore_tpu_torch.ops import _build, scatter, sgns, sgns_banded
+    from smore_tpu_torch.ops import (
+        _build,
+        jodie_epoch,
+        scatter,
+        sgns,
+        sgns_banded,
+    )
 
     loaders = (sgns_banded._load, sgns._load, sgns_banded._load_fused,
-               scatter._load, sgns_banded._load_nb)
+               scatter._load, sgns_banded._load_nb, jodie_epoch._load)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as ex:
         for f in [ex.submit(load) for load in loaders]:
@@ -281,7 +311,7 @@ def phase_build() -> None:
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name in ("sgns_banded_multiblock", "sgns_shared_grads",
                  "sgns_banded_fused", "band_scatter_add",
-                 "sgns_banded_multiblock_nb"):
+                 "sgns_banded_multiblock_nb", "jodie_epoch"):
         secs, report = _build.build_info[name]
         log(f"  {name}: {secs:.2f} s")
         for line in report.splitlines():
@@ -1001,6 +1031,7 @@ def _cli_timers() -> dict:
     """Wrap the steps of a CLI run (graph load, each model's train(),
     save_weights) so that each adds its seconds to the returned dict."""
     from smore_tpu_torch import models
+    from smore_tpu_torch.graph.bipartite import InteractionGraph
     from smore_tpu_torch.graph.graph import Graph
     from smore_tpu_torch.graph.hetero import HeteroGraph
     from smore_tpu_torch.graph.knowledge import KnowledgeGraph
@@ -1030,7 +1061,8 @@ def _cli_timers() -> dict:
     for store, attr in ((KnowledgeGraph, "load_triples"),
                         (SignedNetwork, "load_edge_list"),
                         (HeteroGraph, "load_edge_list"),
-                        (TemporalGraph, "load_edge_list")):
+                        (TemporalGraph, "load_edge_list"),
+                        (InteractionGraph, "load_interactions")):
         setattr(store, attr, staticmethod(timed("load", getattr(store,
                                                                  attr))))
     # FastRP generates instead of training; the KG models save two files
@@ -1066,7 +1098,8 @@ def run_cli(argv, timeout: int = 300) -> dict:
     times = json.loads(r.stdout.rsplit("times ", 1)[1].splitlines()[0])
     samples, secs = done[-1] if done else ("0", "0")
     return dict(wall=wall, samples=int(samples.replace(",", "")),
-                train_s=float(secs), launches=launches, times=times)
+                train_s=float(secs), launches=launches, times=times,
+                stdout=r.stdout)
 
 
 def _wall(r: dict) -> str:
@@ -1671,8 +1704,9 @@ TYPED_RECORDS = dict(transe=0.1391, rotate=0.5211, complex=0.6553,
 FB15K_SHAPE = dict(n_clusters=145, per=100, n_rel=237, triples_per_rel=1148)
 
 
-def _typed_gate(model: str, score: float, what: str) -> str:
-    record = TYPED_RECORDS[model]
+def _typed_gate(model: str, score: float, what: str,
+                records=TYPED_RECORDS) -> str:
+    record = records[model]
     gate = record - REC_MARGIN
     require(score >= gate, f"{model}: {what} {score:.4f} under the gate "
             f"{gate:.4f}")
@@ -1967,6 +2001,265 @@ def phase_typed_cli(f: dict) -> None:
         os.remove(p)
 
 
+# JODIE and the SASRec family (phases 29-32): the JAX package's records at
+# dim 64 and the smoke's budgets (experiments/seq_records.py on the CPU,
+# the lowest of model seeds 0-2; PERF.md), each gated less REC_MARGIN:
+# JODIE's pairwise accuracy on the static tables in both arms (bce_lr at
+# its default, the learning rate, and at 0.2), the SASRec family's
+# recall@10 of the leave-one-out ranking
+SEQ_RECORDS = dict(jodie=0.522, jodie_bce=0.863, sasrec=0.471,
+                   gsasrec=0.493, recdenoiser=0.512)
+# forward-only SASRec (the reference's semantics) at 100 epochs, dim 64:
+# recall@10 0.1860 (PERF_NOTES.md:261, one seed), printed beside the CLI's
+SASREC_FORWARD_ONLY_JAX = 0.1860
+
+
+def seq_files() -> dict:
+    """go_oracle_parity's interaction set and sasrec_eval's Markov set
+    (utils/seq_data.py) under OUT."""
+    from smore_tpu_torch.utils import seq_data as sd
+
+    os.makedirs(OUT, exist_ok=True)
+    f = {"events": os.path.join(OUT, "jodie_events.txt"),
+         "seq": os.path.join(OUT, "sasrec_markov.txt")}
+    sd.make_interactions(f["events"])
+    if os.path.exists(f["seq"]):
+        os.remove(f["seq"])  # make_data keeps an existing file
+    sd.make_data(f["seq"])
+    return f
+
+
+def _jodie_epoch_inputs(path, device):
+    """JODIE (seed 0, dim D) on the interaction set and one epoch's kernel
+    arguments but the tables: (model, args after the four tables)."""
+    from smore_tpu_torch.models import JODIE
+    from smore_tpu_torch.utils import seq_data as sd
+
+    m = JODIE.load_interactions(path, seed=0, device=device)
+    m.init(D)
+    ig = m.ig
+    gen = torch.Generator(device).manual_seed(1)
+    negs = torch.randint(0, ig.n_items, (ig.n_interactions,), generator=gen,
+                         device=device, dtype=torch.int32)
+    uid, iid, cu, ci = m.scan_inputs(m.state)
+    return m, (uid, iid, negs, cu, ci, m.state["user_rnn"],
+               m.state["item_rnn"], sd.JODIE_RUN["learning_rate"],
+               sd.JODIE_ARMS["jodie_bce"])
+
+
+def phase_jodie_vs_twin(path: str, device) -> dict:
+    """The jodie_epoch kernel against its plain loop on one epoch of the
+    8,000-event set at dim D (JODIE's own init, bce_lr 0.2, negatives from
+    a seeded generator, neg == i among them): the four tables and the loss
+    must agree; a call is ONE launch of jodie_epoch_scan; the loop's time
+    (host clock around one call: it is bound by its launches), the
+    kernel's, the bound."""
+    from smore_tpu_torch.ops import _build
+    from smore_tpu_torch.ops import jodie_epoch as je
+
+    jodie_epoch = je.jodie_epoch
+    m, args = _jodie_epoch_inputs(path, device)
+    st, ig = m.state, m.ig
+    T, U, I = ig.n_interactions, ig.n_users, ig.n_items
+    require(bool((args[2].cpu().numpy() == ig.item_ids).any()),
+            "jodie_epoch check: no event with neg == i")
+
+    def tables():
+        ue, ie = st["user_static"].clone(), st["item_static"].clone()
+        return [ue, ie, ue.clone(), ie.clone()]
+
+    a, b = tables(), tables()
+    la = jodie_epoch(*a, *args)
+    torch.cuda.synchronize()
+    # one call of the loop (seconds of host time; the kernel is hundreds of
+    # times faster, so no alternation is needed to tell them apart)
+    t0 = time.perf_counter()
+    lb = je.jodie_epoch_ref(*b, *args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(_compare(f"jodie_epoch {k}", x, y) for k, x, y in zip(
+        ("ue", "ie", "us", "is_", "loss"), a + [la], b + [lb]))
+    scratch = tables()
+    t_kern = [_time_ms(lambda: jodie_epoch(*scratch, *args), 5)
+              for _ in range(2)]
+    for _ in range(3):
+        host, kernels = _cuda_work(lambda: jodie_epoch(*scratch, *args))
+        require(len(host) == 3 and all(h.startswith("cudaLaunchKernel")
+                                       for h in host)
+                and len(kernels) <= 3
+                and all("jodie_epoch_scan" in k for k in kernels),
+                f"jodie_epoch: 3 calls put {host} / {kernels} on the card, "
+                "not 3 launches of jodie_epoch_scan")
+        if kernels:
+            break
+    log(f"jodie_epoch CUDA launches per call (profiler, 3 calls): host "
+        f"{len(host) / 3:g} {sorted(set(host))}, device kernels recorded "
+        f"{len(kernels)} {sorted(set(kernels)) or '(none: CUPTI dropped them)'}")
+    for line in _build.build_info["jodie_epoch"][1].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+    ms = min(t_kern)
+    log(f"jodie_epoch vs twin (T={T:,} events, {U} users, {I} items, "
+        f"D={D}, bce_lr {args[-1]}): max |diff| {err:.3e}; kernel {ms:.4f} "
+        f"ms an epoch {t_kern} (one block of {4 * D} threads, "
+        f"{je._load().jodie_epoch_smem_bytes(D):,} B of shared memory), "
+        f"plain loop {plain_ms:.1f} ms ({plain_ms / ms:.0f}x) [{_card()}]")
+    # two dot products, the BCE step, four D x D products (two cells), the
+    # tanh and the statics' step an event, multiply-adds counted twice;
+    # the four tables read and written once, ids, cu / ci, the weights
+    flops = T * (8 * D * D + 24 * D)
+    nbytes = (4 * (U + I) * D + 3 * T + 2 * T * D + 4 * D * D + 1) * 4
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **_bound("jodie_epoch", flops, nbytes), library_ms=None)
+
+
+def phase_jodie(path: str, device) -> int:
+    """JODIE's main path in this process: go_oracle_parity.run_jodie's
+    settings at dim D, both arms (bce_lr at its default and 0.2), every
+    kernel count 0 before the first: one jodie_epoch launch an epoch and
+    no other kernel, finite tables, the static tables' pairwise accuracy
+    gated at the JAX record less REC_MARGIN. Returns the launches."""
+    from smore_tpu_torch.models import JODIE
+    from smore_tpu_torch.utils import seq_data as sd
+
+    card = _card()
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    epochs = sd.JODIE_RUN["epochs"]
+    for arm, bce in sd.JODIE_ARMS.items():
+        m = JODIE.load_interactions(path, seed=0, device=device)
+        m.init(D)
+        t0 = time.perf_counter()
+        m.train(bce_lr=bce, verbose=False, **sd.JODIE_RUN)
+        dt = time.perf_counter() - t0  # train() synchronises at its end
+        ig = m.ig
+        st = {k: m.state[k] for k in ("user_static", "item_static")}
+        _finite(arm, dict(st, user_dyn=m.user_dyn, item_dyn=m.item_dyn))
+        acc = sd.jodie_eval(st["user_static"].cpu().numpy(),
+                            st["item_static"].cpu().numpy(), ig.user_ids,
+                            ig.item_ids, ig.n_items)
+        events = epochs * ig.n_interactions
+        log(f"{arm} ({ig.n_interactions:,} events, {ig.n_users} users x "
+            f"{ig.n_items} items, dim {D}, {epochs} epochs, lr "
+            f"{sd.JODIE_RUN['learning_rate']}, bce_lr "
+            f"{bce if bce is not None else 'the lr'}): {dt:.3f} s = "
+            f"{dt / epochs * 1e3:.2f} ms an epoch, {events / dt:,.0f} "
+            f"events/s; static "
+            f"{_typed_gate(arm, acc, 'pairwise accuracy', SEQ_RECORDS)}; "
+            f"dynamic {m.evaluate_predictions():.4f} [{card}]")
+    launches = counters["jodie_epoch"].launches
+    require(launches == 2 * epochs,
+            f"jodie: {launches} jodie_epoch launches, not {2 * epochs}")
+    _no_launch("jodie", {k: c for k, c in counters.items()
+                         if k != "jodie_epoch"})
+    return launches
+
+
+def phase_seq(path: str, device) -> dict:
+    """SASRec, gSASRec and Rec-Denoiser in this process on sasrec_eval's
+    Markov set at its full-autodiff settings (dim D, max_seq_len 30, 2
+    blocks, 1 head, dropout 0.2, 5 negatives, lr 3e-3, batch 128, 100
+    epochs, the last item held out): every kernel count 0 before each, none
+    launched, finite parameters, recall@10 gated at the JAX record less
+    REC_MARGIN; steps/s and sequences/s printed."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.utils import seq_data as sd
+
+    card = _card()
+    counters = _counters()
+    out = {}
+    tr = sd.SEQ_TRAIN
+    for model, cls_name in sd.SEQ_MODELS.items():
+        m = getattr(models, cls_name).load_edge_list(
+            path, seed=0, negative_samples=sd.SEQ_NEG, device=device)
+        m.init(dim=D, **sd.SEQ_INIT)
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        m.train(verbose=False, **tr)
+        dt = time.perf_counter() - t0  # train() synchronises at its end
+        _no_launch(model, counters)
+        _finite(model, dict(m.net.named_parameters()))
+        n_seq = len(m._holdout_seqs)
+        bs = min(tr["batch_size"], n_seq)
+        steps = tr["epochs"] * (n_seq // bs)
+        r = m.evaluate_ranking(ks=(10,))
+        log(f"{model} ({n_seq:,} sequences, {m.graph.n_vertices:,} "
+            f"vertices, dim {D}, {sd.SEQ_INIT}, {sd.SEQ_NEG} negatives, "
+            f"{tr}): {steps:,} steps in {dt:.3f} s = {steps / dt:.1f} "
+            f"steps/s, {steps * bs / dt:,.0f} sequences/s; "
+            f"{_typed_gate(model, r['recall@10'], 'recall@10', SEQ_RECORDS)}"
+            f" NDCG@10 {r['ndcg@10']:.4f}; no kernel launched [{card}]")
+        out[model] = m
+    return out
+
+
+def phase_seq_cli(f: dict) -> None:
+    """``jodie`` and ``sasrec -forward_only 1 -eval_holdout 1`` through the
+    command line: exit 0, well-formed files with finite rows, one
+    jodie_epoch launch an epoch; the forward-only recall@10 printed beside
+    its JAX record."""
+    import re
+
+    from smore_tpu_torch.graph.bipartite import InteractionGraph
+    from smore_tpu_torch.graph.graph import Graph
+    from smore_tpu_torch.io.embeddings import load_embeddings
+    from smore_tpu_torch.utils import seq_data as sd
+
+    card = _card()
+
+    def well_formed(path, names):
+        with open(path) as fh:
+            header = fh.readline().split()
+        emb = load_embeddings(path)
+        require(header == [str(len(names)), str(D)] and set(emb) ==
+                set(names), f"{path}: header {header}, {len(emb)} rows")
+        rows = np.stack([emb[n] for n in names])
+        require(rows.shape == (len(names), D) and np.isfinite(rows).all(),
+                f"{path}: rows {rows.shape}, finite "
+                f"{np.isfinite(rows).all()}")
+        return rows
+
+    epochs = sd.JODIE_RUN["epochs"]
+    files = [os.path.join(OUT, f"cli_jodie_{k}.txt") for k in ("u", "i")]
+    r = run_cli(["jodie", "-train", f["events"], "-save_user", files[0],
+                 "-save_item", files[1], "-dimensions", str(D), "-epochs",
+                 str(epochs), "-alpha",
+                 str(sd.JODIE_RUN["learning_rate"])])
+    others = {k: v for k, v in r["launches"].items() if k != "jodie_epoch"}
+    require(r["launches"]["jodie_epoch"] == epochs and not any(
+        others.values()), f"jodie through the CLI launched {r['launches']}")
+    ig = InteractionGraph.load_interactions(f["events"])
+    ue, ie = well_formed(files[0], ig.users), well_formed(files[1], ig.items)
+    acc = sd.jodie_eval(ue, ie, ig.user_ids, ig.item_ids, ig.n_items)
+    log(f"jodie (CLI, -epochs {epochs}): {r['launches']['jodie_epoch']} "
+        f"jodie_epoch launches; files {len(ig.users)} x {D} and "
+        f"{len(ig.items)} x {D}, finite; dynamic tables' pairwise accuracy "
+        f"{acc:.4f} (ungated); {_wall(r)} [{card}]")
+    for p in files:
+        os.remove(p)
+
+    tr = sd.SEQ_TRAIN
+    save = os.path.join(OUT, "cli_sasrec.txt")
+    r = run_cli(["sasrec", "-train", f["seq"], "-save", save, "-dimensions",
+                 str(D), "-max_seq_len", str(sd.SEQ_INIT["max_seq_len"]),
+                 "-epochs", str(tr["epochs"]), "-batch_size",
+                 str(tr["batch_size"]), "-alpha", str(tr["alpha"]),
+                 "-negative_samples", str(sd.SEQ_NEG), "-forward_only", "1",
+                 "-eval_holdout", "1"], timeout=600)
+    require(not any(r["launches"].values()),
+            f"sasrec through the CLI launched {r['launches']}")
+    found = re.findall(r"recall@10: ([\d.]+)", r["stdout"])
+    require(len(found) == 1, "sasrec: no recall@10 line")
+    well_formed(save, Graph.load_edge_list(f["seq"], undirected=False).names)
+    log(f"sasrec (CLI, -forward_only 1 -eval_holdout 1, -epochs "
+        f"{tr['epochs']}): recall@10 {found[0]} (JAX forward-only "
+        f"{SASREC_FORWARD_ONLY_JAX}, one seed; ungated); file well-formed; "
+        f"no kernel launched; {_wall(r)} [{card}]")
+    os.remove(save)
+
+
 def phase_profile(m, out_dir: str, name: str, warm=None, run=None,
                   steps=None, **kw) -> None:
     """Kernel time by name, the card's busy share and the host's ops and
@@ -2073,6 +2366,14 @@ def main() -> None:
                  device)
     timed("rotate and cpr through the CLI", phase_typed_cli, tf)
     log(f"KG and typed-graph phases: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sf = seq_files()
+    kj = timed("jodie_epoch vs twin", phase_jodie_vs_twin, sf["events"],
+               device)
+    kj_launches = timed("JODIE", phase_jodie, sf["events"], device)
+    seq = timed("SASRec family", phase_seq, sf["seq"], device)
+    timed("jodie and sasrec through the CLI", phase_seq_cli, sf)
+    log(f"JODIE and SASRec-family phases: {time.perf_counter() - t0:.1f} s")
     if args.profile:
         phase_profile(m_yt, args.profile, "line_yt")
         phase_profile(m_fused, args.profile, "line_yt_fused",
@@ -2117,6 +2418,23 @@ def main() -> None:
                       run=dict(epochs=2, **han_kw),
                       steps=(2 * (han.hg.n_vertices // 512 + 1), 512,
                              "node updates"))
+        from smore_tpu_torch.models import JODIE
+        from smore_tpu_torch.utils import seq_data as sd
+
+        jodie = JODIE.load_interactions(sf["events"], seed=0, device=device)
+        jodie.init(D)
+        jodie_kw = dict(learning_rate=0.05, bce_lr=0.2, verbose=False)
+        phase_profile(jodie, args.profile, "jodie_events",
+                      warm=dict(epochs=1, **jodie_kw),
+                      run=dict(epochs=2, **jodie_kw),
+                      steps=(2, jodie.ig.n_interactions, "events"))
+        m_seq = seq["sasrec"]
+        n_seq = len(m_seq._holdout_seqs)
+        seq_kw = dict(sd.SEQ_TRAIN, verbose=False)
+        phase_profile(m_seq, args.profile, "sasrec_markov",
+                      warm=dict(seq_kw, epochs=1),
+                      run=dict(seq_kw, epochs=2),
+                      steps=(2 * (n_seq // 128), 128, "sequences"))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {
@@ -2158,6 +2476,14 @@ def main() -> None:
             "replaces": "smore_tpu/ops/pallas_sgns_banded.py:802",
             "launches": k5_launches,
             **k5,
+        },
+        {
+            "name": "jodie_epoch",
+            "route": "cuda",
+            "source": "smore_tpu_torch/csrc/jodie_epoch.cu",
+            "replaces": "smore_tpu/models/jodie.py:141",
+            "launches": kj_launches,
+            **kj,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,14 @@
 """``python -m smore_tpu_torch``: one entry point, one subcommand per model.
 
-Port of ``smore_tpu/cli/main.py`` for the models ported so far (``line``,
-the walk family ``deepwalk``, ``walklets``, ``node2vec``, ``app``, the rec
-family ``mf``, ``bpr``, ``warp``, ``skewopt``, ``hpe``, ``pe``,
-``hoprec``, ``nemf``, ``nerank``, the community family ``gcn``,
-``textgcn``, ``textgcndev``, ``eco``, ``fine``, ``msfine``, the
-knowledge-graph family ``transe``, ``rotate``, ``complex`` and the
-typed-graph family ``sne``, ``fastrp``, ``cpr``, ``tpr``,
-``metapath2vec``, ``han``, ``ctdne``), with the same flags, defaults and
-output files. The reference CLIs' flag conventions
+Port of ``smore_tpu/cli/main.py``, every subcommand (``line``, the walk
+family ``deepwalk``, ``walklets``, ``node2vec``, ``app``, the rec family
+``mf``, ``bpr``, ``warp``, ``skewopt``, ``hpe``, ``pe``, ``hoprec``,
+``nemf``, ``nerank``, the community family ``gcn``, ``textgcn``,
+``textgcndev``, ``eco``, ``fine``, ``msfine``, the knowledge-graph family
+``transe``, ``rotate``, ``complex``, the typed-graph family ``sne``,
+``fastrp``, ``cpr``, ``tpr``, ``metapath2vec``, ``han``, ``ctdne``, and
+``jodie``, ``sasrec``, ``gsasrec``, ``recdenoiser``), with the same flags,
+defaults and output files. The reference CLIs' flag conventions
 hold: single-dash long flags, e.g.::
 
     python -m smore_tpu_torch line -train net.txt -save rep.txt -order 2
@@ -20,8 +20,8 @@ hold: single-dash long flags, e.g.::
 
 One flag is the port's own: ``-device`` (default ``cuda``, the card;
 ``cpu`` to run on the host). Without a card the default raises at the first
-allocation; nothing falls back to the CPU. A subcommand of the JAX
-package's CLI that is not ported yet exits with code 2 and says so.
+allocation; nothing falls back to the CPU. A subcommand listed in
+``NOT_PORTED`` (none now) exits with code 2 and says so.
 """
 
 from __future__ import annotations
@@ -32,8 +32,8 @@ from typing import Callable, Dict
 
 _REGISTRY: Dict[str, Callable] = {}
 
-# the JAX package's other subcommands, in the order of ROADMAP.md Queue 1
-NOT_PORTED = ("jodie", "sasrec", "gsasrec", "recdenoiser")
+# the JAX package's subcommands not ported yet: none
+NOT_PORTED = ()
 
 
 def _cmd(name):
@@ -560,13 +560,99 @@ def _tpr(argv):
     m.save_weights(a.save_user, a.save_item, a.save_word)
 
 
+@_cmd("jodie")
+def _jodie(argv):
+    p = _own_parser("jodie")
+    p.add_argument("-train", required=True,
+                   help="user item timestamp [features...] lines")
+    p.add_argument("-save_user", required=True)
+    p.add_argument("-save_item", required=True)
+    p.add_argument("-dimensions", type=int, default=64)
+    p.add_argument("-epochs", type=int, default=5)
+    p.add_argument("-alpha", type=float, default=0.01)
+    p.add_argument("-batch-size", type=int, default=128, dest="batch_size",
+                   help="accepted for compatibility; the reference prints "
+                        "it and trains chronologically")
+    a = p.parse_args(argv)
+    from smore_tpu_torch.models import JODIE
+
+    m = JODIE.load_interactions(a.train, device=a.device)
+    m.init(dim=a.dimensions)
+    m.train(epochs=a.epochs, learning_rate=a.alpha, **_ckpt_kw(a))
+    print(f"\tpairwise accuracy: {m.evaluate_predictions():.4f}")
+    m.save_weights(a.save_user, a.save_item)
+
+
+def _seq_model(name, cls_name, extra=()):
+    """sasrec, gsasrec, recdenoiser: user -> item edges whose file order is
+    each user's sequence; the item rows are saved. -checkpoint_every
+    counts epochs."""
+
+    def run(argv):
+        p = _own_parser(name)
+        p.add_argument("-train", required=True)
+        p.add_argument("-save", required=True)
+        p.add_argument("-dimensions", type=int, default=64)
+        p.add_argument("-max_seq_len", type=int, default=50)
+        p.add_argument("-num_blocks", type=int, default=2)
+        p.add_argument("-num_heads", type=int, default=1)
+        p.add_argument("-dropout", type=float, default=0.2)
+        p.add_argument("-epochs", type=int, default=10)
+        p.add_argument("-batch_size", type=int, default=128)
+        p.add_argument("-alpha", type=float, default=0.001)
+        p.add_argument("-negative_samples", type=int, default=1,
+                       help="negatives per position, summed")
+        p.add_argument("-eval_holdout", type=int, default=0,
+                       help="1 = withhold each user's last item, train on "
+                            "the prefix, and print recall@10 / NDCG@10 "
+                            "(leave-one-out next-item ranking)")
+        p.add_argument("-forward_only", type=int, default=0,
+                       help="1 = train ONLY the item embeddings (the "
+                            "reference's semantics); 0 = full autodiff "
+                            "(default)")
+        for flag, typ, dv in extra:
+            p.add_argument(flag, type=typ, default=dv)
+        a = p.parse_args(argv)
+        from smore_tpu_torch import models
+
+        kw = {"negative_samples": a.negative_samples, "device": a.device}
+        if cls_name == "GSASRec":
+            kw["beta"] = a.beta
+        if cls_name == "RecDenoiser":
+            kw["lambda_sparsity"] = a.lambda_sparsity
+            kw["sparsity"] = a.sparsity
+        m = getattr(models, cls_name).load_edge_list(a.train, **kw)
+        m.init(dim=a.dimensions, max_seq_len=a.max_seq_len,
+               num_blocks=a.num_blocks, num_heads=a.num_heads,
+               dropout=a.dropout)
+        m.train(epochs=a.epochs, batch_size=a.batch_size, alpha=a.alpha,
+                holdout=bool(a.eval_holdout),
+                forward_only=bool(a.forward_only), **_ckpt_kw(a))
+        if a.eval_holdout:
+            r = m.evaluate_ranking(ks=(10,))
+            print(f"\trecall@10: {r['recall@10']:.4f}  "
+                  f"NDCG@10: {r['ndcg@10']:.4f}")
+        m.save_weights(a.save)
+
+    return run
+
+
+_REGISTRY["sasrec"] = _seq_model("sasrec", "SASRec")
+_REGISTRY["gsasrec"] = _seq_model("gsasrec", "GSASRec",
+                                  [("-beta", float, 0.5)])
+_REGISTRY["recdenoiser"] = _seq_model(
+    "recdenoiser", "RecDenoiser",
+    [("-lambda_sparsity", float, 0.01), ("-sparsity", float, 0.3)])
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help", "help"):
         print("smore_tpu_torch: SMORe on PyTorch and CUDA. Subcommands:\n  "
               + ", ".join(sorted(_REGISTRY)))
-        print("Not ported yet (run them with python -m smore_tpu):\n  "
-              + ", ".join(sorted(NOT_PORTED)))
+        if NOT_PORTED:
+            print("Not ported yet (run them with python -m smore_tpu):\n  "
+                  + ", ".join(sorted(NOT_PORTED)))
         print("\nRun `python -m smore_tpu_torch <model>` with no flags for "
               "that model's options.")
         return 0

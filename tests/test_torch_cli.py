@@ -1,11 +1,11 @@
 """The port's command line, ``python -m smore_tpu_torch``, on the CPU.
 
 The checks of tests/test_cli.py and tests/test_cli_fidelity.py for the
-ported subcommands (``line``, the walk, rec, community, knowledge-graph
-and typed-graph families), run with ``-device cpu``; the rec family's ``mf``, ``bpr``, ``warp`` and
-``skewopt`` load the graph directed by default; the JAX package's other
-subcommands exit 2; ``-checkpoint`` resumes and ``-no_resume`` starts
-again.
+subcommands (``line``, the walk, rec, community, knowledge-graph and
+typed-graph families, ``jodie`` and the SASRec family), run with ``-device
+cpu``; the rec family's ``mf``, ``bpr``, ``warp`` and ``skewopt`` load the
+graph directed by default; every subcommand of the JAX package's CLI is
+ported; ``-checkpoint`` resumes and ``-no_resume`` starts again.
 """
 
 import os
@@ -31,34 +31,17 @@ CPU = ["-device", "cpu"]  # the CLI defaults to the card
 
 
 def test_registry_covers_the_jax_cli():
-    assert set(_REGISTRY) == {"line", "deepwalk", "walklets", "node2vec",
-                              "app", "mf", "bpr", "warp", "skewopt", "hpe",
-                              "pe", "hoprec", "nemf", "nerank", "gcn",
-                              "textgcn", "textgcndev", "eco", "fine",
-                              "msfine", "transe", "rotate", "complex", "sne",
-                              "fastrp", "cpr", "tpr", "metapath2vec", "han",
-                              "ctdne"}
-    assert len(NOT_PORTED) == 4
-    assert set(NOT_PORTED) == {"jodie", "sasrec", "gsasrec", "recdenoiser"}
-    assert not set(_REGISTRY) & set(NOT_PORTED)
-    assert set(_REGISTRY) | set(NOT_PORTED) == set(JAX_REGISTRY)
+    assert set(_REGISTRY) == set(JAX_REGISTRY)
+    assert NOT_PORTED == ()
 
 
 def test_help_and_unknown(capsys):
     assert main([]) == 0
     assert main(["help"]) == 0
     out = capsys.readouterr().out
-    assert "deepwalk" in out and "hpe" in out
+    assert "deepwalk" in out and "hpe" in out and "recdenoiser" in out
+    assert "Not ported" not in out
     assert main(["nosuchmodel"]) == 1
-
-
-@pytest.mark.parametrize("cmd", NOT_PORTED)
-def test_jax_only_subcommand_exits_2(cmd, capsys, tmp_path):
-    out = tmp_path / "rep.txt"
-    assert main([cmd, "-train", "x.txt", "-save", str(out)] + CPU) == 2
-    err = capsys.readouterr().err
-    assert "not ported" in err and "ROADMAP" in err
-    assert not out.exists()
 
 
 @pytest.fixture()
@@ -436,6 +419,78 @@ def test_cli_kg_checkpoint_resumes(tmp_path):
     assert set(state) == {"entity", "relation"}
 
 
+def _interactions(d):
+    """``user item timestamp`` events: 6 users, 8 items, time ties."""
+    rng = np.random.default_rng(3)
+    p = d / "events.txt"
+    p.write_text("".join(f"u{e % 6} i{rng.integers(0, 8)} {e // 3}\n"
+                         for e in range(60)))
+    return str(p)
+
+
+def _sequences(d):
+    """user -> item edges in sequence order: 10 users, 12 items."""
+    rng = np.random.default_rng(4)
+    p = d / "seq.txt"
+    p.write_text("".join(f"u{u} i{i} 1\n" for u in range(10)
+                         for i in rng.integers(0, 12, 6)))
+    return str(p)
+
+
+# subcommand -> the extra flags of its model
+SEQ = {"jodie": [], "sasrec": [], "gsasrec": ["-beta", "0.3"],
+       "recdenoiser": ["-lambda_sparsity", "0.05", "-sparsity", "0.2"]}
+
+
+@pytest.mark.parametrize("cmd", list(SEQ))
+def test_cli_seq_models_end_to_end(cmd, tmp_path, capsys):
+    """jodie (user and item files of the dynamic tables) and the SASRec
+    family (item rows under the graph's names, the pad row dropped) on toy
+    files: headers, row counts, finite values; -eval_holdout prints the
+    ranking and -checkpoint writes one."""
+    dim = ["-dimensions", "8"]
+    if cmd == "jodie":
+        argv = ["-train", _interactions(tmp_path), "-save_user",
+                str(tmp_path / "u.txt"), "-save_item",
+                str(tmp_path / "i.txt"), "-epochs", "2", "-batch-size", "4"]
+        outs = [("u.txt", 6), ("i.txt", 8)]
+    else:
+        train = _sequences(tmp_path)
+        argv = ["-train", train, "-save", str(tmp_path / "rep.txt"),
+                "-max_seq_len", "4", "-num_blocks", "1", "-num_heads", "2",
+                "-epochs", "2", "-batch_size", "4", "-negative_samples", "2",
+                "-eval_holdout", "1", "-threads", "3"] + SEQ[cmd]
+        outs = [("rep.txt", Graph.load_edge_list(
+            train, undirected=False).n_vertices)]
+    ck = str(tmp_path / "ck")
+    assert main([cmd] + argv + dim + CPU + ["-checkpoint", ck]) == 0
+    out = capsys.readouterr().out
+    assert ("pairwise accuracy" if cmd == "jodie" else "recall@10") in out
+    for name, rows in outs:
+        header, emb = _emb(str(tmp_path / name))
+        assert header == [str(rows), "8"], name
+        assert len(emb) == rows
+    assert load_checkpoint(ck)[1] == 2  # the epoch counter
+
+
+def test_cli_sasrec_forward_only_keeps_the_network(tmp_path):
+    """-forward_only 1 trains the item rows alone: the saved checkpoint's
+    network matches a fresh init everywhere else."""
+    from smore_tpu_torch.models import SASRec
+
+    train = _sequences(tmp_path)
+    ck = str(tmp_path / "ck")
+    assert main(["sasrec", "-train", train, "-save", str(tmp_path / "r.txt"),
+                 "-dimensions", "8", "-max_seq_len", "4", "-epochs", "1",
+                 "-batch_size", "4", "-forward_only", "1", "-checkpoint",
+                 ck] + CPU) == 0
+    m = SASRec.load_edge_list(train, device="cpu")
+    m.init(dim=8, max_seq_len=4)
+    saved = load_checkpoint(ck)[0]["net"]
+    for k, v in m.net.state_dict().items():
+        assert torch.equal(saved[k], v) != (k == "item.weight"), k
+
+
 def test_python_m_entry_point(toy_edges, tmp_path):
     """``python -m smore_tpu_torch``: -device cpu trains; with no -device the
     run is on the card, so without one it fails instead of falling back."""
@@ -448,11 +503,17 @@ def test_python_m_entry_point(toy_edges, tmp_path):
                        text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert out.read_text().split("\n")[0] == "24 8"
-    r = subprocess.run([sys.executable, "-m", "smore_tpu_torch",
-                        NOT_PORTED[0]],
+    ev = _interactions(tmp_path)
+    files = [str(tmp_path / f"{k}.txt") for k in ("user", "item")]
+    r = subprocess.run([sys.executable, "-m", "smore_tpu_torch", "jodie",
+                        "-train", ev, "-save_user", files[0], "-save_item",
+                        files[1], "-dimensions", "8", "-epochs", "1"] + CPU,
                        env=env, cwd=ROOT, capture_output=True, text=True,
                        timeout=300)
-    assert r.returncode == 2 and "not ported" in r.stderr
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "pairwise accuracy" in r.stdout
+    assert [open(f).readline().split() for f in files] == [["6", "8"],
+                                                           ["8", "8"]]
     if not torch.cuda.is_available():
         out.unlink()
         r = subprocess.run(base, env=env, cwd=ROOT, capture_output=True,

@@ -991,3 +991,106 @@ def test_typed_model_trains_on_the_card(cuda, name, tmp_path):
     m.train(verbose=False, **run)
     assert not any(c.launches for c in _KERNELS)
     assert _moved_on_card(before, m.state)
+
+
+def _jodie_inputs(tmp_path, dim, features):
+    """JODIE on an 1,500-event clustered set (the smoke's generator, cut),
+    with two feature columns when ``features``; the epoch's inputs on the
+    card and JODIE's fixed draws."""
+    from smore_tpu_torch.models import JODIE
+    from smore_tpu_torch.utils.seq_data import make_interactions
+
+    path = make_interactions(str(tmp_path / "ev.txt"), events=1500)
+    if features:
+        rng = np.random.default_rng(0)
+        lines = open(path).read().splitlines()
+        with open(path, "w") as f:
+            f.writelines(f"{ln} {a:.3f} {b:.3f}\n"
+                         for ln, (a, b) in zip(lines, rng.random((len(lines),
+                                                                   2))))
+    m = JODIE.load_interactions(path, seed=0, device="cuda")
+    m.init(dim)
+    return m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,features", [(32, False), (64, False),
+                                          (64, True), (96, True)])
+def test_jodie_epoch_kernel_matches_the_twin(cuda, tmp_path, dim, features):
+    """One epoch through the kernel and through the plain loop, the same
+    draws (events with neg == i among them): the four tables and the loss
+    agree to f32 round-off (the dot products and cell products sum in
+    another order), and the kernel launched once."""
+    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch, jodie_epoch_ref
+
+    m = _jodie_inputs(tmp_path, dim, features)
+    ig = m.ig
+    negs = torch.from_numpy(np.random.default_rng(1).integers(
+        0, ig.n_items, ig.n_interactions)).to(cuda)
+    assert bool((negs.cpu().numpy() == ig.item_ids).any())
+    st = m.state
+    up, ip = st["user_rnn"], st["item_rnn"]
+    uid, iid, cu, ci = m.scan_inputs(st)
+
+    def tables():
+        ue, ie = st["user_static"].clone(), st["item_static"].clone()
+        return [ue, ie, ue.clone(), ie.clone()]
+
+    a, b = tables(), tables()
+    before = jodie_epoch.launches
+    la = jodie_epoch(*a, uid, iid, negs, cu, ci, up, ip, 0.05, 0.2)
+    torch.cuda.synchronize()
+    assert jodie_epoch.launches == before + 1
+    lb = jodie_epoch_ref(*b, uid, iid, negs, cu, ci, up, ip, 0.05, 0.2)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(la, lb, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_jodie_trains_on_the_card_one_launch_an_epoch(cuda, tmp_path):
+    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
+
+    m = _jodie_inputs(tmp_path, 64, False)
+    before = m.state["user_static"].clone()
+    n = jodie_epoch.launches
+    m.train(epochs=3, learning_rate=0.05, bce_lr=0.2, verbose=False)
+    assert jodie_epoch.launches == n + 3
+    assert bool(torch.isfinite(m.user_dyn).all())
+    assert not torch.equal(m.state["user_static"], before)
+    assert m.evaluate_predictions() > 0.6
+
+
+@pytest.mark.gpu
+def test_jodie_kernel_refuses_a_dim_it_cannot_hold(cuda, tmp_path):
+    m = _jodie_inputs(tmp_path, 48, False)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        m.train(epochs=1, verbose=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["SASRec", "GSASRec", "RecDenoiser"])
+def test_seq_model_trains_on_the_card(cuda, name, tmp_path):
+    """Two epochs of each SASRec-family model on the card on a cut Markov
+    set: parameters on the card, finite and moved, no kernel launched,
+    the ranking evaluated."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
+
+    path = tmp_path / "seq.txt"
+    rng = np.random.default_rng(0)
+    path.write_text("".join(f"u{u} i{i} 1\n" for u in range(200)
+                            for i in rng.integers(0, 100, 12)))
+    m = getattr(models, name).load_edge_list(str(path), device=cuda,
+                                              negative_samples=3)
+    m.init(dim=32, max_seq_len=10)
+    before = {k: v.clone() for k, v in m.net.state_dict().items()}
+    counters = _KERNELS + (jodie_epoch,)
+    for c in counters:
+        c.launches = 0
+    m.train(epochs=2, batch_size=32, alpha=0.003, verbose=False,
+            holdout=True)
+    assert not any(c.launches for c in counters)
+    assert _moved_on_card(before, m.net.state_dict())
+    r = m.evaluate_ranking()
+    assert 0.0 <= r["recall@10"] <= 1.0

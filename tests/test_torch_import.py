@@ -55,6 +55,13 @@ MODULES = [
     "smore_tpu_torch.utils.checkpoint",
     "smore_tpu_torch.utils.rec_data",
     "smore_tpu_torch.utils.structured_data",
+    "smore_tpu_torch.graph.bipartite",
+    "smore_tpu_torch.ops.rnn",
+    "smore_tpu_torch.ops.jodie_epoch",
+    "smore_tpu_torch.models.jodie",
+    "smore_tpu_torch.models.sasrec",
+    "smore_tpu_torch.utils.profiling",
+    "smore_tpu_torch.utils.seq_data",
     "smore_tpu_torch.cli.main",
 ]
 

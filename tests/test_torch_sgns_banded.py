@@ -22,6 +22,7 @@ from smore_tpu.ops.pallas_sgns_banded import (
     sgns_banded_multiblock as jax_multiblock,
     unfold_table,
 )
+from smore_tpu_torch.ops import jodie_epoch as jodie_ops
 from smore_tpu_torch.ops import scatter as scatter_ops
 from smore_tpu_torch.ops import sgns as sgns_ops
 from smore_tpu_torch.ops import sgns_banded as sgns_banded_ops
@@ -152,6 +153,6 @@ def _ctypes_kinds(argtypes):
 @pytest.mark.parametrize("name", _LAUNCHERS)
 def test_launch_signature_matches_ctypes(name):
     argtypes = {**sgns_banded_ops.LAUNCH_ARGTYPES, **sgns_ops.LAUNCH_ARGTYPES,
-                **scatter_ops.LAUNCH_ARGTYPES}
+                **scatter_ops.LAUNCH_ARGTYPES, **jodie_ops.LAUNCH_ARGTYPES}
     assert name in argtypes, f"no wrapper binds csrc/{name}.cu"
     assert _c_kinds(name) == _ctypes_kinds(argtypes[name])
