@@ -167,6 +167,19 @@ Phases (any failure exits non-zero; there is no CPU path):
      command line at those settings: exit 0, well-formed files of finite
      rows, jodie_epoch launched once an epoch; the forward-only recall@10
      printed beside its JAX record; the wall split
+ 33. multi-device modes on the card, LINE o2 on the 50k graph: (a) a
+     one-rank NCCL group in this process, 4M samples each of "dp" and
+     "rows" (unbanded, use_pallas=True: K1 launched) and "hogwild"
+     (banded=True: the multiblock route, K4 launched), finite tables, each
+     beside a single-device run; (b) two ranks sharing the card over gloo
+     (NCCL refuses two ranks on one device), child processes of this
+     script whose exit codes are checked: "rows" at 8M, its community AUC
+     within 0.005 of the single-device run at the same seed and budget;
+     "dp" at 40M in all (each rank's batch 16384, so a merged step applies
+     32768 samples), AUC >= 0.99; "hogwild" (banded=True) at 40M in all,
+     AUC within 0.01 of a single-device banded run, K4 launched on each
+     rank. Each mode prints its samples/s, its collectives' calls, bytes
+     and seconds, and the backend
 Each in-process path runs 1M samples first (tables, stream and warm-up),
 then every kernel's launch count is set to 0, read after the timed 40M run
 and printed; a command-line run counts the launches of its own process.
@@ -1003,15 +1016,23 @@ WALK_RUNS = (
              "-negative_samples", "5"], None),
 )
 INIT_NORM = np.sqrt(D / 12.0) / D  # mean row norm of U(-0.5, 0.5) / D
-# a CLI run as ``python -m smore_tpu_torch`` runs it, then the launch count
-# of every kernel in that process (all 0 at its start) and the seconds the
-# run spent in it, in the graph load, in the model's train() and in
-# save_weights (the CLI's own steps, timed by wrapping them)
+# a CLI child: its imports, then it waits for its arguments (one JSON line
+# on stdin; none: exit), runs them as ``python -m smore_tpu_torch`` does,
+# then prints the launch count of every kernel in that process (all 0 at
+# its start) and the seconds it spent in its imports, in the run, in the
+# graph load, in the model's train() and in save_weights (the CLI's own
+# steps, timed by wrapping them). Children are started one run ahead, so
+# that their imports overlap the run before (run_cli).
 _CLI_RUN = (
     "import json, runpy, sys, time\n"
+    "t0 = time.perf_counter()\n"
     "from chip_smoke import _cli_timers, _counters\n"
     "times = _cli_timers()\n"
-    "sys.argv = ['smore_tpu_torch'] + sys.argv[1:]\n"
+    "times['imports'] = time.perf_counter() - t0\n"
+    "line = sys.stdin.readline()\n"
+    "if not line:\n"
+    "    sys.exit(0)\n"
+    "sys.argv = ['smore_tpu_torch'] + json.loads(line)\n"
     "t0 = time.perf_counter()\n"
     "rc = 0\n"
     "try:\n"
@@ -1076,42 +1097,68 @@ def _cli_timers() -> dict:
     return times
 
 
+_SPARE_CLI = []  # the CLI child started ahead; closed by main's end
+
+
+def _start_cli():
+    return subprocess.Popen([sys.executable, "-c", _CLI_RUN], cwd=HERE,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def close_spare_cli() -> None:
+    """End the child started ahead: its stdin closes, and it exits."""
+    while _SPARE_CLI:
+        p = _SPARE_CLI.pop()
+        p.communicate(timeout=120)
+
+
 def run_cli(argv, timeout: int = 300) -> dict:
     """``python -m smore_tpu_torch <argv>`` in a child process on the card
-    (the kernels built above are found in the build directory). Returns its
-    wall time, the samples and seconds of its driver's last line and its
-    kernel launches; fails on a non-zero exit."""
+    (the kernels built above are found in the build directory): the child
+    started ahead, or a new one, and a new child starts ahead for the next
+    run. Returns its wall time from the arguments to its exit, the samples
+    and seconds of its driver's last line and its kernel launches; fails
+    on a non-zero exit."""
     import re
 
+    p = _SPARE_CLI.pop() if _SPARE_CLI else _start_cli()
+    _SPARE_CLI.append(_start_cli())
     t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-c", _CLI_RUN] + list(argv),
-                       cwd=HERE, capture_output=True, text=True,
-                       timeout=timeout)
+    try:
+        out, err = p.communicate(json.dumps(list(argv)) + "\n",
+                                 timeout=timeout)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        raise
     wall = time.perf_counter() - t0
-    if r.returncode != 0:
-        log(r.stdout[-3000:])
-        log(r.stderr[-3000:])
+    if p.returncode != 0:
+        log(out[-3000:])
+        log(err[-3000:])
         raise RuntimeError(f"chip_smoke: {' '.join(argv[:1])} exited "
-                           f"{r.returncode}")
-    done = re.findall(r"done: ([\d,]+) samples in ([\d.]+)s", r.stdout)
-    launches = json.loads(r.stdout.rsplit("launches ", 1)[1].splitlines()[0])
-    times = json.loads(r.stdout.rsplit("times ", 1)[1].splitlines()[0])
+                           f"{p.returncode}")
+    done = re.findall(r"done: ([\d,]+) samples in ([\d.]+)s", out)
+    launches = json.loads(out.rsplit("launches ", 1)[1].splitlines()[0])
+    times = json.loads(out.rsplit("times ", 1)[1].splitlines()[0])
     samples, secs = done[-1] if done else ("0", "0")
     return dict(wall=wall, samples=int(samples.replace(",", "")),
                 train_s=float(secs), launches=launches, times=times,
-                stdout=r.stdout)
+                stdout=out)
 
 
 def _wall(r: dict) -> str:
-    """A CLI run's wall time and where it went: the process's start-up
-    (interpreter, torch and the smoke's imports), the graph load, the
-    model's train() (sampler tables, resume and the driver's loop), the
-    text file, and the rest (the card's context, init, checkpoint set-up)."""
+    """A CLI run's wall time from its arguments to its exit, and where it
+    went: the graph load, the model's train() (sampler tables, resume and
+    TrainDriver's loop), the text file, and the rest (the card's context,
+    init, checkpoint set-up, exit); beside it, the child's imports
+    (interpreter, torch and the smoke's), which ran before, overlapping the
+    run before when the child was started ahead."""
     t = r["times"]
-    rest = t["run"] - t["load"] - t["train"] - t["save"]
-    return (f"wall {r['wall']:.1f} s (start-up {r['wall'] - t['run']:.1f}, "
-            f"graph load {t['load']:.1f}, train() {t['train']:.1f}, save "
-            f"{t['save']:.1f}, rest {rest:.1f})")
+    rest = r["wall"] - t["load"] - t["train"] - t["save"]
+    return (f"wall {r['wall']:.1f} s (graph load {t['load']:.1f}, train() "
+            f"{t['train']:.1f}, save {t['save']:.1f}, rest {rest:.1f}; "
+            f"imports before it {t['imports']:.1f})")
 
 
 def _load_emb(path):
@@ -2260,6 +2307,228 @@ def phase_seq_cli(f: dict) -> None:
     os.remove(save)
 
 
+# ------------------------------------------ multi-device modes (phase 33)
+# (a) one NCCL rank in this process at MESH_ONE_MILLIONS a mode; (b) two
+# gloo ranks sharing the card, as child processes of this script
+MESH_ONE_MILLIONS = 4
+MESH_RANKS = 2
+MESH_RUNS = (  # (mode, millions in all, LINE o2 train kwargs, kernel)
+    # rows: one logical stream, so the single-device run's AUC less atomics'
+    # reordering; dp: each rank's batch is the single-device batch / ranks,
+    # so a merged step applies the 32768 samples the 0.99 gate was
+    # measured at; hogwild: the multiblock route on every rank
+    ("rows", 8, dict(sharding="rows", use_pallas=True), "sgns_shared_grads"),
+    ("dp", SAMPLE_TIMES, dict(use_pallas=True,
+                              batch=B_UNBANDED // MESH_RANKS),
+     "sgns_shared_grads"),
+    ("hogwild", SAMPLE_TIMES, dict(banded=True), "sgns_banded_multiblock"),
+)
+AUC_ROWS_TOL = 0.005  # rows against one device at the same seed and budget
+AUC_HOG_TOL = 0.01  # hogwild against one device's banded run
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_run(m, millions: float, counter: str, warm: bool = True,
+              **kw) -> dict:
+    """With ``warm``, 1M samples (tables, stream, warm-up) and fresh tables
+    first; then ``m.train`` with every launch count set to 0 just before
+    it. Returns its samples/s, collectives and launches of ``counter``,
+    gated on > 0, and checks that the tables are finite."""
+    from smore_tpu_torch.parallel.mesh import full_table
+
+    if warm:
+        m.train(sample_times=1, **TRAIN_KW, **kw)
+        m.init(dim=D, order=2)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.train(sample_times=millions, **TRAIN_KW, **kw)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    d = m.last_driver
+    launches = counters[counter].launches
+    require(launches > 0, f"{kw.get('sharding', 'single')}: the path never "
+            f"launched {counter}")
+    for k, t in m.state.items():
+        require(bool(torch.isfinite(full_table(t)).all()),
+                f"non-finite {k} table")
+    return dict(rate=d.executed_samples / dt, seconds=dt,
+                executed=d.executed_samples, launches=launches,
+                comm_s=d.comm.seconds, comm_calls=d.comm.calls,
+                comm_bytes=d.comm.bytes)
+
+
+def _mesh_line(r: dict) -> str:
+    return (f"{r['executed']:,} samples in {r['seconds']:.3f} s = "
+            f"{r['rate']:,.0f} samples/s; collectives {r['comm_calls']} "
+            f"calls, {r['comm_bytes'] / 1e9:.3f} GB, {r['comm_s']:.3f} s; "
+            f"launches {r['launches']}")
+
+
+def mesh_rank_main(rank: int, world: int, port: int) -> None:
+    """One gloo rank of phase 33 (b): the MESH_RUNS on the 50k graph that
+    phase 16 wrote, printing one ``MESH_RANK {json}`` line."""
+    from smore_tpu_torch.graph.graph import Graph
+    from smore_tpu_torch.models.line import LINE
+    from smore_tpu_torch.parallel.mesh import (
+        backend_of,
+        full_table,
+        init_distributed,
+        make_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = Graph.load_edge_list(os.path.join(OUT, "comm_net_50k.txt"),
+                             undirected=True)
+    sys.stdin.readline()  # the parent's go, after its own runs
+    init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
+    mesh = make_mesh()
+    out = dict(rank=rank, backend=backend_of(mesh))
+    for mode, millions, kw, counter in MESH_RUNS:
+        m = LINE(g, seed=0, device="cuda")
+        m.init(dim=D, order=2)
+        # not warmed: at 8M and 40M the set-up is small beside the gloo
+        # collectives, and a warm-up rounds up to a whole call (4M)
+        r = _mesh_run(m, millions, counter, warm=False, mesh=mesh, **kw)
+        r["sharding"] = m.last_driver.sharding
+        emb = full_table(m.state["vertex"]).cpu().numpy()
+        if rank == 0:
+            r["auc"] = community_auc_50k(emb, g.names)
+            if mode == "rows":
+                np.save(os.path.join(OUT, "mesh_rows_vertex.npy"), emb)
+        out[mode] = r
+    torch.distributed.destroy_process_group()
+    print("MESH_RANK " + json.dumps(out), flush=True)
+
+
+def phase_mesh(g, device) -> None:
+    """(a) LINE o2 on the 50k graph under dp and rows (unbanded,
+    use_pallas=True: K1) and hogwild (banded=True: the multiblock route,
+    K4) on a one-rank NCCL mesh in this process, each beside a single-device
+    run; (b) MESH_RUNS on two gloo ranks sharing the card, child processes,
+    gated against single-device runs in this process."""
+    card = _card()
+    # the ranks of (b) start now: their imports and graph load overlap (a)
+    port = _free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         "--mesh-world", str(MESH_RANKS), "--mesh-port", str(port)],
+        cwd=HERE, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(MESH_RANKS)]
+    try:
+        ranks, ref = _mesh_phases(g, device, card, procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    _mesh_report(ranks, ref, card)
+
+
+def _mesh_phases(g, device, card, procs):
+    """(a) and (b)'s single-device references in this process, then the
+    ranks' go; returns the ranks' results and the references."""
+    from smore_tpu_torch.models.line import LINE
+    from smore_tpu_torch.parallel.mesh import (
+        backend_of,
+        init_distributed,
+        make_mesh,
+    )
+
+    unbanded = dict(use_pallas=True)
+    m_u = LINE(g, seed=0, device=device)
+    m_u.init(dim=D, order=2)
+    one_u = _mesh_run(m_u, MESH_ONE_MILLIONS, "sgns_shared_grads",
+                      **unbanded)
+    m_b = LINE(g, seed=0, device=device)
+    m_b.init(dim=D, order=2)
+    one_b = _mesh_run(m_b, MESH_ONE_MILLIONS, "sgns_banded_multiblock",
+                      banded=True)
+    init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        log(f"(a) one rank, backend {backend_of(mesh)}, "
+            f"{MESH_ONE_MILLIONS}M samples a mode [{card}]")
+        for mode, m, kw, counter, one in (
+            ("dp", m_u, unbanded, "sgns_shared_grads", one_u),
+            ("rows", m_u, dict(unbanded, sharding="rows"),
+             "sgns_shared_grads", one_u),
+            ("hogwild", m_b, dict(banded=True), "sgns_banded_multiblock",
+             one_b),
+        ):
+            r = _mesh_run(m, MESH_ONE_MILLIONS, counter, mesh=mesh, **kw)
+            require(m.last_driver.sharding == mode,
+                    f"{mode}: TrainDriver ran {m.last_driver.sharding}")
+            log(f"  {mode}: {_mesh_line(r)} (one device, no mesh: "
+                f"{one['rate']:,.0f} samples/s)")
+    finally:
+        torch.distributed.destroy_process_group()
+
+    ref = {}
+    for mode, millions, kw, counter in MESH_RUNS:
+        if mode == "dp":  # gated at AUC_MIN_50K, not against a run
+            continue
+        m = LINE(g, seed=0, device=device)
+        m.init(dim=D, order=2)
+        kw = {k: v for k, v in kw.items() if k != "sharding"}
+        ref[mode] = _mesh_run(m, millions, counter, warm=False, **kw)
+        ref[mode]["vertex"] = m.state["vertex"].cpu().numpy()
+        ref[mode]["auc"] = community_auc_50k(ref[mode]["vertex"], g.names)
+    for p in procs:
+        p.stdin.write("go\n")
+        p.stdin.flush()
+    outs = [p.communicate(timeout=400)[0] for p in procs]
+    ranks = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            log(text[-4000:])
+        require(p.returncode == 0, f"mesh rank {r} exited {p.returncode}")
+        ranks.append(json.loads(text.rsplit("MESH_RANK ", 1)[1]
+                                .splitlines()[0]))
+    return ranks, ref
+
+
+def _mesh_report(ranks: list, ref: dict, card: str) -> None:
+    """(b)'s gates and prints."""
+    log(f"(b) {MESH_RANKS} ranks sharing the card, backend "
+        f"{ranks[0]['backend']} [{card}]")
+    for mode, millions, kw, counter in MESH_RUNS:
+        got = ranks[0][mode]
+        require(got["sharding"] == mode,
+                f"{mode}: TrainDriver ran {got['sharding']}")
+        for r in ranks[1:]:
+            log(f"  {mode} rank {r['rank']}: {_mesh_line(r[mode])}")
+        auc = got["auc"]
+        if mode == "dp":
+            gate, ok = f">= {AUC_MIN_50K}", auc >= AUC_MIN_50K
+            beside = ""
+        else:
+            tol = AUC_ROWS_TOL if mode == "rows" else AUC_HOG_TOL
+            want = ref[mode]["auc"]
+            gate, ok = f"within {tol} of one device's {want:.4f}", \
+                abs(auc - want) <= tol
+            beside = f" (one device: {ref[mode]['rate']:,.0f} samples/s)"
+        log(f"  {mode} rank 0: {_mesh_line(got)}{beside}")
+        log(f"  {mode}: {millions}M samples in all, community AUC "
+            f"{auc:.4f} (gate {gate})")
+        if mode == "rows":  # one logical stream: only atomics' order differs
+            diff = np.abs(np.load(os.path.join(OUT, "mesh_rows_vertex.npy"))
+                          - ref[mode]["vertex"])
+            log(f"  rows: vertex table against one device's: max |diff| "
+                f"{diff.max():.3e}, mean {diff.mean():.3e} (ungated)")
+        require(ok, f"{mode} on {MESH_RANKS} ranks: community AUC {auc:.4f}, "
+                f"gate {gate}")
+
+
 def phase_profile(m, out_dir: str, name: str, warm=None, run=None,
                   steps=None, **kw) -> None:
     """Kernel time by name, the card's busy share and the host's ops and
@@ -2319,7 +2588,21 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile the main paths; write results to DIR")
+    # one rank of phase 33 (b), started by phase_mesh
+    ap.add_argument("--mesh-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-world", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        mesh_rank_main(args.mesh_rank, args.mesh_world, args.mesh_port)
+        return
+    try:
+        run_phases(args)
+    finally:
+        close_spare_cli()
+
+
+def run_phases(args) -> None:
     t_start = time.perf_counter()
 
     def timed(name, phase, *a):
@@ -2374,6 +2657,7 @@ def main() -> None:
     seq = timed("SASRec family", phase_seq, sf["seq"], device)
     timed("jodie and sasrec through the CLI", phase_seq_cli, sf)
     log(f"JODIE and SASRec-family phases: {time.perf_counter() - t0:.1f} s")
+    timed("multi-device modes", phase_mesh, m_50k.graph, device)
     if args.profile:
         phase_profile(m_yt, args.profile, "line_yt")
         phase_profile(m_fused, args.profile, "line_yt_fused",

@@ -2,7 +2,8 @@
 
 The JAX package ``smore_tpu`` stays the reference; this package mirrors its
 layout (``graph/``, ``native/``, ``sampling/``, ``ops/``, ``models/``,
-``io/``, ``utils/``, ``cli/``) so each module's counterpart is easy to find. It imports ``torch``
+``io/``, ``utils/``, ``cli/``, ``parallel/``) so each module's counterpart
+is easy to find. It imports ``torch``
 and never ``jax`` or ``smore_tpu``.
 
 Plain tensor code is PyTorch; each kernel that ``smore_tpu`` wrote in Pallas
@@ -11,10 +12,11 @@ with ``nvcc`` at first use and bound with ``ctypes`` (``ops/_build.py``).
 Every kernel wrapper keeps a plain PyTorch twin beside it: the wrapper runs
 the twin for CPU tensors and launches the kernel (or raises) for CUDA ones.
 
-Ported so far: LINE on every route of one device (``models/line.py``), the
-walk family (DeepWalk, Walklets, node2vec, APP), checkpoint/resume, warm
-start and the command line ``python -m smore_tpu_torch <model> ...``, with
-their host layer and samplers.
+Ported: every module of ``smore_tpu``: LINE on every route, the walk,
+rec, community, knowledge-graph and typed-graph families, JODIE and the
+SASRec family, checkpoint/resume, warm start, the command line
+``python -m smore_tpu_torch <model> ...``, and training on several devices
+(``parallel/mesh.py``: one process per device over ``torch.distributed``).
 """
 
 __version__ = "0.1.0"

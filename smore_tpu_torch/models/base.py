@@ -2,8 +2,9 @@
 
 Port of ``smore_tpu/models/base.py`` (``hoisted_scan_step``,
 ``freshness_policy``, ``trunc_mass_multiplier``, ``clamp_batch``,
-``init_embedding``, ``zeros_embedding``, ``TrainDriver`` on one device with
-checkpoint and resume, ``PairModelBase``). The JAX driver ran
+``init_embedding``, ``zeros_embedding``, ``TrainDriver`` with its "dp",
+"hogwild" and "rows" modes on a mesh and checkpoint and resume,
+``PairModelBase``). The JAX driver ran
 ``steps_per_call`` steps in one jitted ``lax.scan``; here the same steps run
 in a Python loop, each step launching its kernels on the current stream,
 and the host reads nothing back unless it prints progress or saves a
@@ -18,9 +19,21 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.io.embeddings import save_embeddings, warm_start
+from smore_tpu_torch.parallel.mesh import (
+    CommStats,
+    RowShard,
+    full_table,
+    gather_rows,
+    is_dtensor,
+    row_mesh,
+    row_range,
+    rows_to_dtensor,
+)
 from smore_tpu_torch.sampling.tables import SamplerTables
 from smore_tpu_torch.utils.checkpoint import (
     checkpoint_exists,
@@ -136,12 +149,15 @@ def zeros_embedding(rows: int, dim: int,
 
 
 def seeded_generator(seed: int, stream: int,
-                     device: torch.device | str = "cuda") -> torch.Generator:
+                     device: torch.device | str = "cuda",
+                     rank: Optional[int] = None) -> torch.Generator:
     """A generator on ``device``, seeded from (model seed, stream): the
     counterpart of the JAX package's keys split from ``PRNGKey(seed)``, so
     init and training draw independent streams and every ``train()`` call
-    replays the same draws."""
-    s = np.random.SeedSequence([seed, stream]).generate_state(1, np.uint64)[0]
+    replays the same draws. ``rank`` gives each rank of a "dp" or "hogwild"
+    mesh a stream of its own (JAX: the key split over the devices)."""
+    entropy = [seed, stream] + ([] if rank is None else [rank])
+    s = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     gen = torch.Generator(device=device)
     gen.manual_seed(int(s))
     return gen
@@ -174,8 +190,27 @@ class TrainDriver:
     samples_per_step counts every sample a step consumes (batch *
     micro_steps on the multiblock path); it sets the alpha schedule and the
     throughput report. ``device`` (default the CUDA card) holds the alpha
-    schedule and the loss. One device only: ``mesh`` raises, as its port is
-    still ahead (ROADMAP Queue 1 item 12).
+    schedule and the loss.
+
+    mesh: a 1-D ``DeviceMesh`` over the process group
+    (``parallel.mesh.make_mesh``; every rank runs this driver with its own
+    generator), with ``sharding``:
+
+    - "dp": every step, each rank runs the step on its replicated tables
+      from its own sample stream, and the ranks' deltas (new - old) are
+      summed by ``all_reduce`` and added to the step's starting tables, so
+      a step applies the combined batch with collision "sum". The alpha
+      schedule counts samples_per_step * world samples a step.
+    - "hogwild": the same merge once per call of ``steps_per_call`` steps,
+      each rank's copy running its own stream in between (the reference's
+      hogwild threads, merged at call cadence).
+    - "rows": one logical sample stream (every rank passes the same
+      generator), each rank storing only its ``Shard(0)`` rows of every
+      table; the step sees ``parallel.mesh.RowShard`` tables, and the result
+      is the single-device run's. The tables come back as ``Shard(0)``
+      DTensors; tables that arrive as such train this way without ``mesh``.
+
+    The collectives' count, bytes and seconds are ``comm``.
 
     checkpoint_path: the training state (tables, the generator's state and
     the step counter) is saved there every ``checkpoint_every`` calls of
@@ -183,7 +218,9 @@ class TrainDriver:
     checkpoint already there, training continues from it. The learning
     rate is a function of the step counter and the draws of the generator's
     state, so a killed and resumed run takes the steps of an uninterrupted
-    one.
+    one. On a mesh rank 0 writes the whole tables and every rank's
+    generator state, and a resume takes its rows or its copy and its own
+    generator state; a checkpoint of another world size raises.
     """
 
     def __init__(
@@ -195,19 +232,31 @@ class TrainDriver:
         total_samples: int,
         steps_per_call: int = 256,
         mesh=None,
+        sharding: str = "dp",
         checkpoint_path: Optional[str] = None,
         checkpoint_every: int = 1,
         resume: bool = True,
         micro_steps: int = 1,
         device: torch.device | str = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training (mesh=) is not ported yet "
-                "(ROADMAP Queue 1 item 12)")
+        if sharding not in ("dp", "rows", "hogwild"):
+            raise ValueError(
+                f"sharding must be 'dp', 'rows' or 'hogwild', got {sharding!r}"
+            )
+        if micro_steps > 1 and mesh is not None and sharding == "dp":
+            # dp merges the ranks' deltas every step; callers set hoist 1
+            raise ValueError("micro_steps > 1 is incompatible with DP "
+                             "sharding (use sharding='rows' or no mesh)")
+        if mesh is not None and not (isinstance(mesh, DeviceMesh)
+                                     and mesh.ndim == 1):
+            raise TypeError(f"mesh must be a 1-D DeviceMesh, got {mesh!r}")
         self.step_fn = step_fn
         self.ctx = ctx
-        self.samples_per_step = int(samples_per_step)
+        self.mesh = mesh
+        self.sharding = sharding
+        self.n_shards = (1 if mesh is None or sharding == "rows"
+                         else mesh.size())
+        self.samples_per_step = int(samples_per_step) * self.n_shards
         self.alpha = float(alpha)
         self.total_samples = int(total_samples)
         self.steps_per_call = int(steps_per_call)
@@ -217,16 +266,52 @@ class TrainDriver:
         self.micro_steps = max(1, int(micro_steps))
         self.device = torch.device(device)
         self.executed_samples = 0
+        self.comm = CommStats()
+
+    def _placement(self, state: State):
+        """(mesh, mode, group, rank, world) of a train() call: this
+        TrainDriver's mesh and sharding, or "rows" on the mesh of
+        row-sharded tables."""
+        mesh, mode = self.mesh, self.sharding
+        if mesh is None:
+            mesh, mode = row_mesh(state), "rows"
+        elif mode != "rows" and row_mesh(state) is not None:
+            raise ValueError(f"row-sharded tables train under sharding="
+                             f"'rows', not {mode!r}")
+        if mesh is None:
+            return None, None, None, 0, 1
+        group = mesh.get_group()
+        return (mesh, mode, group, dist.get_rank(group),
+                dist.get_world_size(group))
+
+    def _merge(self, old: State, new: State) -> State:
+        """new = old + the ranks' summed deltas (new - old), in place."""
+        for k, v in new.items():
+            delta = v - old[k]
+            self.comm.all_reduce(delta, self._group)
+            torch.add(old[k], delta, out=v)
+        return new
 
     def _save_ckpt(self, state: State, gen: torch.Generator,
                    done: int) -> None:
-        save_checkpoint(self.checkpoint_path, state, step=done,
-                        extra={"gen": gen.get_state()})
+        if self._mesh is None:
+            save_checkpoint(self.checkpoint_path, state, step=done,
+                            extra={"gen": gen.get_state()})
+            return
+        gens = [None] * self._world
+        dist.all_gather_object(gens, gen.get_state(), group=self._group)
+        tables = {k: gather_rows(v.local, v.shape[0], self._group)
+                  if isinstance(v, RowShard) else v
+                  for k, v in state.items()}
+        if self._rank == 0:
+            save_checkpoint(self.checkpoint_path, tables, step=done,
+                            extra={"gens": gens, "world": self._world})
+        dist.barrier(group=self._group)
 
     def _maybe_resume(self, state: State, gen: torch.Generator) -> int:
-        """Restore the tables (in place) and the generator's state from
-        checkpoint_path when resuming and a checkpoint is there; returns
-        the steps already done."""
+        """Restore the tables (in place: this rank's rows of a row-sharded
+        one) and the generator's state from checkpoint_path when resuming
+        and a checkpoint is there; returns the steps already done."""
         if not (self.resume and checkpoint_exists(self.checkpoint_path)):
             return 0
         loaded, done, extra = load_checkpoint(self.checkpoint_path)
@@ -236,13 +321,36 @@ class TrainDriver:
             raise ValueError(
                 f"checkpoint {self.checkpoint_path} holds tables {saved}, "
                 f"this run trains {shapes}")
+        saved_by = extra.get("world")  # None: saved without a mesh
+        here = None if self._mesh is None else self._world
+
+        def ranks(w):
+            return "no mesh" if w is None else f"{w} ranks"
+
+        if saved_by != here:
+            raise ValueError(
+                f"checkpoint {self.checkpoint_path} was saved by "
+                f"{ranks(saved_by)}; this run has {ranks(here)}")
         for k, v in state.items():
-            v.copy_(loaded[k])
-        gen.set_state(extra["gen"])
+            if isinstance(v, RowShard):
+                v.local.copy_(loaded[k][v.lo:v.lo + v.local.shape[0]])
+            else:
+                v.copy_(loaded[k])
+        gen.set_state(extra["gen"] if self._mesh is None
+                      else extra["gens"][self._rank])
         return done
 
     def train(self, state: State, gen: torch.Generator,
               verbose: bool = True) -> State:
+        mesh, mode, group, rank, world = self._placement(state)
+        self._mesh, self._group, self._rank, self._world = (mesh, group,
+                                                            rank, world)
+        self.comm = CommStats()
+        if mode == "rows":
+            state = {k: self._row_shard(v, rank, world)
+                     if getattr(v, "ndim", 0) == 2 else v
+                     for k, v in state.items()}
+        show, verbose = verbose, verbose and rank == 0  # rank 0 prints
         steps_total = max(1, -(-self.total_samples // self.samples_per_step))
         inv_total = float(self.samples_per_step) / float(
             max(self.total_samples, 1))
@@ -250,22 +358,34 @@ class TrainDriver:
         done = self._maybe_resume(state, gen) if self.checkpoint_path else 0
         done0 = done
         calls = 0
+        old = None
         t0 = time.time()
         while done < steps_total:
             # one host->device copy of the rates per call of S steps
             alphas = torch.from_numpy(alpha_schedule(
                 done, S, M, self.alpha, inv_total)).to(self.device)
             loss = torch.zeros((), dtype=torch.float32, device=self.device)
+            if mode == "hogwild":
+                old = _snapshot(state, old)
             for i in range(S):
+                if mode == "dp":
+                    old = _snapshot(state, old)
                 state, step_loss = self.step_fn(state, self.ctx, gen,
                                                 alphas[i])
+                if mode == "dp":
+                    state = self._merge(old, state)
                 loss += step_loss
+            if mode == "hogwild":
+                state = self._merge(old, state)
             loss /= S
             done += S
             calls += 1
             if self.checkpoint_path and (calls % self.checkpoint_every == 0
                                          or done >= steps_total):
                 self._save_ckpt(state, gen, done)
+            if show and mode in ("dp", "hogwild"):
+                self.comm.all_reduce(loss, group)
+                loss /= world
             if verbose:
                 last = float(loss)
                 el = time.time() - t0
@@ -283,7 +403,28 @@ class TrainDriver:
             el = time.time() - t0
             print(f"\n\tdone: {self.executed_samples:,} samples in {el:.2f}s "
                   f"({self.executed_samples / max(el, 1e-9):,.0f} samples/sec)")
+        if mode == "rows":
+            state = {k: rows_to_dtensor(v.local, v.shape[0], mesh)
+                     if isinstance(v, RowShard) else v
+                     for k, v in state.items()}
         return state
+
+    def _row_shard(self, t: torch.Tensor, rank: int, world: int) -> RowShard:
+        """This rank's rows of a whole table (copied) or of a row-sharded
+        DTensor (its shard), as the table a "rows" step sees."""
+        n = t.shape[0]
+        lo, hi = row_range(n, world, rank)
+        local = t.to_local() if is_dtensor(t) else t[lo:hi].clone()
+        return RowShard(local, n, lo, self.comm, self._group)
+
+
+def _snapshot(state: State, old: Optional[State]) -> State:
+    """A copy of the tables, into ``old``'s buffers when given."""
+    if old is None:
+        return {k: v.clone() for k, v in state.items()}
+    for k, v in state.items():
+        old[k].copy_(v)
+    return old
 
 
 class PairModelBase:
@@ -355,10 +496,18 @@ class PairModelBase:
 
     def load_pretrain(self, path: str, table: str = "vertex") -> None:
         """Warm start: overwrite rows of ``table`` by name from a saved
-        embedding file (reference LoadPreTrain)."""
+        embedding file (reference LoadPreTrain); a row-sharded table takes
+        its own rows of the result."""
         t = self.state[table]
-        t.copy_(torch.from_numpy(warm_start(t.detach().cpu().numpy(),
-                                            self.graph.names, path)))
+        new = torch.from_numpy(warm_start(
+            full_table(t).detach().cpu().numpy(), self.graph.names, path))
+        if is_dtensor(t):
+            local = t.to_local()
+            lo, _ = row_range(t.shape[0], t.device_mesh.size(),
+                              t.device_mesh.get_local_rank())
+            local.copy_(new[lo:lo + local.shape[0]])
+        else:
+            t.copy_(new)
 
     def load_state_numpy(self, tables: Dict[str, np.ndarray],
                          device: torch.device | str | None = None) -> None:
@@ -376,21 +525,28 @@ class PairModelBase:
 
     def state_numpy(self) -> Dict[str, np.ndarray]:
         """The tables as float32 numpy arrays (the inverse of
-        ``load_state_numpy``)."""
-        return {k: v.detach().cpu().numpy() for k, v in self.state.items()}
+        ``load_state_numpy``); row-sharded ones gathered, on every rank."""
+        return {k: full_table(v).detach().cpu().numpy()
+                for k, v in self.state.items()}
 
     def save_weights(self, path: str, table: str = "vertex") -> None:
-        save_embeddings(path, self.graph.names,
-                        self.state[table].detach().cpu().numpy())
+        """Write ``table`` as an embedding file; with a process group, rank
+        0 writes (a row-sharded table is gathered first, by every rank)."""
+        t = full_table(self.state[table]).detach().cpu().numpy()
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            save_embeddings(path, self.graph.names, t)
 
     def _drive(self, step: StepFn, ctx, samples_per_step: int, alpha: float,
                total_samples: int, steps_per_call: int, verbose: bool,
-               micro_steps: int = 1, state: Optional[State] = None) -> State:
+               micro_steps: int = 1, state: Optional[State] = None,
+               mesh=None, sharding: str = "dp") -> State:
         """Train ``state`` (default: the model's tables) with ``step`` for
         ``total_samples`` samples on the training stream of the model's
-        seed, ``steps_per_call`` micro-steps a call, with the checkpoint
-        settings. Returns the trained tables (updated in place); the
-        driver stays as ``last_driver``."""
+        seed (each rank's own under "dp" and "hogwild" on ``mesh``),
+        ``steps_per_call`` micro-steps a call, with the checkpoint
+        settings. Returns the trained tables (updated in place, or
+        row-sharded DTensors under "rows"); the TrainDriver stays as
+        ``last_driver``."""
         self.last_driver = driver = TrainDriver(
             step,
             ctx=ctx,
@@ -399,8 +555,14 @@ class PairModelBase:
             total_samples=total_samples,
             steps_per_call=max(1, steps_per_call // micro_steps),
             micro_steps=micro_steps,
+            mesh=mesh,
+            sharding=sharding,
             device=self.device,
             **self._ckpt_kw(),
         )
-        return driver.train(self.state if state is None else state,
-                            self._generator(TRAIN_STREAM), verbose=verbose)
+        rank = None
+        if mesh is not None and sharding != "rows":
+            rank = dist.get_rank(mesh.get_group())
+        gen = seeded_generator(self.seed, TRAIN_STREAM, self.device, rank)
+        return driver.train(self.state if state is None else state, gen,
+                            verbose=verbose)

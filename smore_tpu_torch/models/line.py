@@ -34,6 +34,9 @@ the caller asks for the CPU). The routes:
   with ``band_hold=True`` (order 2, hoist > 1) one stratum is held for the
   whole hoisted block (``_make_banded_block_step``, update
   ``ops.update.sgns_banded_block``), fused, scatter-only or plain alike.
+
+On a mesh (``mesh=``, ``sharding=``) every route trains on each rank of the
+process group through ``TrainDriver``'s modes, routed as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from smore_tpu_torch.ops.update import (
     sgns_step,
     sgns_step_shared,
 )
+from smore_tpu_torch.parallel.mesh import row_mesh
 from smore_tpu_torch.sampling.banded import (
     DEFAULT_BAND_SIZE,
     FUSED_BAND_SIZE,
@@ -300,19 +304,25 @@ class LINE(PairModelBase):
         neg_band: object = "auto",
         edge_stream: object = "auto",
         mesh=None,
+        sharding: str = "dp",
         verbose: bool = True,
     ) -> None:
-        """The JAX package's ``LINE.train`` arguments and defaults, less
-        ``sharding`` (multi-device is not ported; ``mesh`` raises). On the
+        """The JAX package's ``LINE.train`` arguments and defaults. On the
         unbanded path ``use_pallas=True`` selects kernel K1 ("auto" is off
         there, as in the JAX package); on the banded path off the multiblock
         route it selects the fused kernel K3 where it applies and the
         scatter kernel K2 otherwise ("auto": K3 or K2 on the card when the
-        batches tile; "scatter": K2 only)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device training (mesh=) is not ported yet "
-                "(ROADMAP Queue 1 item 12)")
+        batches tile; "scatter": K2 only).
+
+        ``mesh`` (``parallel.mesh.make_mesh``) trains on every rank of the
+        process group with ``sharding`` "dp", "hogwild" or "rows"
+        (``TrainDriver``), routed as in the JAX package: "rows" keeps the
+        unbanded path, a banded route on a mesh runs "hogwild", and the
+        auto hoist is 32 only without a mesh or under "rows" (1 under
+        "dp"). Row-sharded tables (``parallel.mesh.shard_state``) train
+        under "rows" on their mesh."""
+        if mesh is None and row_mesh(self.state) is not None:
+            mesh, sharding = row_mesh(self.state), "rows"
         total = int(sample_times * 1_000_000)
         n = self.graph.n_vertices
         auto_batch = batch == 0
@@ -321,11 +331,14 @@ class LINE(PairModelBase):
         use_banded = bool(
             shared_negatives
             and collision == "sum"
+            and (mesh is None or sharding in ("dp", "hogwild"))
             and 0 < self.graph.n_edges < (1 << 24)
             and n < (1 << 24)
             and (banded is True
                  or (banded == "auto" and n >= BANDED_AUTO_THRESHOLD))
         )
+        if use_banded and mesh is not None:
+            sharding = "hogwild"
         if group == 0:
             group = 1 if (use_banded and self.order == 2) else 8
         if group > 1 and batch % group:
@@ -343,6 +356,7 @@ class LINE(PairModelBase):
             if use_banded and shared_negatives:
                 hoist = 8
             elif (shared_negatives and group > 1
+                  and (mesh is None or sharding == "rows")
                   and self.build_sampler().has_edge_table):
                 hoist = 32
             else:
@@ -353,7 +367,7 @@ class LINE(PairModelBase):
                                auto_batch, steps_per_call, shared_negatives,
                                group, use_pallas, hoist, auto_hoist,
                                band_hold, band_size, multiband, neg_band,
-                               edge_stream, verbose)
+                               edge_stream, verbose, mesh, sharding)
             return
 
         self.state = self._drive(
@@ -361,12 +375,14 @@ class LINE(PairModelBase):
                             shared_negatives, group, use_pallas is True,
                             hoist),
             self.build_sampler(), batch * hoist, alpha, total,
-            steps_per_call, verbose, micro_steps=hoist)
+            steps_per_call, verbose, micro_steps=hoist, mesh=mesh,
+            sharding=sharding)
 
     def _train_banded(self, total, negative_samples, alpha, batch,
                       auto_batch, steps_per_call, shared_negatives, group,
                       use_pallas, hoist, auto_hoist, band_hold, band_size,
-                      multiband, neg_band, edge_stream, verbose) -> None:
+                      multiband, neg_band, edge_stream, verbose, mesh=None,
+                      sharding="dp") -> None:
         """The banded routes of ``train`` (the JAX package's
         ``line.py:479-677``)."""
         n = self.graph.n_vertices
@@ -472,7 +488,7 @@ class LINE(PairModelBase):
         # a checkpoint holds (and a resume restores) these padded tables
         out = self._drive(step_fn, bt, batch * hoist, alpha, total,
                           steps_per_call, verbose, micro_steps=hoist,
-                          state=state)
+                          state=state, mesh=mesh, sharding=sharding)
         self.state = {k: v[:n] for k, v in out.items()}
 
     def save_weights(self, path: str, table: str = "vertex") -> None:

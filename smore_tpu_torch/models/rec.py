@@ -36,13 +36,6 @@ from smore_tpu_torch.ops.update import (
 )
 
 
-def no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device training (mesh=) is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
-
-
 class _SharedTableRec(PairModelBase):
     """One table, (src, pos, negatives) draws, one update."""
 
@@ -148,24 +141,26 @@ class _SharedTableRec(PairModelBase):
     ) -> None:
         """The JAX package's ``train`` arguments and defaults; other keyword
         arguments set the model's attributes of that name (``trials``,
-        ``rounds``, ...), and an unknown one raises TypeError."""
+        ``rounds``, ...), and an unknown one raises TypeError. ``mesh``
+        trains "dp" on every rank of the process group, one batch a step."""
         for k, v in kw.items():
             if not hasattr(self, k):
                 raise TypeError(f"unknown train arg {k!r}")
             setattr(self, k, v)
-        no_mesh(mesh)
         batch = clamp_batch(self.graph.n_vertices, batch)
         if shared_negatives < 0:
             shared_negatives = self.default_shared_negatives
         if shared_negatives:
             shared_negatives = min(shared_negatives, batch)
-        if hoist == 0:
+        if mesh is not None:
+            hoist = 1  # "dp": the ranks' deltas merge every step
+        elif hoist == 0:
             hoist = 8 if shared_negatives else 1
         self.state = self._drive(
             self._make_step(batch, collision, hoist, shared_negatives),
             self.build_sampler(), batch * hoist, alpha,
             int(sample_times * 1_000_000), steps_per_call, verbose,
-            micro_steps=hoist)
+            micro_steps=hoist, mesh=mesh)
 
 
 class MF(_SharedTableRec):

@@ -10,7 +10,7 @@ walks off kernel K1, as in the JAX package); the alpha schedule counts
 walks. ``_run`` keeps the JAX package's policy: the truncated-budget
 re-batching with four inner passes, and epoch-exact starts (one hoisted
 block of draws is one epoch, a permutation of all vertices) on graphs of
-at most 131,072 vertices.
+at most 131,072 vertices; on a "dp" mesh neither, and one batch a step.
 """
 
 from __future__ import annotations
@@ -43,13 +43,6 @@ def draw_hoist(batch_walks: int) -> int:
     do not depend on the tables, so drawing several batches' walks in one
     pass keeps the law and divides the walk's host ops by the hoist."""
     return max(1, min(64, DRAW_HOIST_WALKS // max(1, batch_walks)))
-
-
-def _no_mesh(mesh, sharding: str) -> None:
-    if mesh is not None or sharding != "dp":
-        raise NotImplementedError(
-            "multi-device training (mesh=, sharding=) is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
 
 
 class WalkSGNSBase(PairModelBase):
@@ -142,25 +135,30 @@ class WalkSGNSBase(PairModelBase):
              alpha: float, steps_per_call: int, shared_negatives: int,
              collision: str, verbose: bool, mesh=None, sharding: str = "dp",
              hoist: int = 1) -> None:
-        _no_mesh(mesh, sharding)
         n = self.graph.n_vertices
-        # truncated budgets: shrink the batch (base.freshness_policy) and
-        # compensate with four inner passes and a larger step mass
-        bw2, hoist = freshness_policy(total_walks, batch_walks, hoist)
-        if bw2 != batch_walks and getattr(self, "inner_passes", 0) in (0, 1):
-            self.inner_passes = 4
-            alpha = alpha * trunc_mass_multiplier(bw2)
-        batch_walks = bw2
-        # epoch-exact starts: one hoisted block is one epoch, where the
-        # block fits in memory
         epoch_starts = False
-        steps_per_epoch = -(-n // batch_walks)
-        if n <= EPOCH_MAX_VERTICES and steps_per_epoch <= EPOCH_MAX_BATCHES:
-            epoch_starts = True
-            hoist = steps_per_epoch
+        if mesh is not None and sharding == "dp":
+            hoist = 1  # dp merges the ranks' deltas every step
+        else:
+            # truncated budgets: shrink the batch (base.freshness_policy)
+            # and compensate with four inner passes and a larger step mass
+            bw2, hoist = freshness_policy(total_walks, batch_walks, hoist)
+            if (bw2 != batch_walks
+                    and getattr(self, "inner_passes", 0) in (0, 1)):
+                self.inner_passes = 4
+                alpha = alpha * trunc_mass_multiplier(bw2)
+            batch_walks = bw2
+            # epoch-exact starts: one hoisted block is one epoch, where the
+            # block fits in memory
+            steps_per_epoch = -(-n // batch_walks)
+            if (n <= EPOCH_MAX_VERTICES
+                    and steps_per_epoch <= EPOCH_MAX_BATCHES):
+                epoch_starts = True
+                hoist = steps_per_epoch
         # the schedule counts walks
         self.state = self._drive(
             self._make_step(batch_walks, negatives, shared_negatives,
                             collision, hoist, epoch_starts),
             self._make_ctx(), batch_walks * hoist, alpha, total_walks,
-            steps_per_call, verbose, micro_steps=hoist)
+            steps_per_call, verbose, micro_steps=hoist, mesh=mesh,
+            sharding=sharding)

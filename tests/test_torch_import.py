@@ -63,6 +63,8 @@ MODULES = [
     "smore_tpu_torch.utils.profiling",
     "smore_tpu_torch.utils.seq_data",
     "smore_tpu_torch.cli.main",
+    "smore_tpu_torch.parallel",
+    "smore_tpu_torch.parallel.mesh",
 ]
 
 
@@ -82,3 +84,6 @@ def test_port_imports_without_jax():
     assert not [m for m in loaded
                 if m == "smore_tpu" or m.startswith("smore_tpu.")]
     assert set(MODULES) <= set(loaded)
+    # DTensor's module costs ~1 s a process (every CLI run); the port
+    # loads it only when a mesh run needs it
+    assert "torch.distributed.tensor" not in loaded

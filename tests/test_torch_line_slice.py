@@ -4,8 +4,8 @@ smore_tpu.
 One superstep on injected draws (rtol 2e-5, atol 1e-6: f32 on both sides,
 differing only in sum order), TrainDriver's alpha schedule (bit-equal in
 f32), the routing (same batch, band, micro-steps and steps per call), end
-to end quality on a toy community graph, the route not ported yet
-(``mesh``), the unbanded and the other banded routes that now train, and
+to end quality on a toy community graph, a ``mesh`` that is not a
+DeviceMesh, the unbanded and the other banded routes that now train, and
 the entry points' default device (the card)."""
 
 import inspect
@@ -228,13 +228,15 @@ _BANDED_KW = dict(sample_times=0.01, batch=128, band_size=BAND, banded=True,
 
 @pytest.mark.parametrize("route", ["mesh"])
 def test_unported_routes_raise(graphs, route):
+    """Every route is ported; a mesh that is not a 1-D DeviceMesh raises
+    (tests/test_torch_parallel.py trains on real ones)."""
     _, tg = graphs
     m = TLINE(tg, seed=0, device=CPU)
     m.init(dim=64, order=2)
     kw = dict(_BANDED_KW, **{
         "mesh": dict(mesh=object()),
     }[route])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="1-D DeviceMesh"):
         m.train(**kw)
 
 

@@ -526,5 +526,5 @@ def test_train_sets_known_args_and_rejects_others(ui_graph):
     assert m.trials == 7 and m.last_driver.total_samples == 1000
     with pytest.raises(TypeError, match="unknown train arg"):
         m.train(sample_times=0.001, nonsense=1, verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="1-D DeviceMesh"):
         m.train(sample_times=0.001, mesh=object(), verbose=False)

@@ -248,9 +248,10 @@ def test_walk_models_reject_a_mesh(graphs):
     _, tg = graphs
     m = DeepWalk(tg, seed=0, device=CPU)
     m.init(dim=8)
-    for kw in (dict(mesh=object()), dict(sharding="rows")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            m.train(walk_times=1, verbose=False, **kw)
+    with pytest.raises(TypeError, match="1-D DeviceMesh"):
+        m.train(walk_times=1, verbose=False, mesh=object())
+    with pytest.raises(ValueError, match="sharding must be"):
+        m.train(walk_times=1, verbose=False, sharding="columns")
 
 
 # -------------------------------------------------------------- weights
