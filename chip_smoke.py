@@ -10,8 +10,8 @@ and the SASRec family, on one NVIDIA card.
 Phases (any failure exits non-zero; there is no CPU path):
   1. device: a CUDA card must be present; prints its name and power limit
   2. build: compiles smore_tpu_torch/csrc/*.cu with nvcc (the five SGNS
-     kernels and jodie_epoch), one process per source, all started
-     together (first use)
+     kernels and jodie_epoch) and csrc/jodie_schedule.cpp with g++, one
+     process per source, all started together (first use)
   3. K4 vs twin at the banded path's shapes (S=16 micro-steps, B=2048,
      band 16400, Ks=128, D=64, 68 x 16400 table rows) and on the
      all-collide inputs of tests/torch_superstep_inputs.py (every source
@@ -145,12 +145,15 @@ Phases (any failure exits non-zero; there is no CPU path):
  28. ``rotate`` and ``cpr`` through the command line at phase 26's
      settings, scored from their saved files by phase 26's gates; no
      kernel launched; the wall split
- 29. the jodie_epoch kernel (csrc/jodie_epoch.cu, one block scans an
-     epoch) against its plain loop on one epoch of go_oracle_parity's
+ 29. the jodie_epoch kernel (csrc/jodie_epoch.cu: the epoch's dependency
+     levels, csrc/jodie_schedule.cpp, in order, a level's events across
+     the SMs) against its plain loop on one epoch of go_oracle_parity's
      interaction set (smore_tpu_torch.utils.seq_data.make_interactions:
      8,000 events, 40 users, 60 items) at dim 64, bce_lr 0.2: the four
      tables and the loss must agree; a call must be ONE launch of
-     jodie_epoch_scan; both times and the bound printed
+     jodie_levels; both times, the levels, the layout and the bound
+     printed; then dims 50, 128 and 256 against the loop on the first
+     1,500 events of the set's generator
  30. JODIE in this process on that set at run_jodie's settings (8 epochs,
      lr 0.05) and dim 64, both arms (bce_lr at its default and 0.2): one
      jodie_epoch launch an epoch, no other kernel; the static tables'
@@ -163,10 +166,11 @@ Phases (any failure exits non-zero; there is no CPU path):
      head, dropout 0.2, 5 negatives, lr 3e-3, batch 128, 100 epochs, the
      last item held out): no kernel launched; recall@10 gated at its JAX
      record less 0.03; steps/s and sequences/s printed
- 32. ``jodie`` and ``sasrec -forward_only 1 -eval_holdout 1`` through the
-     command line at those settings: exit 0, well-formed files of finite
-     rows, jodie_epoch launched once an epoch; the forward-only recall@10
-     printed beside its JAX record; the wall split
+ 32. ``jodie`` (dims 64 and 128) and ``sasrec -forward_only 1
+     -eval_holdout 1`` through the command line at those settings: exit 0,
+     well-formed files of finite rows and the dim's columns, jodie_epoch
+     launched once an epoch; the forward-only recall@10 printed beside its
+     JAX record; the wall split
  33. multi-device modes on the card, LINE o2 on the 50k graph: (a) a
      one-rank NCCL group in this process, 4M samples each of "dp" and
      "rows" (unbanded, use_pallas=True: K1 launched) and "hogwild"
@@ -180,6 +184,16 @@ Phases (any failure exits non-zero; there is no CPU path):
      AUC within 0.01 of a single-device banded run, K4 launched on each
      rank. Each mode prints its samples/s, its collectives' calls, bytes
      and seconds, and the backend
+ 34. JODIE at full width (run after phase 30): both arms on phase 29's set
+     at dim 128, gated at their dim-128 JAX records less 0.03
+     (SEQ_RECORDS_128); then the JODIE paper's Wikipedia shape
+     (seq_data.interaction_arrays(**seq_data.WIKIPEDIA): 8,227 users, 1,000
+     items in 4 clusters, 157,474 events, 172 feature columns U[0, 1),
+     built in memory) at dim 128: the kernel against its plain loop on the
+     first 4,000 events; eight epochs of train() (lr 0.05, bce_lr 0.2), one
+     jodie_epoch launch each, finite tables, the static tables' pairwise
+     accuracy printed; the kernel's ms an epoch, the schedule's ms, the
+     levels, their mean width, the bound and the share of it
 Each in-process path runs 1M samples first (tables, stream and warm-up),
 then every kernel's launch count is set to 0, read after the timed 40M run
 and printed; a command-line run counts the launches of its own process.
@@ -315,7 +329,8 @@ def phase_build() -> None:
     )
 
     loaders = (sgns_banded._load, sgns._load, sgns_banded._load_fused,
-               scatter._load, sgns_banded._load_nb, jodie_epoch._load)
+               scatter._load, sgns_banded._load_nb, jodie_epoch._load,
+               jodie_epoch._load_schedule)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as ex:
         for f in [ex.submit(load) for load in loaders]:
@@ -324,7 +339,8 @@ def phase_build() -> None:
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name in ("sgns_banded_multiblock", "sgns_shared_grads",
                  "sgns_banded_fused", "band_scatter_add",
-                 "sgns_banded_multiblock_nb", "jodie_epoch"):
+                 "sgns_banded_multiblock_nb", "jodie_epoch",
+                 "jodie_schedule"):
         secs, report = _build.build_info[name]
         log(f"  {name}: {secs:.2f} s")
         for line in report.splitlines():
@@ -2056,6 +2072,8 @@ def phase_typed_cli(f: dict) -> None:
 # recall@10 of the leave-one-out ranking
 SEQ_RECORDS = dict(jodie=0.522, jodie_bce=0.863, sasrec=0.471,
                    gsasrec=0.493, recdenoiser=0.512)
+# the same records of JODIE's two arms at dim 128 (seq_records.py --dim 128)
+SEQ_RECORDS_128 = dict(jodie=0.736, jodie_bce=0.863)
 # forward-only SASRec (the reference's semantics) at 100 epochs, dim 64:
 # recall@10 0.1860 (PERF_NOTES.md:261, one seed), printed beside the CLI's
 SASREC_FORWARD_ONLY_JAX = 0.1860
@@ -2076,67 +2094,104 @@ def seq_files() -> dict:
     return f
 
 
-def _jodie_epoch_inputs(path, device):
-    """JODIE (seed 0, dim D) on the interaction set and one epoch's kernel
-    arguments but the tables: (model, args after the four tables)."""
-    from smore_tpu_torch.models import JODIE
+def _jodie_epoch_inputs(m, dim, device, events=None):
+    """JODIE ``m`` at init(dim) (seed 0) and one epoch's kernel arguments
+    but the tables, over its first ``events`` events (all when None):
+    (args after the four tables, the level schedule)."""
+    from smore_tpu_torch.ops.jodie_epoch import level_schedule
     from smore_tpu_torch.utils import seq_data as sd
 
-    m = JODIE.load_interactions(path, seed=0, device=device)
-    m.init(D)
+    m.init(dim)
     ig = m.ig
+    T = ig.n_interactions if events is None else events
     gen = torch.Generator(device).manual_seed(1)
     negs = torch.randint(0, ig.n_items, (ig.n_interactions,), generator=gen,
-                         device=device, dtype=torch.int32)
-    uid, iid, cu, ci = m.scan_inputs(m.state)
-    return m, (uid, iid, negs, cu, ci, m.state["user_rnn"],
-               m.state["item_rnn"], sd.JODIE_RUN["learning_rate"],
-               sd.JODIE_ARMS["jodie_bce"])
+                         device=device, dtype=torch.int32)[:T]
+    uid, iid, cu, ci = (t[:T] for t in m.scan_inputs(m.state))
+    sched = level_schedule(uid, iid, negs, ig.n_users, ig.n_items, device)
+    return (uid, iid, negs, cu, ci, m.state["user_rnn"], m.state["item_rnn"],
+            sd.JODIE_RUN["learning_rate"],
+            sd.JODIE_ARMS["jodie_bce"]), sched
+
+
+def _jodie_tables(m):
+    ue, ie = (m.state[k].clone() for k in ("user_static", "item_static"))
+    return [ue, ie, ue.clone(), ie.clone()]
+
+
+def _jodie_check(tag, m, args, sched) -> tuple:
+    """One epoch through the kernel and through its plain loop, the same
+    draws: the four tables and the loss must agree. Returns (max |diff|,
+    the loop's ms on the host clock: it is bound by its launches); logs
+    the tables' max |diff| and the loss's (a sum of T terms, taken in
+    another order)."""
+    from smore_tpu_torch.ops import jodie_epoch as je
+
+    a, b = _jodie_tables(m), _jodie_tables(m)
+    la = je.jodie_epoch(*a, *args, sched)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lb = je.jodie_epoch_ref(*b, *args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    errs = [_compare(f"{tag} {k}", x, y) for k, x, y in zip(
+        ("ue", "ie", "us", "is_", "loss"), a + [la], b + [lb])]
+    log(f"{tag}: tables max |diff| {max(errs[:4]):.3e}, loss {float(la):.4f} "
+        f"vs {float(lb):.4f}")
+    return max(errs), plain_ms
+
+
+def _jodie_bound(T, U, I, D) -> dict:
+    """Two dot products, the BCE step, four D x D products (two cells), the
+    tanh and the statics' step an event, multiply-adds counted twice; the
+    four tables read and written once, ids, cu / ci, the weights."""
+    flops = T * (8 * D * D + 24 * D)
+    nbytes = (4 * (U + I) * D + 3 * T + 2 * T * D + 4 * D * D + 1) * 4
+    return _bound("jodie_epoch", flops, nbytes)
+
+
+def _jodie_layout(D, sched) -> str:
+    from smore_tpu_torch.ops.jodie_epoch import kernel_plan
+
+    p = kernel_plan(D, sched.max_width)
+    return (f"{p['grid']} blocks of 256 threads, split {p['split']}, "
+            f"grid barrier, {p['cached_rows']} weight rows of a block cached "
+            f"in {p['smem_bytes']:,} B of shared memory")
 
 
 def phase_jodie_vs_twin(path: str, device) -> dict:
     """The jodie_epoch kernel against its plain loop on one epoch of the
     8,000-event set at dim D (JODIE's own init, bce_lr 0.2, negatives from
     a seeded generator, neg == i among them): the four tables and the loss
-    must agree; a call is ONE launch of jodie_epoch_scan; the loop's time
-    (host clock around one call: it is bound by its launches), the
-    kernel's, the bound."""
+    must agree; a call is ONE launch of jodie_levels; the loop's time, the
+    kernel's, the levels, the layout, the bound. Then dims 50, 128 and 256
+    against the loop on 1,500 events of the set's generator."""
+    from smore_tpu_torch.models import JODIE
     from smore_tpu_torch.ops import _build
     from smore_tpu_torch.ops import jodie_epoch as je
+    from smore_tpu_torch.utils import seq_data as sd
 
     jodie_epoch = je.jodie_epoch
-    m, args = _jodie_epoch_inputs(path, device)
-    st, ig = m.state, m.ig
+    card = _card()
+    m = JODIE.load_interactions(path, seed=0, device=device)
+    args, sched = _jodie_epoch_inputs(m, D, device)
+    ig = m.ig
     T, U, I = ig.n_interactions, ig.n_users, ig.n_items
     require(bool((args[2].cpu().numpy() == ig.item_ids).any()),
             "jodie_epoch check: no event with neg == i")
-
-    def tables():
-        ue, ie = st["user_static"].clone(), st["item_static"].clone()
-        return [ue, ie, ue.clone(), ie.clone()]
-
-    a, b = tables(), tables()
-    la = jodie_epoch(*a, *args)
-    torch.cuda.synchronize()
-    # one call of the loop (seconds of host time; the kernel is hundreds of
-    # times faster, so no alternation is needed to tell them apart)
-    t0 = time.perf_counter()
-    lb = je.jodie_epoch_ref(*b, *args)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    err = max(_compare(f"jodie_epoch {k}", x, y) for k, x, y in zip(
-        ("ue", "ie", "us", "is_", "loss"), a + [la], b + [lb]))
-    scratch = tables()
-    t_kern = [_time_ms(lambda: jodie_epoch(*scratch, *args), 5)
+    err, plain_ms = _jodie_check("jodie_epoch", m, args, sched)
+    scratch = _jodie_tables(m)
+    t_kern = [_time_ms(lambda: jodie_epoch(*scratch, *args, sched), 5)
               for _ in range(2)]
     for _ in range(3):
-        host, kernels = _cuda_work(lambda: jodie_epoch(*scratch, *args))
+        host, kernels = _cuda_work(
+            lambda: jodie_epoch(*scratch, *args, sched))
         require(len(host) == 3 and all(h.startswith("cudaLaunchKernel")
                                        for h in host)
                 and len(kernels) <= 3
-                and all("jodie_epoch_scan" in k for k in kernels),
+                and all("jodie_levels" in k for k in kernels),
                 f"jodie_epoch: 3 calls put {host} / {kernels} on the card, "
-                "not 3 launches of jodie_epoch_scan")
+                "not 3 launches of jodie_levels")
         if kernels:
             break
     log(f"jodie_epoch CUDA launches per call (profiler, 3 calls): host "
@@ -2148,16 +2203,25 @@ def phase_jodie_vs_twin(path: str, device) -> dict:
     ms = min(t_kern)
     log(f"jodie_epoch vs twin (T={T:,} events, {U} users, {I} items, "
         f"D={D}, bce_lr {args[-1]}): max |diff| {err:.3e}; kernel {ms:.4f} "
-        f"ms an epoch {t_kern} (one block of {4 * D} threads, "
-        f"{je._load().jodie_epoch_smem_bytes(D):,} B of shared memory), "
-        f"plain loop {plain_ms:.1f} ms ({plain_ms / ms:.0f}x) [{_card()}]")
-    # two dot products, the BCE step, four D x D products (two cells), the
-    # tanh and the statics' step an event, multiply-adds counted twice;
-    # the four tables read and written once, ids, cu / ci, the weights
-    flops = T * (8 * D * D + 24 * D)
-    nbytes = (4 * (U + I) * D + 3 * T + 2 * T * D + 4 * D * D + 1) * 4
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                **_bound("jodie_epoch", flops, nbytes), library_ms=None)
+        f"ms an epoch {t_kern}; {sched.n_levels:,} levels (mean width "
+        f"{T / sched.n_levels:.1f}, widest {sched.max_width}); "
+        f"{_jodie_layout(D, sched)}; plain loop {plain_ms:.1f} ms "
+        f"({plain_ms / ms:.0f}x) [{card}]")
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **_jodie_bound(T, U, I, D), library_ms=None)
+    small = os.path.join(OUT, "jodie_events_1500.txt")
+    sd.make_interactions(small, events=1500)
+    for dim in (50, 128, 256):
+        m = JODIE.load_interactions(small, seed=0, device=device)
+        a, sch = _jodie_epoch_inputs(m, dim, device)
+        e, p_ms = _jodie_check(f"jodie_epoch D={dim}", m, a, sch)
+        sc = _jodie_tables(m)
+        t = _time_ms(lambda: jodie_epoch(*sc, *a, sch), 5)
+        log(f"jodie_epoch vs twin at D={dim} (T=1,500, {sch.n_levels:,} "
+            f"levels): max |diff| {e:.3e}; kernel {t:.4f} ms, plain loop "
+            f"{p_ms:.1f} ms; {_jodie_layout(dim, sch)} [{card}]")
+    os.remove(small)
+    return out
 
 
 def phase_jodie(path: str, device) -> int:
@@ -2201,6 +2265,100 @@ def phase_jodie(path: str, device) -> int:
     _no_launch("jodie", {k: c for k, c in counters.items()
                          if k != "jodie_epoch"})
     return launches
+
+
+JODIE_FULL_DIM = 128  # the JODIE paper's embedding dim
+
+
+def phase_jodie_full(path: str, device) -> None:
+    """JODIE at full width: both arms on the 8,000-event set at dim 128,
+    gated at SEQ_RECORDS_128 less REC_MARGIN; then the Wikipedia shape at
+    dim 128, 172 features: the kernel against its plain loop on the first
+    4,000 events, eight epochs of train() (one launch each), finite tables,
+    the static tables' pairwise accuracy, the kernel's and the schedule's
+    ms, the levels and the share of the bound."""
+    from smore_tpu_torch.graph.bipartite import InteractionGraph
+    from smore_tpu_torch.models import JODIE
+    from smore_tpu_torch.ops import jodie_epoch as je
+    from smore_tpu_torch.utils import seq_data as sd
+
+    card = _card()
+    counters = _counters()
+    dim = JODIE_FULL_DIM
+    epochs = sd.JODIE_RUN["epochs"]
+    for c in counters.values():
+        c.launches = 0
+    for arm, bce in sd.JODIE_ARMS.items():
+        m = JODIE.load_interactions(path, seed=0, device=device)
+        m.init(dim)
+        t0 = time.perf_counter()
+        m.train(bce_lr=bce, verbose=False, **sd.JODIE_RUN)
+        dt = time.perf_counter() - t0
+        st = {k: m.state[k] for k in ("user_static", "item_static")}
+        _finite(arm, dict(st, user_dyn=m.user_dyn, item_dyn=m.item_dyn))
+        acc = sd.jodie_eval(st["user_static"].cpu().numpy(),
+                            st["item_static"].cpu().numpy(), m.ig.user_ids,
+                            m.ig.item_ids, m.ig.n_items)
+        log(f"{arm} at dim {dim} ({m.ig.n_interactions:,} events, {epochs} "
+            f"epochs): {dt / epochs * 1e3:.2f} ms an epoch; static "
+            f"{_typed_gate(arm, acc, 'pairwise accuracy', SEQ_RECORDS_128)}"
+            f" [{card}]")
+    require(counters["jodie_epoch"].launches == 2 * epochs,
+            f"jodie at dim {dim}: {counters['jodie_epoch'].launches} "
+            f"launches, not {2 * epochs}")
+
+    t0 = time.perf_counter()
+    ig = InteractionGraph.from_events(*sd.interaction_arrays(
+        **sd.WIKIPEDIA))
+    build_s = time.perf_counter() - t0
+    m = JODIE(ig, seed=0, device=device)
+    T, U, I = ig.n_interactions, ig.n_users, ig.n_items
+    args, sched = _jodie_epoch_inputs(m, dim, device, events=4000)
+    err, plain_ms = _jodie_check("jodie_epoch (Wikipedia shape)", m, args,
+                                 sched)
+    log(f"Wikipedia shape ({U:,} users, {I:,} items, {T:,} events, "
+        f"{ig.feature_dim} features; built in {build_s:.1f} s): the first 4,000 events at D={dim} ({sched.n_levels:,} "
+        f"levels) against the plain loop: max |diff| {err:.3e} ({plain_ms:.0f}"
+        f" ms for the loop) [{card}]")
+    args, sched = _jodie_epoch_inputs(m, dim, device)
+    sched_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        je.level_schedule(ig.user_ids, ig.item_ids, args[2], U, I, device)
+        torch.cuda.synchronize()
+        sched_ms.append((time.perf_counter() - t0) * 1e3)
+    scratch = _jodie_tables(m)
+    t_kern = [_time_ms(lambda: je.jodie_epoch(*scratch, *args, sched), 3)
+              for _ in range(2)]
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    m.train(epochs=epochs, learning_rate=sd.JODIE_RUN["learning_rate"],
+            bce_lr=sd.JODIE_ARMS["jodie_bce"], verbose=False)
+    dt = time.perf_counter() - t0
+    launches = counters["jodie_epoch"].launches
+    require(launches == epochs,
+            f"jodie, Wikipedia shape: {launches} launches, not {epochs}")
+    _no_launch("jodie", {k: c for k, c in counters.items()
+                         if k != "jodie_epoch"})
+    st = {k: m.state[k] for k in ("user_static", "item_static")}
+    _finite("jodie (Wikipedia shape)",
+            dict(st, user_dyn=m.user_dyn, item_dyn=m.item_dyn))
+    require(m.user_dyn.shape == (U, dim), "jodie: user table shape")
+    acc = sd.jodie_eval(st["user_static"].cpu().numpy(),
+                        st["item_static"].cpu().numpy(), ig.user_ids,
+                        ig.item_ids, I)
+    bound = _jodie_bound(T, U, I, dim)
+    ms = min(t_kern)
+    log(f"jodie, Wikipedia shape at D={dim}: {epochs} epochs in {dt:.3f} s "
+        f"= {dt / epochs * 1e3:.2f} ms an epoch, {epochs * T / dt:,.0f} "
+        f"events/s, {launches} jodie_epoch launches; kernel {ms:.4f} ms an "
+        f"epoch {t_kern}; schedule {min(sched_ms):.2f} ms {sched_ms}; "
+        f"{sched.n_levels:,} levels, mean width {T / sched.n_levels:.1f}, "
+        f"widest {sched.max_width}; {_jodie_layout(dim, sched)}; bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), "
+        f"{bound['bound_ms'] / ms:.1%} of it; static pairwise accuracy "
+        f"{acc:.4f} (ungated) [{card}]")
 
 
 def phase_seq(path: str, device) -> dict:
@@ -2256,36 +2414,42 @@ def phase_seq_cli(f: dict) -> None:
 
     card = _card()
 
-    def well_formed(path, names):
+    def well_formed(path, names, dim=D):
         with open(path) as fh:
             header = fh.readline().split()
         emb = load_embeddings(path)
-        require(header == [str(len(names)), str(D)] and set(emb) ==
+        require(header == [str(len(names)), str(dim)] and set(emb) ==
                 set(names), f"{path}: header {header}, {len(emb)} rows")
         rows = np.stack([emb[n] for n in names])
-        require(rows.shape == (len(names), D) and np.isfinite(rows).all(),
+        require(rows.shape == (len(names), dim) and np.isfinite(rows).all(),
                 f"{path}: rows {rows.shape}, finite "
                 f"{np.isfinite(rows).all()}")
         return rows
 
     epochs = sd.JODIE_RUN["epochs"]
     files = [os.path.join(OUT, f"cli_jodie_{k}.txt") for k in ("u", "i")]
-    r = run_cli(["jodie", "-train", f["events"], "-save_user", files[0],
-                 "-save_item", files[1], "-dimensions", str(D), "-epochs",
-                 str(epochs), "-alpha",
-                 str(sd.JODIE_RUN["learning_rate"])])
-    others = {k: v for k, v in r["launches"].items() if k != "jodie_epoch"}
-    require(r["launches"]["jodie_epoch"] == epochs and not any(
-        others.values()), f"jodie through the CLI launched {r['launches']}")
     ig = InteractionGraph.load_interactions(f["events"])
-    ue, ie = well_formed(files[0], ig.users), well_formed(files[1], ig.items)
-    acc = sd.jodie_eval(ue, ie, ig.user_ids, ig.item_ids, ig.n_items)
-    log(f"jodie (CLI, -epochs {epochs}): {r['launches']['jodie_epoch']} "
-        f"jodie_epoch launches; files {len(ig.users)} x {D} and "
-        f"{len(ig.items)} x {D}, finite; dynamic tables' pairwise accuracy "
-        f"{acc:.4f} (ungated); {_wall(r)} [{card}]")
-    for p in files:
-        os.remove(p)
+    for dim in (D, JODIE_FULL_DIM):
+        r = run_cli(["jodie", "-train", f["events"], "-save_user", files[0],
+                     "-save_item", files[1], "-dimensions", str(dim),
+                     "-epochs", str(epochs), "-alpha",
+                     str(sd.JODIE_RUN["learning_rate"])])
+        others = {k: v for k, v in r["launches"].items()
+                  if k != "jodie_epoch"}
+        require(r["launches"]["jodie_epoch"] == epochs and not any(
+            others.values()),
+            f"jodie -dimensions {dim} through the CLI launched "
+            f"{r['launches']}")
+        ue = well_formed(files[0], ig.users, dim)
+        ie = well_formed(files[1], ig.items, dim)
+        acc = sd.jodie_eval(ue, ie, ig.user_ids, ig.item_ids, ig.n_items)
+        log(f"jodie (CLI, -dimensions {dim} -epochs {epochs}): "
+            f"{r['launches']['jodie_epoch']} jodie_epoch launches; files "
+            f"{len(ig.users)} x {dim} and {len(ig.items)} x {dim}, finite; "
+            f"dynamic tables' pairwise accuracy {acc:.4f} (ungated); "
+            f"{_wall(r)} [{card}]")
+        for p in files:
+            os.remove(p)
 
     tr = sd.SEQ_TRAIN
     save = os.path.join(OUT, "cli_sasrec.txt")
@@ -2654,6 +2818,7 @@ def run_phases(args) -> None:
     kj = timed("jodie_epoch vs twin", phase_jodie_vs_twin, sf["events"],
                device)
     kj_launches = timed("JODIE", phase_jodie, sf["events"], device)
+    timed("JODIE at full width", phase_jodie_full, sf["events"], device)
     seq = timed("SASRec family", phase_seq, sf["seq"], device)
     timed("jodie and sasrec through the CLI", phase_seq_cli, sf)
     log(f"JODIE and SASRec-family phases: {time.perf_counter() - t0:.1f} s")

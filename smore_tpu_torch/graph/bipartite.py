@@ -139,6 +139,32 @@ class InteractionGraph:
         ts = ts[order].astype(np.float32)
         feats = np.asarray(f_l, dtype=np.float32)[order] if feat_dim else None
 
+        return InteractionGraph._build(users, items, user2id, item2id, uid,
+                                       iid, ts, feats)
+
+    @staticmethod
+    def from_events(user_ids: np.ndarray, item_ids: np.ndarray,
+                    timestamps: np.ndarray,
+                    features: Optional[np.ndarray] = None
+                    ) -> "InteractionGraph":
+        """The store of events given as arrays: dense user and item ids
+        (named ``u<id>`` / ``i<id>``, ids 0 .. max), timestamps and (T, F)
+        features, sorted by time as the loader sorts them."""
+        order = np.argsort(np.asarray(timestamps, np.float64), kind="stable")
+        users = [f"u{k}" for k in range(int(user_ids.max(initial=-1)) + 1)]
+        items = [f"i{k}" for k in range(int(item_ids.max(initial=-1)) + 1)]
+        feats = (None if features is None or features.shape[1] == 0
+                 else np.asarray(features, np.float32)[order])
+        return InteractionGraph._build(
+            users, items, {n: k for k, n in enumerate(users)},
+            {n: k for k, n in enumerate(items)},
+            np.asarray(user_ids, np.int32)[order],
+            np.asarray(item_ids, np.int32)[order],
+            np.asarray(timestamps, np.float64)[order].astype(np.float32),
+            feats)
+
+    @staticmethod
+    def _build(users, items, user2id, item2id, uid, iid, ts, feats):
         def group(ids, n):
             o = np.argsort(ids, kind="stable")  # stable keeps time order
             indptr = np.searchsorted(ids[o], np.arange(n + 1)).astype(np.int64)

@@ -12,10 +12,11 @@ the reference's pairwise accuracy pos > random negative over the last <=
 1000 events.
 
 The scan is one kernel launch an epoch on the card and the plain loop on
-the CPU. The time gaps dt = (t - last t of the row) / 100 depend only on
-the events, so they are computed on the host once, and the RNN inputs'
-table-free part Wx[:, D:] [f | dt] + b is one matrix product an epoch
-before the scan.
+the CPU; on the card the epoch's dependency levels, which the kernel walks,
+are built on the host from the events and that epoch's negatives. The time
+gaps dt = (t - last t of the row) / 100 depend only on the events, so they
+are computed on the host once, and the RNN inputs' table-free part Wx[:,
+D:] [f | dt] + b is one matrix product an epoch before the scan.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from smore_tpu_torch.models.base import (
     TRAIN_STREAM,
     seeded_generator,
 )
-from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
+from smore_tpu_torch.ops.jodie_epoch import jodie_epoch, level_schedule
 from smore_tpu_torch.ops.rnn import init_rnn_cell, rnn_forward
 from smore_tpu_torch.utils.checkpoint import (
     checkpoint_exists,
@@ -136,12 +137,17 @@ class JODIE:
             negs = torch.randint(0, ig.n_items, (ig.n_interactions,),
                                  generator=gen, device=self.device,
                                  dtype=torch.int32)
+        negs = negs.to(self.device)
+        schedule = None  # the plain loop on the CPU walks the events in order
+        if negs.device.type == "cuda":
+            schedule = level_schedule(ig.user_ids, ig.item_ids, negs,
+                                      ig.n_users, ig.n_items, self.device)
         uid, iid, cu, ci = self.scan_inputs(state)
         ue, ie = (state[k].clone() for k in ("user_static", "item_static"))
         us, is_ = ue.clone(), ie.clone()
-        loss = jodie_epoch(ue, ie, us, is_, uid, iid, negs.to(self.device),
-                           cu, ci, state["user_rnn"], state["item_rnn"],
-                           float(learning_rate), float(bce_lr))
+        loss = jodie_epoch(ue, ie, us, is_, uid, iid, negs, cu, ci,
+                           state["user_rnn"], state["item_rnn"],
+                           float(learning_rate), float(bce_lr), schedule)
         return ue, ie, us, is_, loss / ig.n_interactions
 
     def train(self, epochs: int = 5, learning_rate: float = 0.01,

@@ -13,6 +13,9 @@ library never loaded. ``ptxas``'s report (registers, shared memory,
 spills) is kept beside it as ``.log``. Nothing is built at import
 time; a missing ``nvcc`` or a failed build raises with the compiler's
 message.
+
+Host helpers in C++ (``csrc/<name>.cpp``, a plain C interface) are built
+the same way by ``g++`` (``load_host_lib``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 _libs: dict = {}
 _lock = threading.Lock()  # guards _name_locks
@@ -65,9 +69,11 @@ def _nvcc() -> str:
 
 
 def _digest(src: str) -> str:
-    """Hash of a source and every header it may include."""
+    """Hash of a source and, for a kernel, every header it may include."""
     h = hashlib.sha256()
-    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    headers = (sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+               if src.endswith(".cu") else [])
+    for path in [src] + headers:
         with open(path, "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:12]
@@ -76,23 +82,33 @@ def _digest(src: str) -> str:
 def load_kernel_lib(name: str) -> ctypes.CDLL:
     """Build (once per source revision) and load ``csrc/<name>.cu``. Calls
     for different kernels from different threads build in parallel."""
+    return _load(name, ".cu", lambda: [_nvcc(), *NVCC_FLAGS])
+
+
+def load_host_lib(name: str) -> ctypes.CDLL:
+    """Build (once per source revision) and load the host library
+    ``csrc/<name>.cpp`` with ``g++``."""
+    return _load(name, ".cpp", lambda: ["g++", *GXX_FLAGS])
+
+
+def _load(name: str, ext: str, compiler) -> ctypes.CDLL:
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
         if name in _libs:
             return _libs[name]
-        src = os.path.join(CSRC, f"{name}.cu")
+        src = os.path.join(CSRC, f"{name}{ext}")
         digest = _digest(src)
         so = os.path.join(build_dir(), f"lib{name}-{digest}.so")
         t0 = time.perf_counter()
         if not os.path.exists(so):
             tmp = f"{so}.build.{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+            cmd = [*compiler(), "-o", tmp, src]
             r = subprocess.run(cmd, capture_output=True, text=True)
             if r.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed to build {src} (exit {r.returncode}):\n"
-                    f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}"
+                    f"{cmd[0]} failed to build {src} (exit {r.returncode}):"
+                    f"\n{' '.join(cmd)}\n{r.stdout}\n{r.stderr}"
                 )
             with open(so[:-3] + ".log", "w") as f:
                 f.write(r.stdout + r.stderr)

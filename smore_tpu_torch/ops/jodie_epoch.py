@@ -18,29 +18,39 @@ The parts of the RNN input that do not depend on the tables, Wx[:, D:]
 [f | dt] + b, are computed for every event before the scan (``cu``,
 ``ci``: (T, D)), so the scan multiplies only by Wh and Wx[:, :D].
 
+An event touches only row u of the user tables and rows i and neg of the
+item tables, so the events fall into dependency levels (``scan_levels``:
+level = 1 + the last level of any of its rows): the events of a level touch
+disjoint rows and every row meets its events in time order. Walking the
+levels in order gives every row the sequential scan's operations.
+
 ``jodie_epoch`` runs the plain PyTorch loop ``jodie_epoch_ref`` for CPU
-tensors and launches the CUDA kernel (``csrc/jodie_epoch.cu``: one block
-scans the whole epoch, one launch) for CUDA tensors, or raises; it never
-falls back. ``jodie_epoch.launches`` counts kernel launches.
+tensors and launches the CUDA kernel (``csrc/jodie_epoch.cu``: the levels of
+the ``level_schedule`` it is given in order, the events of a level side by
+side across the SMs, one launch an epoch) for CUDA tensors, or raises; it
+never falls back.
+``jodie_epoch.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 _KERNEL = "jodie_epoch"
 _lib = None
+_sched_lib = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the launcher's C signature as ctypes passes it, held to csrc/ by
 # tests/test_torch_sgns_banded.py
-LAUNCH_ARGTYPES = {_KERNEL: [_I] + [_P] * 13 + [_I] * 3 + [_F] * 2
+LAUNCH_ARGTYPES = {_KERNEL: [_I] + [_P] * 17 + [_I] * 5 + [_F] * 2
                    + [_P] * 2}
-# the kernel keeps Wh and Wx[:, :D] of both cells in shared memory, padded
-# rows of D + 1 floats, and runs 4 D threads: D a multiple of 32 up to 96
-MAX_DIM = 96
+# the kernel computes an event on a cluster of up to this many blocks
+# (csrc/jodie_epoch.cu kMaxSplit, a portable cluster)
+_MAX_SPLIT = 8
 
 
 def _load():
@@ -53,10 +63,105 @@ def _load():
         lib.jodie_epoch_launch.argtypes = LAUNCH_ARGTYPES[_KERNEL]
         lib.jodie_epoch_error_string.restype = ctypes.c_char_p
         lib.jodie_epoch_error_string.argtypes = [_I]
-        lib.jodie_epoch_smem_bytes.restype = _I
-        lib.jodie_epoch_smem_bytes.argtypes = [_I]
+        lib.jodie_epoch_plan.restype = _I
+        lib.jodie_epoch_plan.argtypes = [_I] * 3 + [_P]
         _lib = lib
     return _lib
+
+
+def _load_schedule():
+    global _sched_lib
+    if _sched_lib is None:
+        from smore_tpu_torch.ops._build import load_host_lib
+
+        lib = load_host_lib("jodie_schedule")
+        ptr = np.ctypeslib.ndpointer
+        lib.jodie_scan_levels.restype = ctypes.c_int64
+        lib.jodie_scan_levels.argtypes = [ptr(np.int32)] * 3 + [
+            ctypes.c_int64] * 3 + [ptr(np.int32)] * 2
+        _sched_lib = lib
+    return _sched_lib
+
+
+def _host_ids(*ids) -> Tuple[np.ndarray, ...]:
+    return tuple(np.ascontiguousarray(
+        (t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)),
+        dtype=np.int32) for t in ids)
+
+
+def scan_levels(uid, iid, negs, n_users: int,
+                n_items: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The epoch's dependency levels (host C++, ``csrc/jodie_schedule.cpp``):
+    ``order`` (T,) int32, the events grouped by level and in time order
+    inside a level, and ``level_ptr`` (L + 1,) int32, each level's start in
+    ``order``. Event e's level is 1 + the last level of ue[uid[e]],
+    ie[iid[e]] and ie[negs[e]]. Raises on a row out of range."""
+    u, i, n = _host_ids(uid, iid, negs)
+    T = len(u)
+    if len(i) != T or len(n) != T:
+        raise ValueError("uid, iid and negs must have one length")
+    order = np.empty(T, np.int32)
+    ptr = np.empty(T + 1, np.int32)
+    L = _load_schedule().jodie_scan_levels(u, i, n, T, n_users, n_items,
+                                           order, ptr)
+    if L < 0:
+        raise ValueError(f"event {-1 - L} has a row out of range "
+                         f"({n_users} users, {n_items} items)")
+    return order, ptr[:L + 1].copy()
+
+
+def scan_levels_np(uid, iid, negs, n_users: int,
+                   n_items: int) -> Tuple[np.ndarray, np.ndarray]:
+    """numpy twin of ``scan_levels``."""
+    u, i, n = _host_ids(uid, iid, negs)
+    last_u = np.zeros(n_users, np.int64)
+    last_i = np.zeros(n_items, np.int64)
+    level = np.zeros(len(u), np.int64)
+    for e in range(len(u)):
+        lev = 1 + max(last_u[u[e]], last_i[i[e]], last_i[n[e]])
+        level[e] = last_u[u[e]] = last_i[i[e]] = last_i[n[e]] = lev
+    L = int(level.max()) if len(level) else 0
+    order = np.argsort(level, kind="stable").astype(np.int32)
+    counts = np.bincount(level, minlength=L + 1)[1:]
+    ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return order, ptr
+
+
+class LevelSchedule(NamedTuple):
+    """``scan_levels``' output on the tables' device, and ``level_ptr``'s
+    host copy ``bounds``: the launch reads the level count and the widest
+    level (its grid) from it without a copy from the card."""
+    order: torch.Tensor  # (T,) int32
+    level_ptr: torch.Tensor  # (L + 1,) int32
+    bounds: np.ndarray  # (L + 1,) int32
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.bounds) - 1
+
+    @property
+    def max_width(self) -> int:
+        return int(np.diff(self.bounds).max()) if self.n_levels else 0
+
+
+def level_schedule(uid, iid, negs, n_users: int, n_items: int,
+                   device) -> LevelSchedule:
+    """``scan_levels`` on the host (negs is copied there), moved to
+    ``device``."""
+    order, ptr = scan_levels(uid, iid, negs, n_users, n_items)
+    return LevelSchedule(torch.from_numpy(order).to(device),
+                         torch.from_numpy(ptr).to(device), ptr)
+
+
+def _check_schedule(s: LevelSchedule, T: int, device) -> None:
+    b = np.asarray(s.bounds)
+    if (s.order.shape != (T,) or s.level_ptr.shape != b.shape
+            or s.order.device != device or s.level_ptr.device != device):
+        raise ValueError(f"the schedule must order these {T} events on the "
+                         "tables' device")
+    if b.ndim != 1 or len(b) == 0 or b[0] != 0 or b[-1] != T or (
+            np.diff(b) < 0).any():
+        raise ValueError(f"the schedule's levels must run from 0 to {T}")
 
 
 def _check(ue, ie, us, is_, uid, iid, negs, cu, ci, up, ip):
@@ -132,39 +237,50 @@ def jodie_epoch_ref(ue, ie, us, is_, uid, iid, negs, cu, ci,
 
 def jodie_epoch(ue, ie, us, is_, uid, iid, negs, cu, ci,
                 up: Dict[str, torch.Tensor], ip: Dict[str, torch.Tensor],
-                lr: float, bce_lr: float) -> torch.Tensor:
+                lr: float, bce_lr: float,
+                schedule: Optional[LevelSchedule] = None) -> torch.Tensor:
     """One epoch's scan, the four tables updated in place.
 
     ue, ie: (U, D), (I, D) f32 dynamic tables; us, is_: the static ones;
     uid, iid, negs: (T,) event users, items and negative items; cu, ci: (T,
     D) the RNN inputs' table-free parts; up, ip: the user and item cells
-    (``Wh`` (D, D), ``Wx`` (D, in)); lr, bce_lr: floats. Returns the summed
-    BCE loss, a () tensor. Indices are not bounds-checked on the card (that
-    would synchronise)."""
+    (``Wh`` (D, D), ``Wx`` (D, in)); lr, bce_lr: floats; any D >= 1.
+    Returns the summed BCE loss, a () tensor. ``schedule`` is
+    ``level_schedule`` of these very events (negs included): the card needs
+    it, the plain loop ignores it; its shape and levels are checked, its
+    order is not, and a schedule of other events races on the card. Indices
+    are not bounds-checked on the card (``scan_levels`` checks them on the
+    host)."""
     _check(ue, ie, us, is_, uid, iid, negs, cu, ci, up, ip)
-    if ue.device.type == "cpu":
+    dev = ue.device
+    D, T = ue.shape[1], uid.shape[0]
+    if schedule is not None:
+        _check_schedule(schedule, T, dev)
+    if dev.type == "cpu":
         return jodie_epoch_ref(ue, ie, us, is_, uid, iid, negs, cu, ci, up,
                                ip, lr, bce_lr)
-    if ue.device.type != "cuda":
-        raise ValueError(f"no kernel for device {ue.device}")
-    D = ue.shape[1]
-    if D % 32 or D > MAX_DIM:
-        raise ValueError(f"the jodie_epoch kernel takes a dim that is a "
-                         f"multiple of 32 up to {MAX_DIM}, got {D}")
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if schedule is None:
+        raise ValueError("the kernel needs the epoch's level_schedule")
     lib = _load()
-    dev = ue.device
     # freed on return while the launch may still run: the caching allocator
     # hands their memory only to later work on the same stream
-    ids = [t.to(torch.int32).contiguous() for t in (uid, iid, negs)]
+    ids = [t.to(torch.int32).contiguous()
+           for t in (uid, iid, negs, schedule.order, schedule.level_ptr)]
     ws = [p[k].contiguous() for p in (up, ip) for k in ("Wh", "Wx")]
-    # the kernel writes the loss: with int32 indices a call is one launch
+    slots = torch.empty((T, 4), dtype=torch.int32, device=dev)
+    partials = torch.empty(_MAX_SPLIT * max(schedule.max_width, 1),
+                           dtype=torch.float32, device=dev)
+    # the kernel writes the loss: with int32 inputs a call is one launch
     loss = torch.empty((), dtype=torch.float32, device=dev)
     rc = lib.jodie_epoch_launch(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         ue.data_ptr(), ie.data_ptr(), us.data_ptr(), is_.data_ptr(),
         *(t.data_ptr() for t in ids), cu.data_ptr(), ci.data_ptr(),
-        *(w.data_ptr() for w in ws), uid.shape[0], D, ws[1].shape[1],
-        lr, bce_lr, loss.data_ptr(),
+        *(w.data_ptr() for w in ws), slots.data_ptr(), partials.data_ptr(),
+        T, schedule.n_levels, schedule.max_width, D, ws[1].shape[1], lr,
+        bce_lr, loss.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -176,3 +292,17 @@ def jodie_epoch(ue, ie, us, is_, uid, iid, negs, cu, ci,
 
 
 jodie_epoch.launches = 0
+
+
+def kernel_plan(D: int, max_width: int, device: int = 0) -> dict:
+    """The kernel's layout for (D, widest level) on the card: grid blocks,
+    blocks an event (split), cached weight rows of a block, shared bytes
+    of a block."""
+    out = (ctypes.c_int * 4)()
+    lib = _load()
+    rc = lib.jodie_epoch_plan(device, D, max_width, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"jodie_epoch plan failed: CUDA error {rc} "
+                           f"({lib.jodie_epoch_error_string(rc).decode()})")
+    return dict(grid=out[0], split=out[1], cached_rows=out[2],
+                smem_bytes=out[3])

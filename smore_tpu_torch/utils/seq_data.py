@@ -55,6 +55,29 @@ def make_interactions(path, users=40, items=60, clusters=4, events=8000):
     return path
 
 
+# the JODIE paper's Wikipedia set (Kumar, Zhang and Leskovec, KDD 2019,
+# Table 1) as a shape: users, items, interactions, feature columns; the
+# paper trains at dim 128
+WIKIPEDIA = dict(users=8227, items=1000, events=157474, features=172)
+
+
+def interaction_arrays(users=40, items=60, clusters=4, events=8000,
+                       features=0, seed=SEED):
+    """``make_interactions``' law drawn in bulk, in memory: each event's
+    user uniform, its item uniform among the user's cluster's items, the
+    time up by U[0, 1); ``features`` columns U[0, 1). Returns (user ids,
+    item ids, timestamps, features or None); not the file's draws."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, users, events)
+    c = u % clusters
+    own = (items - c + clusters - 1) // clusters  # len(range(c, items, k))
+    i = c + clusters * (rng.random(events) * own).astype(np.int64)
+    t = np.cumsum(rng.random(events))
+    f = (rng.random((events, features), dtype=np.float32) if features
+         else None)
+    return u, i, t, f
+
+
 def jodie_eval(ue, ie, user_ids, item_ids, n_items, tail=1000):
     """Pairwise accuracy pos > random-neg over the last <= tail (and <=
     20%) interactions; identical fixed negative draws for every table."""

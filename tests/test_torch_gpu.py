@@ -993,58 +993,147 @@ def test_typed_model_trains_on_the_card(cuda, name, tmp_path):
     assert _moved_on_card(before, m.state)
 
 
-def _jodie_inputs(tmp_path, dim, features):
-    """JODIE on an 1,500-event clustered set (the smoke's generator, cut),
-    with two feature columns when ``features``; the epoch's inputs on the
-    card and JODIE's fixed draws."""
+def _jodie_inputs(tmp_path, dim, features, kind="narrow"):
+    """JODIE on an 1,500-event clustered set (the smoke's generator, cut;
+    40 users, 60 items: about 7 events a level), with two feature columns
+    when ``features``; every event on one item when ``kind`` is
+    "one_item" (one event a level); "wide": 3,000 events of 2,000 users
+    and 1,000 items (``interaction_arrays``, levels of ~100 events). The
+    model at init(dim) on the card."""
+    from smore_tpu_torch.graph.bipartite import InteractionGraph
     from smore_tpu_torch.models import JODIE
-    from smore_tpu_torch.utils.seq_data import make_interactions
+    from smore_tpu_torch.utils.seq_data import (
+        interaction_arrays,
+        make_interactions,
+    )
 
+    if kind == "wide":
+        ig = InteractionGraph.from_events(*interaction_arrays(
+            users=2000, items=1000, events=3000,
+            features=2 if features else 0))
+        m = JODIE(ig, seed=0, device="cuda")
+        m.init(dim)
+        return m
     path = make_interactions(str(tmp_path / "ev.txt"), events=1500)
+    lines = open(path).read().splitlines()
+    if kind == "one_item":
+        lines = [f"{u} i0 {t}" for u, _, t in (ln.split() for ln in lines)]
     if features:
         rng = np.random.default_rng(0)
-        lines = open(path).read().splitlines()
-        with open(path, "w") as f:
-            f.writelines(f"{ln} {a:.3f} {b:.3f}\n"
-                         for ln, (a, b) in zip(lines, rng.random((len(lines),
-                                                                   2))))
+        lines = [f"{ln} {a:.3f} {b:.3f}"
+                 for ln, (a, b) in zip(lines, rng.random((len(lines), 2)))]
+    with open(path, "w") as f:
+        f.writelines(ln + "\n" for ln in lines)
     m = JODIE.load_interactions(path, seed=0, device="cuda")
     m.init(dim)
     return m
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dim,features", [(32, False), (64, False),
-                                          (64, True), (96, True)])
-def test_jodie_epoch_kernel_matches_the_twin(cuda, tmp_path, dim, features):
-    """One epoch through the kernel and through the plain loop, the same
-    draws (events with neg == i among them): the four tables and the loss
-    agree to f32 round-off (the dot products and cell products sum in
-    another order), and the kernel launched once."""
-    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch, jodie_epoch_ref
+def _jodie_epoch_args(m, one_item=False):
+    """One epoch's arguments after the four tables (negatives drawn with
+    numpy, seed 1; among 60 items, whose tables replace the one item's,
+    when ``one_item``), the level schedule and a fresh-tables maker."""
+    from smore_tpu_torch.ops.jodie_epoch import level_schedule
 
-    m = _jodie_inputs(tmp_path, dim, features)
-    ig = m.ig
+    ig, st = m.ig, m.state
+    dev = st["user_static"].device
+    n_items = 60 if one_item else ig.n_items
+    if one_item:
+        st["item_static"] = torch.randn(60, m.dim, device=dev) / m.dim
     negs = torch.from_numpy(np.random.default_rng(1).integers(
-        0, ig.n_items, ig.n_interactions)).to(cuda)
-    assert bool((negs.cpu().numpy() == ig.item_ids).any())
-    st = m.state
-    up, ip = st["user_rnn"], st["item_rnn"]
+        0, n_items, ig.n_interactions)).to(dev)
     uid, iid, cu, ci = m.scan_inputs(st)
+    sched = level_schedule(ig.user_ids, ig.item_ids, negs, ig.n_users,
+                           n_items, dev)
 
     def tables():
         ue, ie = st["user_static"].clone(), st["item_static"].clone()
         return [ue, ie, ue.clone(), ie.clone()]
 
-    a, b = tables(), tables()
+    return ((uid, iid, negs, cu, ci, st["user_rnn"], st["item_rnn"], 0.05,
+             0.2), sched, tables)
+
+
+JODIE_DIMS = (16, 32, 48, 50, 64, 96, 100, 128, 256, 513)
+# the kernel chooses its layout from D and the widest level: the narrow
+# sets give 8 blocks an event, the wide set at dims 16, 64, 80, 128 gives
+# 1, 1, 2, 4, and at 513 the weight rows a block's shared memory cannot
+# hold are read from L2 (test_jodie_plans_cover_every_layout)
+JODIE_CASES = (*((d, d % 2 == 0, "narrow") for d in JODIE_DIMS),
+               (64, False, "one_item"), (128, True, "one_item"),
+               (16, True, "wide"), (64, False, "wide"), (80, True, "wide"),
+               (128, False, "wide"), (513, True, "wide"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dim,features,kind", JODIE_CASES)
+def test_jodie_epoch_kernel_matches_the_twin(cuda, tmp_path, dim, features,
+                                             kind):
+    """One epoch through the kernel and through the plain loop, the same
+    draws (events with neg == i among them): the four tables and the loss
+    agree to f32 round-off (the dot products and cell products sum in
+    another order), and the call launched the kernel once."""
+    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch, jodie_epoch_ref
+
+    m = _jodie_inputs(tmp_path, dim, features, kind)
+    args, sched, tables = _jodie_epoch_args(m, kind == "one_item")
+    assert bool((args[2].cpu().numpy() == m.ig.item_ids).any())
+    if kind == "one_item":
+        assert sched.n_levels == m.ig.n_interactions
+    b = tables()
+    lb = jodie_epoch_ref(*b, *args)
+    a = tables()
     before = jodie_epoch.launches
-    la = jodie_epoch(*a, uid, iid, negs, cu, ci, up, ip, 0.05, 0.2)
+    la = jodie_epoch(*a, *args, sched)
     torch.cuda.synchronize()
     assert jodie_epoch.launches == before + 1
-    lb = jodie_epoch_ref(*b, uid, iid, negs, cu, ci, up, ip, 0.05, 0.2)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(la, lb, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_jodie_plans_cover_every_layout(cuda, tmp_path):
+    """The cases of test_jodie_epoch_kernel_matches_the_twin reach every
+    split (1, 2, 4 and 8 blocks an event) and the weight rows read from
+    L2."""
+    from smore_tpu_torch.ops.jodie_epoch import kernel_plan
+
+    splits, from_l2 = set(), False
+    for dim, features, kind in JODIE_CASES:
+        m = _jodie_inputs(tmp_path, dim, features, kind)
+        _, sched, _ = _jodie_epoch_args(m, kind == "one_item")
+        p = kernel_plan(dim, sched.max_width)
+        splits.add(p["split"])
+        from_l2 |= p["cached_rows"] < 2 * -(-dim // p["split"])
+    assert splits == {1, 2, 4, 8}
+    assert from_l2
+
+
+@pytest.mark.gpu
+def test_jodie_launch_after_a_plan_of_another_dim(cuda, tmp_path):
+    """A plan query for a smaller layout between two launches (it sets the
+    kernel's shared-memory limit: 9,984 B at D=64 one event a level,
+    against the launch's 70,464 B) leaves the next launch whole."""
+    from smore_tpu_torch.ops.jodie_epoch import (
+        jodie_epoch,
+        jodie_epoch_ref,
+        kernel_plan,
+    )
+
+    m = _jodie_inputs(tmp_path, 128, False, "wide")
+    args, sched, tables = _jodie_epoch_args(m)
+    b = tables()
+    lb = jodie_epoch_ref(*b, *args)
+    for _ in range(2):
+        a = tables()
+        la = jodie_epoch(*a, *args, sched)
+        assert kernel_plan(64, 1)["smem_bytes"] < kernel_plan(
+            128, sched.max_width)["smem_bytes"]
+        kernel_plan(64, 1)
+        torch.cuda.synchronize()
+        for x, y in zip(a + [la], b + [lb]):
+            torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.gpu
@@ -1062,10 +1151,22 @@ def test_jodie_trains_on_the_card_one_launch_an_epoch(cuda, tmp_path):
 
 
 @pytest.mark.gpu
-def test_jodie_kernel_refuses_a_dim_it_cannot_hold(cuda, tmp_path):
-    m = _jodie_inputs(tmp_path, 48, False)
-    with pytest.raises(ValueError, match="multiple of 32"):
-        m.train(epochs=1, verbose=False)
+@pytest.mark.parametrize("dim", [16, 48, 50, 100, 128, 256, 513])
+def test_jodie_kernel_takes_any_dim(cuda, tmp_path, dim):
+    """Dims the earlier kernel refused (not a multiple of 32, or above 96)
+    train through the kernel: one launch an epoch, finite tables that
+    moved."""
+    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
+
+    m = _jodie_inputs(tmp_path, dim, False)
+    before = m.state["user_static"].clone()
+    n = jodie_epoch.launches
+    m.train(epochs=2, learning_rate=0.05, bce_lr=0.2, verbose=False)
+    assert jodie_epoch.launches == n + 2
+    assert m.user_dyn.shape == (m.ig.n_users, dim)
+    assert bool(torch.isfinite(m.user_dyn).all())
+    assert bool(torch.isfinite(m.item_dyn).all())
+    assert not torch.equal(m.state["user_static"], before)
 
 
 @pytest.mark.gpu

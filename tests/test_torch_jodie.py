@@ -3,9 +3,10 @@ smore_tpu_torch/ops/jodie_epoch.py) against smore_tpu/models/jodie.py.
 
 Given ``load_state_numpy`` of the JAX model's state and the negatives the
 JAX epoch draws from its key (events with neg == i among them), one epoch
-of about 300 events at dim 8, with features and without, leaves the same
-dynamic and static tables and the same mean loss at atol 1e-5 (float32
-sums in another order); two epochs threaded through the statics agree with
+of about 300 events at dim 8, and at dims 50 and 128 (dims the card's
+kernel takes since its levelled redesign), with features and without,
+leaves the same dynamic and static tables and the same mean loss at atol
+1e-5 (float32 sums in another order); two epochs threaded through the statics agree with
 the JAX ``train``; ``project``, ``evaluate_predictions`` and the weight
 files agree; a run killed after an epoch's checkpoint and resumed is
 step-identical on the CPU."""
@@ -75,6 +76,23 @@ def test_one_epoch_matches_jax(tmp_path, features, bce_lr):
     want = jm._epoch_fn()(jm.state, key, jnp.float32(0.05),
                           jnp.float32(bce_lr))
     got = m.epoch(m.state, 0.05, bce_lr, negs=torch.from_numpy(negs))
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("bce_lr", [0.0, 0.2])
+@pytest.mark.parametrize("features", [True, False])
+@pytest.mark.parametrize("dim", [50, 128])
+def test_one_epoch_matches_jax_at_width(tmp_path, dim, features, bce_lr):
+    jm, m = _pair(_events(tmp_path / "ev.txt", seed=12, events=200,
+                          features=features), dim=dim)
+    key = jax.random.PRNGKey(13)
+    negs = _jax_negs(key, jm.ig)
+    assert (negs == jm.ig.item_ids).any(), "no event with neg == i"
+    want = jm._epoch_fn()(jm.state, key, jnp.float32(0.05),
+                          jnp.float32(bce_lr))
+    got = m.epoch(m.state, 0.05, bce_lr, negs=torch.from_numpy(negs))
+    assert got[0].shape == (jm.ig.n_users, dim)
     for g, w in zip(got, want):
         _close(g, w)
 

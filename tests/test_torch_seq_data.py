@@ -83,3 +83,49 @@ def test_jodie_eval_same_scores(gp, tmp_path, tail):
                           tail=tail)
     assert sd.jodie_eval(ue, ie, ig.user_ids, ig.item_ids, ig.n_items,
                          tail=tail) == want
+
+
+@pytest.mark.parametrize("features", [0, 3])
+def test_interaction_arrays_follow_make_interactions_law(tmp_path, features):
+    """The bulk draw of the Wikipedia-shaped set: users uniform, each item
+    in its user's cluster (item % clusters == user % clusters), times
+    strictly rising by U[0, 1), features U[0, 1); and its store equals the
+    loader's on a file of the same events."""
+    u, i, t, f = sd.interaction_arrays(users=50, items=31, clusters=4,
+                                       events=4000, features=features)
+    assert u.min() >= 0 and u.max() < 50 and i.min() >= 0 and i.max() < 31
+    assert (i % 4 == u % 4).all()
+    assert (np.diff(t) > 0).all() and (np.diff(t) < 1).all()
+    counts = np.bincount(u, minlength=50)
+    assert counts.min() > 40 and counts.max() < 120  # 80 a user expected
+    assert (f is None) == (features == 0)
+    if features:
+        assert f.shape == (4000, 3) and f.dtype == np.float32
+        assert 0 <= f.min() and f.max() < 1
+    ig = InteractionGraph.from_events(u, i, t, f)
+    path = tmp_path / "ev.txt"
+    cols = [u, i, t] + ([] if f is None else [f[:, k] for k in range(3)])
+    path.write_text("".join(
+        f"u{a} i{b} {float(c)!r}" + "".join(f" {float(x)!r}" for x in rest)
+        + "\n"
+        for a, b, c, *rest in zip(*cols)))
+    want = InteractionGraph.load_interactions(str(path))
+    for got, ref in ((ig.users, want.users), (ig.items, want.items)):
+        assert set(ref) <= set(got)
+    names = np.array(ig.users)[ig.user_ids]
+    assert (names == np.array(want.users)[want.user_ids]).all()
+    names = np.array(ig.items)[ig.item_ids]
+    assert (names == np.array(want.items)[want.item_ids]).all()
+    assert np.array_equal(ig.timestamps, want.timestamps)
+    if features:
+        assert np.array_equal(ig.features, want.features)
+    else:
+        assert ig.features is None and want.features is None
+    for k in range(ig.n_users):  # per-user event lists in time order
+        ev = ig.user_interactions(k)
+        assert (ig.user_ids[ev] == k).all() and (np.diff(ev) > 0).all()
+
+
+def test_wikipedia_shape():
+    assert sd.WIKIPEDIA == dict(users=8227, items=1000, events=157474,
+                                features=172)
