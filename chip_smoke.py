@@ -194,6 +194,22 @@ Phases (any failure exits non-zero; there is no CPU path):
      jodie_epoch launch each, finite tables, the static tables' pairwise
      accuracy printed; the kernel's ms an epoch, the schedule's ms, the
      levels, their mean width, the bound and the share of it
+ 35. captured against eager (run last): LINE multiblock at Youtube scale
+     (K4) and LINE unbanded on the 50k graph at group 8 (K1), each trained
+     from seed 0 with capture=False (every call eager) and then with the
+     default (the first call eager, every later call one replay of one
+     captured CUDA graph), 40M samples after 1M: the same launches, equal
+     generator states, the captured tables within rtol 1e-4 / atol 1e-5 of
+     the eager ones, the captured AUC at its gate (0.58, 0.99); samples/s
+     of both, the captured run's split into the eager first call, the
+     capture and the replays (and the replays' own samples/s), the host's
+     launch, memset and copy calls a call in the steady state
+     (torch.profiler, four calls more) and its ms a replay
+Every path that trains through TrainDriver without a mesh (phases 8-28
+and 33's single-device runs) trains on captured calls: the first call of
+a train() eager, the others replays of one CUDA graph; a kernel's launch
+counter is credited on every replay the launches of it that the graph's
+nodes hold, which capture holds to what the wrappers launched.
 Each in-process path runs 1M samples first (tables, stream and warm-up),
 then every kernel's launch count is set to 0, read after the timed 40M run
 and printed; a command-line run counts the launches of its own process.
@@ -204,7 +220,8 @@ go to build/chip_smoke/ inside the checkout.
     python3 chip_smoke.py --profile DIR
 
 also profiles 4M more samples of the multiblock, fused, order-1,
-neg_band, held fused, held scatter-only and unbanded main paths, one
+neg_band, held fused, held scatter-only and unbanded main paths (and of
+the multiblock and unbanded paths trained eagerly, phase 35's), one
 DeepWalk run on the 20k graph, 2M samples of BPR, NEMF, GCN, TEXTGCN,
 TEXTGCNdev, FINE and ECO, 2 epochs of TransE at FB15k-237's shape, of
 HAN on the hetero set, of JODIE and of SASRec with torch.profiler, prints each run's
@@ -305,18 +322,9 @@ def phase_device() -> torch.device:
 
 def _counters():
     """The launch-counting wrappers of every kernel, by kernel name."""
-    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
-    from smore_tpu_torch.ops.scatter import band_scatter_add
-    from smore_tpu_torch.ops.sgns import sgns_shared_grads
-    from smore_tpu_torch.ops.sgns_banded import (
-        sgns_banded_fused,
-        sgns_banded_multiblock,
-        sgns_banded_multiblock_nb,
-    )
+    from smore_tpu_torch.ops import launches
 
-    return {f.__name__: f for f in (sgns_banded_multiblock, sgns_shared_grads,
-                                    sgns_banded_fused, band_scatter_add,
-                                    sgns_banded_multiblock_nb, jodie_epoch)}
+    return launches.wrappers()
 
 
 def phase_build() -> None:
@@ -429,7 +437,8 @@ def _compare(name, got, want) -> float:
 
 
 # host calls that put work on the card, as torch.profiler names them
-_RUNTIME_WORK = ("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy")
+_RUNTIME_WORK = ("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy",
+                 "cudaGraphLaunch")
 
 
 def _cuda_work(call, calls: int = 3) -> tuple:
@@ -954,6 +963,101 @@ def phase_youtube_routes(g, device) -> dict:
             require(auc >= gate, f"{tag}: community AUC {auc:.4f} < {gate}")
         out[tag] = (m, launches)
     return out
+
+
+def _steady_launch_calls(m, millions: float, **kw) -> float:
+    """CUDA launch, memset and copy calls the host issues a driver call in
+    the steady state, as torch.profiler records them over a train() of
+    ``millions`` samples: eagerly, every call's over the calls; captured,
+    those from the first replay's cudaGraphLaunch on over the replays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        m.train(sample_times=millions, **TRAIN_KW, **kw)
+        torch.cuda.synchronize()
+    d = m.last_driver
+    events = sorted((e for e in prof.events()
+                     if e.name.startswith(_RUNTIME_WORK)),
+                    key=lambda e: e.time_range.start)
+    if not d.replays:
+        return len(events) / d.calls
+    graph_launches = [i for i, e in enumerate(events)
+                      if e.name == "cudaGraphLaunch"]
+    require(len(graph_launches) == d.replays,
+            f"{len(graph_launches)} cudaGraphLaunch calls for {d.replays} "
+            "replays")
+    return (len(events) - graph_launches[0]) / d.replays
+
+
+def phase_captured_vs_eager(g_yt, g_50k, device) -> None:
+    """Phase 35: the same route trained eagerly (capture=False) and then
+    captured (every call after the first one CUDA graph replay), in this
+    process from one seed, 40M samples after 1M: samples/s, the host's
+    launch calls a call, the host's ms a call; the captured tables held
+    to the eager ones within the kernels' tolerance, the captured AUC to
+    its gate."""
+    from smore_tpu_torch.models.line import LINE
+    from smore_tpu_torch.ops.sgns import sgns_shared_grads
+    from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
+    from smore_tpu_torch.utils.bench_graphs import yt_community_auc
+
+    for tag, g, kw, counter, gate, auc_of in (
+        ("LINE multiblock at Youtube scale (K4)", g_yt, {},
+         sgns_banded_multiblock, AUC_MIN, yt_community_auc),
+        ("LINE unbanded on the 50k graph, group 8 (K1)", g_50k,
+         dict(use_pallas=True), sgns_shared_grads, AUC_MIN_50K,
+         community_auc_50k),
+    ):
+        runs = {}
+        for capture in (False, True):
+            name = "captured" if capture else "eager"
+            m = LINE(g, seed=0, device=device)
+            m.capture = capture
+            m.init(dim=D, order=2)
+            log(f"{tag}, {name}:")
+            rate, launches = _train_counted(m, counter, **kw)
+            d = m.last_driver
+            host_ms = (1e3 * d.replay_host_s / d.replays if d.replays
+                       else float("nan"))
+            log(f"  {name}: {d.calls} calls of {d.steps_per_call} steps "
+                f"({d.replays} replays), host ms a replay {host_ms:.3f}, "
+                f"copied back {d.copy_back_bytes} B a call")
+            steady = float("nan")
+            if d.replays:
+                steady = (d.replays * d.steps_per_call * d.samples_per_step
+                          / d.replay_s)
+                log(f"  {name}: the eager first call {1e3 * d.first_call_s:.1f}"
+                    f" ms, the capture {1e3 * d.capture_s:.1f} ms, "
+                    f"{d.replays} replays {1e3 * d.replay_s:.1f} ms = "
+                    f"{steady:,.0f} samples/s in the steady state")
+            require((d.replays == d.calls - 1) if capture
+                    else d.replays == 0, f"{name}: {d.replays} replays of "
+                    f"{d.calls} calls")
+            runs[name] = (m, rate, launches, d, steady)
+        (me, re_, le, de, _), (mc, rc, lc, dc, rs) = (runs["eager"],
+                                                      runs["captured"])
+        require(le == lc, f"launches eager {le}, captured {lc}")
+        require(torch.equal(de.gen.get_state(), dc.gen.get_state()),
+                "the generators' states differ")
+        for k, v in me.state.items():
+            err = float((mc.state[k] - v).abs().max())
+            ok = bool(torch.allclose(mc.state[k], v, rtol=RTOL, atol=ATOL))
+            log(f"  {k} table, captured against eager: max |diff| "
+                f"{err:.3e} (rtol {RTOL}, atol {ATOL})")
+            require(ok, f"{tag}: captured {k} table off the eager one by "
+                    f"{err:.3e}")
+        auc = auc_of(mc.state["vertex"].cpu().numpy(), g.names)
+        require(auc >= gate, f"{tag}: community AUC {auc:.4f} < {gate}")
+        per_call = dc.samples_per_step * dc.steps_per_call
+        calls = {name: _steady_launch_calls(m, 4 * per_call / 1e6, **kw)
+                 for name, (m, *_) in runs.items()}
+        log(f"  samples/s eager {re_:,.0f}, captured {rc:,.0f} "
+            f"({rc / re_:.2f}x; its replays alone {rs:,.0f}); launch, "
+            f"memset and copy calls a call "
+            f"eager {calls['eager']:.1f}, captured {calls['captured']:.1f}; "
+            f"community AUC captured {auc:.4f} (gate >= {gate}) "
+            f"[{_card()}]")
 
 
 def community_auc_50k(emb: np.ndarray, names, n_pairs=200_000,
@@ -2823,6 +2927,8 @@ def run_phases(args) -> None:
     timed("jodie and sasrec through the CLI", phase_seq_cli, sf)
     log(f"JODIE and SASRec-family phases: {time.perf_counter() - t0:.1f} s")
     timed("multi-device modes", phase_mesh, m_50k.graph, device)
+    timed("captured against eager", phase_captured_vs_eager, g_yt,
+          m_50k.graph, device)
     if args.profile:
         phase_profile(m_yt, args.profile, "line_yt")
         phase_profile(m_fused, args.profile, "line_yt_fused",
@@ -2836,6 +2942,12 @@ def run_phases(args) -> None:
                       band_hold=True, use_pallas="scatter")
         phase_profile(m_50k, args.profile, "line_50k_unbanded",
                       use_pallas=True)
+        for name, m, kw in (("line_yt_eager", m_yt, {}),
+                            ("line_50k_unbanded_eager", m_50k,
+                             dict(use_pallas=True))):
+            m.capture = False
+            phase_profile(m, args.profile, name, **kw)
+            m.capture = True
         # the default budget in both runs: a truncated warm-up would leave
         # the model on four inner passes (WalkSGNSBase._run)
         walk_kw = dict(walk_times=10, walk_steps=40, window_size=5,

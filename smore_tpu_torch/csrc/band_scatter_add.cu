@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "graph_nodes.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 delta rows per block
@@ -53,6 +55,13 @@ int band_scatter_add_launch(int device, float* table, const int* start,
                           0, (cudaStream_t)stream_handle>>>(
       table, start, idx, delta, B, D);
   return (int)cudaGetLastError();
+}
+
+// Kernel nodes of a captured CUDA graph that launch this library's kernel,
+// in *count. Returns a cudaError_t.
+int band_scatter_graph_launches(void* graph, long long* count) {
+  const void* k = (const void*)band_scatter_add_rows;
+  return (int)graph_nodes::count((cudaGraph_t)graph, &k, 1, count);
 }
 
 }  // extern "C"

@@ -55,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "graph_nodes.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -488,6 +490,12 @@ int jodie_epoch_launch(int device, float* ue, float* ie, float* us, float* is,
   err = cudaLaunchKernelEx(&cfg, jodie_levels, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Kernel nodes of a captured CUDA graph that launch this library's kernel,
+// in *count. Returns a cudaError_t.
+int jodie_epoch_graph_launches(void* graph, long long* count) {
+  return (int)graph_nodes::count((cudaGraph_t)graph, &kKernel, 1, count);
 }
 
 }  // extern "C"

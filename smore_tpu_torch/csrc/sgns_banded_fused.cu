@@ -88,4 +88,10 @@ int sgns_banded_fused_launch(
                                      (cudaStream_t)stream_handle);
 }
 
+// Kernel nodes of a captured CUDA graph that launch this library's kernel,
+// in *count. Returns a cudaError_t.
+int sgns_bf_graph_launches(void* graph, long long* count) {
+  return (int)sgns_ss::graph_launches<kMode>((cudaGraph_t)graph, count);
+}
+
 }  // extern "C"

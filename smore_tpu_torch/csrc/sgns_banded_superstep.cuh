@@ -73,6 +73,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "graph_nodes.cuh"
+
 namespace sgns_ss {
 
 namespace cg = cooperative_groups;
@@ -738,6 +740,13 @@ inline cudaError_t launch(int device, Params p, float* scratch,
                                     dim3(kThreads), args, pl.smem, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Nodes of a captured graph that launch this mode's superstep.
+template <int kMode>
+inline cudaError_t graph_launches(cudaGraph_t graph, long long* count) {
+  const void* k = (const void*)superstep<kMode>;
+  return graph_nodes::count(graph, &k, 1, count);
 }
 
 }  // namespace sgns_ss

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "graph_nodes.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -489,6 +491,14 @@ int sgns_shared_grads_launch(int device, const float* v, const float* cp,
                                     pl.smem, (cudaStream_t)stream_handle);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Kernel nodes of a captured CUDA graph that launch this library's kernel
+// (either form of it), in *count. Returns a cudaError_t.
+int sgns_sg_graph_launches(void* graph, long long* count) {
+  const void* k[] = {(const void*)shared_grads_persistent<64>,
+                     (const void*)shared_grads_persistent<0>};
+  return (int)graph_nodes::count((cudaGraph_t)graph, k, 2, count);
 }
 
 }  // extern "C"

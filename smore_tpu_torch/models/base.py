@@ -2,13 +2,14 @@
 
 Port of ``smore_tpu/models/base.py`` (``hoisted_scan_step``,
 ``freshness_policy``, ``trunc_mass_multiplier``, ``clamp_batch``,
-``init_embedding``, ``zeros_embedding``, ``TrainDriver`` with its "dp",
-"hogwild" and "rows" modes on a mesh and checkpoint and resume,
-``PairModelBase``). The JAX driver ran
-``steps_per_call`` steps in one jitted ``lax.scan``; here the same steps run
-in a Python loop, each step launching its kernels on the current stream,
-and the host reads nothing back unless it prints progress or saves a
-checkpoint. The update is hand-derived SGD, so no autograd is involved.
+``init_embedding``, ``zeros_embedding``, ``TrainDriver`` with its compiled
+call, its "dp", "hogwild" and "rows" modes on a mesh and checkpoint and
+resume, ``PairModelBase``). The JAX driver ran ``steps_per_call`` steps as
+one jitted ``lax.scan`` with the tables donated; here one call of those
+steps is a Python function of static buffers (the tables, the call's
+alphas, its loss) that, on the card without a mesh, is captured once as a
+CUDA graph and replayed for every later call (``TrainDriver``). The update
+is hand-derived SGD, so no autograd is involved.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.io.embeddings import save_embeddings, warm_start
+from smore_tpu_torch.ops import launches
 from smore_tpu_torch.parallel.mesh import (
     CommStats,
     RowShard,
@@ -184,6 +186,69 @@ def alpha_schedule(step0: int, steps: int, micro_steps: int, alpha: float,
     return np.maximum(a0 * rest, a_min)
 
 
+class CallGraph:
+    """One call captured as a ``torch.cuda.CUDAGraph``, with the training
+    generator registered with it: each replay draws the numbers the eager
+    call would have drawn next and advances the generator past them. The
+    captured graph is kept (``keep_graph``) so that its kernel nodes can be
+    counted (``kernel_launches``)."""
+
+    def __init__(self, gen: torch.Generator):
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.graph.register_generator_state(gen)
+
+    def capture(self, run: Callable[[], None]) -> None:
+        """Record ``run``'s work on the card and instantiate it; nothing
+        runs."""
+        with torch.cuda.graph(self.graph):
+            run()
+        self.graph.instantiate()
+
+    def kernel_launches(self) -> Dict[str, int]:
+        """The launches of each kernel the graph holds, by kernel name, read
+        from its nodes."""
+        return launches.in_graph(self.graph.raw_cuda_graph())
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class _AlphaStaging:
+    """The pinned host buffers a call's alphas go through to the static
+    buffer: two, used in turn, so that the host writes the next call's
+    while the card may still be copying the last one's."""
+
+    def __init__(self, shape: tuple, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.host = torch.empty((2,) + shape, dtype=torch.float32,
+                                pin_memory=self.cuda)
+        self.copied = [None, None]
+        self.i = 0
+
+    def put(self, values: np.ndarray, dst: torch.Tensor) -> None:
+        i, self.i = self.i, 1 - self.i
+        if self.copied[i] is not None:
+            self.copied[i].synchronize()
+        self.host[i].copy_(torch.from_numpy(values))
+        dst.copy_(self.host[i], non_blocking=self.cuda)
+        if self.cuda:
+            self.copied[i] = torch.cuda.Event()
+            self.copied[i].record()
+
+
+def _warm_up(run: Callable[[], None], device: torch.device) -> None:
+    """Run ``run`` on a side stream that starts after the current one
+    (torch.cuda.graph's warm-up before a capture) and wait for it, as the
+    capture that follows would."""
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        run()
+    cur.wait_stream(side)
+    torch.cuda.synchronize(device)
+
+
 class TrainDriver:
     """Runs a StepFn for a total number of samples with linear alpha decay.
 
@@ -212,6 +277,31 @@ class TrainDriver:
 
     The collectives' count, bytes and seconds are ``comm``.
 
+    Without a mesh a call of ``steps_per_call`` steps is ``_call``: S steps
+    on static buffers (the tables of ``state``, the call's (S,) or (S, M)
+    ``alphas``, a () ``loss``, the mean of the steps' losses as JAX's
+    ``jnp.mean(losses)``). Each call's alphas are copied in from pinned host
+    memory. On the card (``capture`` True) the first call of a ``train()``
+    runs eagerly on a side stream (it trains, and builds the kernels and
+    their lazy state); the second is captured into a ``torch.cuda.CUDAGraph``
+    (``CallGraph``, the training generator registered with it, so a replay
+    advances it as the eager steps would) and replayed, and so is every
+    later call: one replay a call. The tables are the graph's own buffers
+    (the JAX call donated them): the steps update most in place, and a
+    table a step returns anew is copied back once a call
+    (``copy_back_bytes``). The graph replays no Python, so the kernels'
+    launch counters are credited, on every replay, the launches the
+    graph's nodes hold, which must equal what the wrappers launched while
+    it was captured (``ops.launches``). A capture that fails raises with
+    CUDA's message; nothing falls back. ``capture=False`` runs every call
+    eagerly (for a comparison on the card), as the CPU does and the mesh
+    modes do (their collectives run on the host). ``calls`` and
+    ``replays`` count the last ``train()``'s calls; its seconds are split
+    into ``first_call_s`` (the eager first call, to its end on the card),
+    ``capture_s`` (recording, instantiating and counting the graph),
+    ``replay_s`` (every replay after it, to their end on the card) and,
+    within that, ``replay_host_s`` (the host's time issuing them).
+
     checkpoint_path: the training state (tables, the generator's state and
     the step counter) is saved there every ``checkpoint_every`` calls of
     ``steps_per_call`` steps and after the last one; with ``resume`` and a
@@ -238,6 +328,7 @@ class TrainDriver:
         resume: bool = True,
         micro_steps: int = 1,
         device: torch.device | str = "cuda",
+        capture: bool = True,
     ):
         if sharding not in ("dp", "rows", "hogwild"):
             raise ValueError(
@@ -265,8 +356,13 @@ class TrainDriver:
         self.resume = resume
         self.micro_steps = max(1, int(micro_steps))
         self.device = torch.device(device)
+        self.capture = capture
         self.executed_samples = 0
         self.comm = CommStats()
+        self.calls = self.replays = 0
+        self.first_call_s = self.capture_s = self.replay_s = 0.0
+        self.replay_host_s = 0.0
+        self.copy_back_bytes = 0
 
     def _placement(self, state: State):
         """(mesh, mode, group, rank, world) of a train() call: this
@@ -345,6 +441,8 @@ class TrainDriver:
         mesh, mode, group, rank, world = self._placement(state)
         self._mesh, self._group, self._rank, self._world = (mesh, group,
                                                             rank, world)
+        self._mode = mode
+        self.gen = gen  # the generator of the last train(), for its state
         self.comm = CommStats()
         if mode == "rows":
             state = {k: self._row_shard(v, rank, world)
@@ -354,12 +452,42 @@ class TrainDriver:
         steps_total = max(1, -(-self.total_samples // self.samples_per_step))
         inv_total = float(self.samples_per_step) / float(
             max(self.total_samples, 1))
-        S, M = self.steps_per_call, self.micro_steps
         done = self._maybe_resume(state, gen) if self.checkpoint_path else 0
         done0 = done
-        calls = 0
-        old = None
         t0 = time.time()
+        self.calls = self.replays = 0
+        self.first_call_s = self.capture_s = self.replay_s = 0.0
+        self.replay_host_s = 0.0
+        if mode is None:
+            done = self._train_calls(state, gen, done, steps_total,
+                                     inv_total, verbose, t0)
+        else:
+            state, done = self._train_mesh(state, gen, done, steps_total,
+                                           inv_total, verbose, show, t0)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # the steps this call ran (not those restored from a checkpoint);
+        # the loop rounds the budget up to whole calls, so rates divide
+        # this, not the request
+        self.executed_samples = (done - done0) * self.samples_per_step
+        if verbose:
+            el = time.time() - t0
+            print(f"\n\tdone: {self.executed_samples:,} samples in {el:.2f}s "
+                  f"({self.executed_samples / max(el, 1e-9):,.0f} samples/sec)")
+        if mode == "rows":
+            state = {k: rows_to_dtensor(v.local, v.shape[0], mesh)
+                     if isinstance(v, RowShard) else v
+                     for k, v in state.items()}
+        return state
+
+    def _train_mesh(self, state: State, gen: torch.Generator, done: int,
+                    steps_total: int, inv_total: float, verbose: bool,
+                    show: bool, t0: float):
+        """The calls of a train() on a mesh, eagerly ("dp": a merge every
+        step, "hogwild": every call, "rows": row-sharded tables). Returns
+        (state, steps done)."""
+        S, M, mode = self.steps_per_call, self.micro_steps, self._mode
+        done0, old = done, None
         while done < steps_total:
             # one host->device copy of the rates per call of S steps
             alphas = torch.from_numpy(alpha_schedule(
@@ -379,35 +507,109 @@ class TrainDriver:
                 state = self._merge(old, state)
             loss /= S
             done += S
-            calls += 1
-            if self.checkpoint_path and (calls % self.checkpoint_every == 0
-                                         or done >= steps_total):
-                self._save_ckpt(state, gen, done)
+            self.calls += 1
+            self._checkpoint(state, gen, done, steps_total)
             if show and mode in ("dp", "hogwild"):
-                self.comm.all_reduce(loss, group)
-                loss /= world
+                self.comm.all_reduce(loss, self._group)
+                loss /= self._world
             if verbose:
-                last = float(loss)
-                el = time.time() - t0
-                rate = (done - done0) * self.samples_per_step / max(el, 1e-9)
-                print(f"\tloss: {last:.5f}\tprogress: "
-                      f"{min(100.0, 100.0 * done / steps_total):.1f}%\t"
-                      f"samples/sec: {rate:,.0f}", end="\r", flush=True)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        # the steps this call ran (not those restored from a checkpoint);
-        # the loop rounds the budget up to whole calls, so rates divide
-        # this, not the request
-        self.executed_samples = (done - done0) * self.samples_per_step
-        if verbose:
-            el = time.time() - t0
-            print(f"\n\tdone: {self.executed_samples:,} samples in {el:.2f}s "
-                  f"({self.executed_samples / max(el, 1e-9):,.0f} samples/sec)")
-        if mode == "rows":
-            state = {k: rows_to_dtensor(v.local, v.shape[0], mesh)
-                     if isinstance(v, RowShard) else v
-                     for k, v in state.items()}
-        return state
+                self._progress(loss, done, done0, steps_total, t0)
+        return state, done
+
+    def _checkpoint(self, state: State, gen: torch.Generator, done: int,
+                    steps_total: int) -> None:
+        """Save after every ``checkpoint_every`` calls and after the last."""
+        if self.checkpoint_path and (self.calls % self.checkpoint_every == 0
+                                     or done >= steps_total):
+            self._save_ckpt(state, gen, done)
+
+    def _progress(self, loss, done, done0, steps_total, t0) -> None:
+        last = float(loss)
+        el = time.time() - t0
+        rate = (done - done0) * self.samples_per_step / max(el, 1e-9)
+        print(f"\tloss: {last:.5f}\tprogress: "
+              f"{min(100.0, 100.0 * done / steps_total):.1f}%\t"
+              f"samples/sec: {rate:,.0f}", end="\r", flush=True)
+
+    def _captures(self) -> bool:
+        """Whether the calls of a train() without a mesh are captured."""
+        return self.capture and self.device.type == "cuda"
+
+    def _call(self, state: State, gen: torch.Generator,
+              alphas: torch.Tensor, loss: torch.Tensor) -> None:
+        """One call: ``steps_per_call`` steps on the tables of ``state``
+        with the rates ``alphas``, the tables left in ``state``'s tensors
+        (a table a step returned anew is copied back), the mean of the
+        steps' losses written to ``loss``."""
+        cur, losses = dict(state), []
+        for i in range(self.steps_per_call):
+            cur, step_loss = self.step_fn(cur, self.ctx, gen, alphas[i])
+            losses.append(step_loss)
+        nbytes = 0
+        for k, t in state.items():
+            v = cur[k]
+            if v is not t and v.data_ptr() != t.data_ptr():
+                t.copy_(v)
+                nbytes += t.numel() * t.element_size()
+        self.copy_back_bytes = nbytes
+        loss.copy_(torch.stack(losses).mean())
+
+    def _train_calls(self, state: State, gen: torch.Generator, done: int,
+                     steps_total: int, inv_total: float, verbose: bool,
+                     t0: float) -> int:
+        """The calls of a train() without a mesh (eager, or the first
+        eager and the rest replays of one captured call; see the class
+        docstring). Returns the steps done."""
+        S, M, dev = self.steps_per_call, self.micro_steps, self.device
+        shape = (S, M) if M > 1 else (S,)
+        alphas = torch.empty(shape, dtype=torch.float32, device=dev)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        staging = _AlphaStaging(shape, dev)
+        captured = self._captures()
+        graph, per_replay, steady0 = None, [], None
+        done0 = done
+
+        def run():
+            self._call(state, gen, alphas, loss)
+
+        try:
+            while done < steps_total:
+                staging.put(alpha_schedule(done, S, M, self.alpha, inv_total),
+                            alphas)
+                if not captured:
+                    run()
+                elif self.calls == 0:
+                    t = time.perf_counter()
+                    _warm_up(run, dev)
+                    self.first_call_s = time.perf_counter() - t
+                else:
+                    if graph is None:
+                        t = time.perf_counter()
+                        graph = CallGraph(gen)
+                        before = launches.read()
+                        graph.capture(run)
+                        per_replay = launches.recorded(
+                            before, graph.kernel_launches())
+                        steady0 = time.perf_counter()
+                        self.capture_s = steady0 - t
+                    t = time.perf_counter()
+                    graph.replay()
+                    launches.credit(per_replay)
+                    self.replay_host_s += time.perf_counter() - t
+                    self.replays += 1
+                done += S
+                self.calls += 1
+                self._checkpoint(state, gen, done, steps_total)
+                if verbose:
+                    self._progress(loss, done, done0, steps_total, t0)
+        finally:
+            if dev.type == "cuda":
+                # the graph, its memory pool and the buffers go with this
+                # frame, also when a step or a checkpoint raises
+                torch.cuda.synchronize(dev)
+        if steady0 is not None:
+            self.replay_s = time.perf_counter() - steady0
+        return done
 
     def _row_shard(self, t: torch.Tensor, rank: int, world: int) -> RowShard:
         """This rank's rows of a whole table (copied) or of a row-sharded
@@ -437,6 +639,9 @@ class PairModelBase:
 
     vertex_method = "out_degrees"
     negative_method = "degrees"
+    # TrainDriver's ``capture``: False runs every call eagerly on the card
+    # too (to compare the two in one process)
+    capture = True
 
     def __init__(self, graph: Graph, seed: int = 0,
                  device: torch.device | str = "cuda"):
@@ -558,6 +763,7 @@ class PairModelBase:
             mesh=mesh,
             sharding=sharding,
             device=self.device,
+            capture=self.capture,
             **self._ckpt_kw(),
         )
         rank = None

@@ -91,6 +91,12 @@ def load_host_lib(name: str) -> ctypes.CDLL:
     return _load(name, ".cpp", lambda: ["g++", *GXX_FLAGS])
 
 
+def loaded_lib(name: str):
+    """The library of ``csrc/<name>.*`` if this process loaded it, else
+    None."""
+    return _libs.get(name)
+
+
 def _load(name: str, ext: str, compiler) -> ctypes.CDLL:
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())

@@ -19,7 +19,12 @@ for CPU tensors and launches the CUDA kernel (``csrc/sgns_shared_grads.cu``)
 for CUDA tensors, or raises; it never falls back. A call is ONE cooperative
 launch of a persistent kernel (one block per SM, all co-resident): g_neg
 stays in shared memory and the kernel zeroes and sums ``d_neg`` itself.
-``sgns_shared_grads.launches`` counts kernel launches.
+``sgns_shared_grads.launches`` counts kernel launches. A launch is
+recorded when the caller captures a CUDA graph (the card takes a
+cooperative launch under stream capture); the launcher sets the kernel's
+shared-memory limit and sizes its grid only at its first launch for a
+(device, Ks, D), which TrainDriver's eager first call makes, so nothing
+but the launch is issued under capture.
 """
 
 from __future__ import annotations

@@ -40,7 +40,11 @@ its blocks must all be co-resident on the card. K3
 (``csrc/sgns_banded_fused.cu``) is one launch of the same kernel per
 micro-step: K4's superstep with S = 1, 2048-row tiles and the band start
 rows as band indices of size 1. ``<wrapper>.launches`` counts wrapper calls
-that launched their kernel.
+that launched their kernel. Each launch is recorded when the caller
+captures a CUDA graph (the card takes a cooperative launch under stream
+capture); a launcher sets the kernel's shared-memory limit and sizes its
+grid only at its first launch for a (device, Ks, D), which TrainDriver's
+eager first call makes, so nothing but the launch is issued under capture.
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ for bit.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,11 +31,20 @@ def _offsets(window_min: int, window_max: int) -> np.ndarray:
 def _grid(L: int, offs: np.ndarray, device):
     """(j (L, C) context positions clipped to the walk, in_bounds (L, C),
     |offset| (C,)) for the offsets ``offs``."""
+    return _grid_of(L, tuple(int(o) for o in offs), torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_of(L: int, offs: tuple, device: torch.device):
+    """_grid, built once per (L, offsets, device): a step captured in a CUDA
+    graph copies nothing from the host (a pageable copy cannot be
+    captured)."""
+    offs = np.asarray(offs, dtype=np.int64)
     j = np.arange(L)[:, None] + offs[None, :]
     in_bounds = (j >= 0) & (j < L)
     return (torch.from_numpy(np.clip(j, 0, L - 1)).to(device),
             torch.from_numpy(in_bounds).to(device),
-            torch.from_numpy(np.abs(offs).astype(np.int64)).to(device))
+            torch.from_numpy(np.abs(offs)).to(device))
 
 
 def _shrunk(gen, walk: torch.Tensor, window: int,

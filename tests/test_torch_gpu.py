@@ -22,6 +22,9 @@ from smore_tpu_torch.ops.sgns_banded import (
     sgns_banded_multiblock_nb_ref,
     sgns_banded_multiblock_ref,
 )
+from torch_graph_call_cases import CASES as CAPTURED
+from torch_graph_call_cases import LINE_ROUTES, field_graph, toy_graph
+from torch_graph_call_cases import build as build_case
 from torch_superstep_inputs import (
     ALL_COLLIDE,
     ALL_COLLIDE_FUSED,
@@ -108,21 +111,6 @@ def test_kernel_matches_twin(cuda, case):
     assert not np.allclose(kv.cpu().numpy(), x["wv"])
 
 
-def _toy_graph():
-    """The 200-vertex 4-community graph of tests/test_torch_line_slice.py."""
-    rng = np.random.default_rng(7)
-    edges = []
-    for _ in range(3000):
-        c = rng.integers(0, 4)
-        if rng.random() < 0.9:
-            a, b = rng.integers(0, 50, 2) + 50 * c
-        else:
-            a, b = rng.integers(0, 200, 2)
-        if a != b:
-            edges.append((f"v{a}", f"v{b}", float(rng.integers(1, 4))))
-    return Graph.from_edges(edges, undirected=True)
-
-
 def _link_auc(m, g):
     wv = m.state["vertex"].cpu().numpy()
     assert np.isfinite(wv).all()
@@ -139,7 +127,7 @@ def _link_auc(m, g):
 def test_line_trains_through_the_kernel(cuda):
     """On a CUDA device LINE o2 takes the multiblock route by default when
     the shapes fit, launches the kernel and learns the communities."""
-    g = _toy_graph()
+    g = toy_graph()
     m = LINE(g, seed=0, device=cuda)
     m.init(dim=64, order=2)
     before = sgns_banded_multiblock.launches
@@ -181,7 +169,7 @@ def test_k1_kernel_matches_twin(cuda, B, Ks, D):
 def test_line_unbanded_trains_through_k1(cuda, order):
     """LINE's unbanded route with use_pallas=True launches K1 on a CUDA
     device and learns the communities."""
-    g = _toy_graph()
+    g = toy_graph()
     m = LINE(g, seed=0, device=cuda)
     m.init(dim=64, order=order)
     before = sgns_shared_grads.launches
@@ -269,7 +257,7 @@ def test_line_banded_routes_train_through_k3_k2(cuda, order, kw, counter):
     """On a CUDA device LINE o2 with multiband=False, use_pallas=True takes
     the fused route (K3), and banded order 1 ("auto") the scatter-only
     route (K2); both learn the communities."""
-    g = _toy_graph()
+    g = toy_graph()
     m = LINE(g, seed=0, device=cuda)
     m.init(dim=64, order=order)
     before = counter.launches
@@ -344,7 +332,7 @@ def test_line_neg_band_and_band_hold_train(cuda, kw, counter):
     route with banded negatives (K5, not K4); band_hold=True off it holds
     one stratum per block, through K3 ("auto") or K2 ("scatter"). Each
     learns the communities."""
-    g = _toy_graph()
+    g = toy_graph()
     m = LINE(g, seed=0, device=cuda)
     m.init(dim=64, order=2)
     before = counter.launches, sgns_banded_multiblock.launches
@@ -865,18 +853,6 @@ def test_community_update_on_the_card_matches_the_cpu(cuda, name):
                                    atol=ATOL)
 
 
-def _field_graph():
-    """A 200 x 300 user-item graph in two taste clusters, users field 0."""
-    rng = np.random.default_rng(5)
-    edges = [(f"u{u}", f"i{i}", 1.0) for u in range(200)
-             for i in rng.choice(np.arange(u % 2, 300, 2), 12, replace=False)]
-    g = Graph.from_edges(edges, undirected=True)
-    g.fields = np.array([0 if nm[0] == "u" else 1 for nm in g.names],
-                        np.int32)
-    g.n_fields = 2
-    return g
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,kw", [
     ("GCN", dict(walk_steps=2)), ("TEXTGCN", dict(walk_steps=2)),
@@ -890,7 +866,7 @@ def test_community_model_trains_on_the_card(cuda, name, kw):
 
     kw = dict(kw)
     ctor = {"head": kw.pop("head")} if "head" in kw else {}
-    m = getattr(models, name)(_field_graph(), seed=0, device=cuda, **ctor)
+    m = getattr(models, name)(field_graph(), seed=0, device=cuda, **ctor)
     m.init(dim=16)
     before = {k: v.clone() for k, v in m.state.items()}
     counters = (sgns_banded_multiblock, sgns_shared_grads, sgns_banded_fused,
@@ -1195,3 +1171,167 @@ def test_seq_model_trains_on_the_card(cuda, name, tmp_path):
     assert _moved_on_card(before, m.net.state_dict())
     r = m.evaluate_ranking()
     assert 0.0 <= r["recall@10"] <= 1.0
+
+
+# ------------------------------------------- the captured call (CUDA graph)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", CAPTURED)
+def test_captured_calls_match_eager_calls(cuda, case, tmp_path):
+    """Each LINE route and each family, from one seed, trained with every
+    call after the first a replay of one captured CUDA graph and trained
+    eagerly (``capture=False``): the tables agree within the kernels'
+    tolerance (atomics reorder sums), the generator states are equal (the
+    graph-safe Philox advances as the eager ops do), and every kernel was
+    launched as often (its counter credited on each replay)."""
+    from smore_tpu_torch.ops import launches
+
+    runs = {}
+    for capture in (True, False):
+        m, kw = build_case(case, cuda, str(tmp_path))
+        m.capture = capture
+        before = launches.read()
+        m.train(**kw)
+        torch.cuda.synchronize()
+        runs[capture] = (m, m.last_driver, launches.moved(before))
+    (mc, dc, lc), (me, de, le) = runs[True], runs[False]
+    assert dc.calls >= 2 and dc.replays == dc.calls - 1, (dc.calls,
+                                                         dc.replays)
+    assert de.replays == 0 and de.calls == dc.calls
+    assert lc == le
+    if case in LINE_ROUTES:
+        assert lc.get(LINE_ROUTES[case][2], 0) > 0, lc
+    assert torch.equal(dc.gen.get_state(), de.gen.get_state())
+    for k, v in me.state.items():
+        np.testing.assert_allclose(mc.state[k].cpu().numpy(),
+                                   v.cpu().numpy(), rtol=RTOL, atol=ATOL,
+                                   err_msg=k)
+
+
+def _k1_pair(device, B=4096, Ks=128, D=64):
+    rng = np.random.default_rng(0)
+    v, cp, cn = (torch.from_numpy((rng.standard_normal(s) * 0.3).astype(
+        np.float32)).to(device) for s in ((B, D), (B, D), (Ks, D)))
+    alpha = torch.tensor(0.025, device=device)
+    return (lambda: sgns_shared_grads(v, cp, cn, alpha, k_equiv=5),
+            lambda: sgns_shared_grads_ref(v, cp, cn, alpha, k_equiv=5))
+
+
+def _k2_pair(device):
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.standard_normal((4 * 2048, 64)).astype(
+        np.float32)).to(device)
+    twin_table = table.clone()
+    start = torch.tensor([2048], dtype=torch.int32, device=device)
+    idx = torch.from_numpy(rng.integers(0, 2048, 4096).astype(
+        np.int32)).to(device)
+    delta = torch.from_numpy(rng.standard_normal((4096, 64)).astype(
+        np.float32)).to(device)
+    return ((lambda: (band_scatter_add(table, start, idx, delta),)),
+            (lambda: (band_scatter_add_ref(twin_table, start, idx, delta),)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["k4", "k5", "k3", "k1", "k2"])
+def test_each_kernel_captured_alone_matches_its_twin(cuda, kernel):
+    """One wrapper call captured into a CUDA graph (after one eager call,
+    as the driver's warm-up) and replayed: the graph's nodes hold one
+    launch of the kernel, as its library counts them, and the outputs and
+    the updated tables match the twin run as often (an in-place kernel ran
+    twice)."""
+    from smore_tpu_torch.ops import launches
+
+    name = {"k4": "sgns_banded_multiblock", "k5": "sgns_banded_multiblock_nb",
+            "k3": "sgns_banded_fused", "k1": "sgns_shared_grads",
+            "k2": "band_scatter_add"}[kernel]
+    if kernel == "k1":
+        call, twin = _k1_pair(cuda)
+    elif kernel == "k2":
+        call, twin = _k2_pair(cuda)
+    else:
+        call, twin = _all_collide_calls(kernel, _all_collide(kernel), cuda)
+    call(), twin()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        got = call()
+    assert launches.in_graph(graph.raw_cuda_graph()) == {name: 1}
+    graph.replay()
+    want = twin()
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_a_captured_kill_and_resume_restores_byte_equal_tables(cuda,
+                                                               tmp_path,
+                                                               monkeypatch):
+    """LINE multiblock on captured calls, killed after its 3rd checkpoint
+    (the warm-up and two replays) and resumed in a fresh model: the
+    restored tables and generator state are the saved bytes, and the
+    resumed run replays its calls to the end."""
+    from smore_tpu_torch.models.base import TrainDriver
+    from smore_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ck = str(tmp_path / "ck")
+    orig = TrainDriver._save_ckpt
+    saves = []
+
+    def killing_save(self, state, gen, done):
+        orig(self, state, gen, done)
+        saves.append(done)
+        if len(saves) == 3:
+            raise KeyboardInterrupt
+
+    m, kw = build_case("line_multiblock", cuda, str(tmp_path))
+    m.set_checkpoint(ck)
+    monkeypatch.setattr(TrainDriver, "_save_ckpt", killing_save)
+    with pytest.raises(KeyboardInterrupt):
+        m.train(**kw)
+    monkeypatch.undo()
+    assert m.last_driver.replays == 2
+    saved, done, extra = load_checkpoint(ck)
+    restored = {}
+    orig_resume = TrainDriver._maybe_resume
+
+    def spy(self, state, gen):
+        out = orig_resume(self, state, gen)
+        restored.update({k: v.clone() for k, v in state.items()},
+                        gen=gen.get_state())
+        return out
+
+    monkeypatch.setattr(TrainDriver, "_maybe_resume", spy)
+    m2, kw = build_case("line_multiblock", cuda, str(tmp_path))
+    m2.set_checkpoint(ck)
+    m2.train(**kw)
+    assert torch.equal(restored.pop("gen"), extra["gen"])
+    for k, v in saved.items():
+        assert torch.equal(restored[k].cpu(), v)
+    d = m2.last_driver
+    assert d.replays == d.calls - 1 >= 2
+    assert all(bool(torch.isfinite(t).all()) for t in m2.state.values())
+
+
+@pytest.mark.gpu
+def test_a_step_that_syncs_raises_at_capture(cuda):
+    """A step that reads a value back to the host trains eagerly (the
+    warm-up call) and raises when the second call is captured: nothing
+    falls back to eager."""
+    from smore_tpu_torch.models.base import TrainDriver
+
+    def step(state, ctx, gen, alpha):
+        w = state["w"]
+        w.add_(float(w.sum()) * 0.0 + alpha)
+        return state, w.sum()
+
+    d = TrainDriver(step, ctx=None, samples_per_step=1, alpha=0.1,
+                    total_samples=8, steps_per_call=2, device=cuda)
+    with pytest.raises(RuntimeError):
+        d.train({"w": torch.ones(4, 3, device=cuda)},
+                torch.Generator(device=cuda), verbose=False)
+    assert d.calls == 1 and d.replays == 0
+    torch.cuda.synchronize()
+    assert float(torch.ones(2, device=cuda).sum()) == 2.0  # the card works

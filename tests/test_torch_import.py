@@ -58,6 +58,7 @@ MODULES = [
     "smore_tpu_torch.graph.bipartite",
     "smore_tpu_torch.ops.rnn",
     "smore_tpu_torch.ops.jodie_epoch",
+    "smore_tpu_torch.ops.launches",
     "smore_tpu_torch.models.jodie",
     "smore_tpu_torch.models.sasrec",
     "smore_tpu_torch.utils.profiling",
