@@ -133,12 +133,14 @@ Phases (any failure exits non-zero; there is no CPU path):
      FastRP (community AUC, the mean of 5 projection seeds); each gated at
      its JAX record less 0.03 (TYPED_RECORDS, computed on the CPU by
      experiments/kg_typed_records.py); no kernel launched (every count set
-     to 0 before each model); triples/s, samples/s or nodes/s printed
+     to 0 before each model); triples/s, samples/s or nodes/s printed.
+     The KG models and HAN train on captured calls (their own loops: the
+     first call of a train() eager, every later one a CUDA graph replay)
  27. at a real size: TransE at FB15k-237's shape (make_kg: 14,500
      entities, 237 relations, 272,076 triples; dim 64, batch 1024), one
-     warm-up epoch then 5 timed: triples/s and MRR printed, gated on
-     finite tables, unit entity rows and an MRR above the untrained
-     tables'; FastRP (iterations 3, dim 64) on phase 8's Youtube-scale
+     warm-up epoch then 5 timed, on captured calls: triples/s and MRR
+     printed, gated on finite tables, unit entity rows and an MRR above the
+     untrained tables'; FastRP (iterations 3, dim 64) on phase 8's Youtube-scale
      graph: seconds and community AUC printed, gated on finite rows, each
      unit or all zero (a vertex whose neighbourhood's sparse projection
      drew nothing), the zero rows counted
@@ -164,8 +166,8 @@ Phases (any failure exits non-zero; there is no CPU path):
      Markov set (seq_data.make_data: 4,000 users, 2,000 items, 30 steps)
      at its full-autodiff settings (dim 64, max_seq_len 30, 2 blocks, 1
      head, dropout 0.2, 5 negatives, lr 3e-3, batch 128, 100 epochs, the
-     last item held out): no kernel launched; recall@10 gated at its JAX
-     record less 0.03; steps/s and sequences/s printed
+     last item held out), on captured calls: no kernel launched; recall@10
+     gated at its JAX record less 0.03; steps/s and sequences/s printed
  32. ``jodie`` (dims 64 and 128) and ``sasrec -forward_only 1
      -eval_holdout 1`` through the command line at those settings: exit 0,
      well-formed files of finite rows and the dim's columns, jodie_epoch
@@ -205,9 +207,28 @@ Phases (any failure exits non-zero; there is no CPU path):
      capture and the replays (and the replays' own samples/s), the host's
      launch, memset and copy calls a call in the steady state
      (torch.profiler, four calls more) and its ms a replay
+ 36. the models with loops of their own, captured against eager (run
+     last): TransE, RotatE and ComplEx at FB15k-237's shape (phase 27's
+     set, one warm-up epoch, then 5 timed), HAN at the HAN paper's DBLP
+     shape (make_hetero: 4,056 authors, 14,328 papers, 20 venues; phase
+     26's meta-paths, dim 64, batch 512, 2 epochs) and SASRec, gSASRec and
+     Rec-Denoiser at the SASRec paper's ML-1M setting (6,040 users, 3,416
+     items, 200-step sequences of seq_data.make_data's law; max_seq_len
+     200, dim 50, 2 blocks, 1 head, dropout 0.2, batch 128, lr 1e-3, 5
+     negatives, 3 epochs), each from seed 0 with capture=False and then on
+     captured calls (each model's steps_per_call steps a call: KG 4, HAN
+     and the SASRec family 1): steps/s and triples,
+     node updates or sequences a second of both; the captured run split
+     into the eager first call, the captures and the replays (their own
+     rate, the host's ms a replay); each graph's node count; equal
+     generator states, the captured tables (rtol 1e-4, atol 1e-5) or
+     parameters (SEQ_RTOL, SEQ_ATOL) against the eager ones; no kernel
+     launched
 Every path that trains through TrainDriver without a mesh (phases 8-28
-and 33's single-device runs) trains on captured calls: the first call of
-a train() eager, the others replays of one CUDA graph; a kernel's launch
+and 33's single-device runs) and every model with a loop of its own but
+JODIE and FastRP (the KG models, HAN, the SASRec family; phases 26, 27,
+31) trains on captured calls: the first call of a train() eager, the
+others replays of CUDA graphs; a kernel's launch
 counter is credited on every replay the launches of it that the graph's
 nodes hold, which capture holds to what the wrappers launched.
 Each in-process path runs 1M samples first (tables, stream and warm-up),
@@ -224,7 +245,8 @@ neg_band, held fused, held scatter-only and unbanded main paths (and of
 the multiblock and unbanded paths trained eagerly, phase 35's), one
 DeepWalk run on the 20k graph, 2M samples of BPR, NEMF, GCN, TEXTGCN,
 TEXTGCNdev, FINE and ECO, 2 epochs of TransE at FB15k-237's shape, of
-HAN on the hetero set, of JODIE and of SASRec with torch.profiler, prints each run's
+HAN on the hetero set and of SASRec (each captured and eager) and of
+JODIE with torch.profiler, prints each run's
 device idle share and the torch ops and CUDA launches a step issues, and
 writes the kernel-time tables and Chrome traces to DIR (a measurement
 aid, off by default so that the smoke does not depend on the profiler).
@@ -2797,6 +2819,174 @@ def _mesh_report(ranks: list, ref: dict, card: str) -> None:
                 f"gate {gate}")
 
 
+# ------------------------------ the models with loops of their own (36)
+# the HAN paper's DBLP shape (Wang et al., WWW 2019, Table 2) by
+# make_hetero: 4,056 authors, 14,328 papers, 20 venues (it makes no terms)
+HAN_DBLP = dict(topics=4, authors_pt=1014, papers_pt=3582, venues_pt=5)
+# the SASRec paper's ML-1M setting (Kang and McAuley, ICDM 2018, IV), on
+# seq_data.ML1M's Markov sequences
+SEQ_ML1M_INIT = dict(max_seq_len=200, num_blocks=2, num_heads=1,
+                     dropout=0.2)
+SEQ_ML1M_DIM, SEQ_ML1M_NEG = 50, 5
+# a captured SASRec-family run against the eager one: the same kernels on
+# the same inputs; the card's sums may still run in another order
+SEQ_RTOL, SEQ_ATOL = 1e-4, 1e-5
+
+
+def own_loop_files() -> dict:
+    """Phase 36's sets under OUT: FB15k-237's shape (make_kg), DBLP's
+    (make_hetero), ML-1M's (seq_data.make_data)."""
+    from smore_tpu_torch.utils import oracle_data as od
+    from smore_tpu_torch.utils import seq_data as sd
+
+    os.makedirs(OUT, exist_ok=True)
+    f = {"kg": os.path.join(OUT, "fb15k_shape.txt"),
+         "hetero": os.path.join(OUT, "dblp_shape.txt"),
+         "seq": os.path.join(OUT, "ml1m_shape.txt")}
+    od.make_kg(f["kg"], **FB15K_SHAPE)
+    od.make_hetero(f["hetero"], **HAN_DBLP)
+    if os.path.exists(f["seq"]):
+        os.remove(f["seq"])  # make_data keeps an existing file
+    sd.make_data(f["seq"], **sd.ML1M)
+    return f
+
+
+# phase 36's models: (family, the unit of a step, epochs timed)
+OWN_LOOP_MODELS = {"transe": ("kg", "triples", 5),
+                   "rotate": ("kg", "triples", 5),
+                   "complex": ("kg", "triples", 5),
+                   "han": ("han", "node updates", 2),
+                   "sasrec": ("seq", "sequences", 3),
+                   "gsasrec": ("seq", "sequences", 3),
+                   "recdenoiser": ("seq", "sequences", 3)}
+
+
+def own_loop_model(model: str, f: dict, device, steps_per_call=None):
+    """A phase-36 model with fresh tables from seed 0: (model, the
+    ``train()`` arguments, steps an epoch, a step's units). A call is
+    ``steps_per_call`` steps (default the model's own; an epoch when it
+    exceeds one)."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.models.base import clamp_batch
+    from smore_tpu_torch.utils import oracle_data as od
+
+    family, _, epochs = OWN_LOOP_MODELS[model]
+    if family == "kg":
+        cls = dict(transe=models.TransE, rotate=models.RotatE,
+                   complex=models.ComplEx)[model]
+        m = cls.load_triples(f["kg"], seed=0, device=device)
+        m.init(dim=D)
+        kw = dict(epochs=epochs, batch=1024, alpha=0.01)
+        per_step = clamp_batch(min(m.kg.n_triples, m.kg.n_entities), 1024)
+        per_epoch = m.kg.n_triples // per_step
+    elif family == "han":
+        m = models.HAN.load_edge_list(f["hetero"], seed=0, device=device)
+        r = dict(od.RUNS["han"])
+        for mp in r.pop("meta_paths"):
+            m.add_meta_path(mp)
+        m.init(dim=D, learning_rate=r["learning_rate"])
+        kw = dict(epochs=epochs, batch=512, walk_times=r["walk_times"],
+                  walk_steps=r["walk_steps"])
+        per_epoch, per_step = m.hg.n_vertices // 512 + 1, 512
+    else:
+        from smore_tpu_torch.utils import seq_data as sd
+
+        m = getattr(models, sd.SEQ_MODELS[model]).load_edge_list(
+            f["seq"], seed=0, negative_samples=SEQ_ML1M_NEG, device=device)
+        m.init(dim=SEQ_ML1M_DIM, **SEQ_ML1M_INIT)
+        kw = dict(epochs=epochs, batch_size=128, alpha=1e-3)
+        n_seq = len(m.build_sequences())
+        per_epoch, per_step = n_seq // 128, 128
+    if steps_per_call is not None:
+        m.steps_per_call = steps_per_call
+    return m, dict(kw, verbose=False), per_epoch, per_step
+
+
+def own_loop_state(m) -> dict:
+    return dict(m.net.state_dict()) if hasattr(m, "net") else dict(m.state)
+
+
+def own_loop_run(model: str, f: dict, device, capture: bool,
+                 steps_per_call=None) -> dict:
+    """One phase-36 run: KG one warm-up epoch first (a train() of its
+    own), then the timed train() with every kernel count 0. Returns the
+    model, its seconds, steps, rates and the split of a captured run."""
+    m, kw, per_epoch, per_step = own_loop_model(model, f, device,
+                                                steps_per_call)
+    m.capture = capture
+    if OWN_LOOP_MODELS[model][0] == "kg":
+        m.train(**dict(kw, epochs=1))
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    m.train(**kw)
+    dt = time.perf_counter() - t0  # train() synchronises at its end
+    _no_launch(model, counters)
+    _finite(model, own_loop_state(m))
+    c = m.last_calls
+    steps = kw["epochs"] * per_epoch
+    first = min(per_epoch, m.steps_per_call or per_epoch)
+    out = dict(m=m, dt=dt, steps=steps, per_step=per_step, calls=c,
+               rate=steps / dt, units=steps * per_step / dt)
+    if c.replays:
+        out["nodes"] = {str(k): g.node_count() for k, g in c.graphs.items()}
+        out["replay_rate"] = (steps - first) / c.replay_s
+        out["host_ms"] = 1e3 * c.replay_host_s / c.replays
+    return out
+
+
+def phase_own_loops(f: dict, device, steps_per_call=None,
+                    models=tuple(OWN_LOOP_MODELS)) -> None:
+    """Phase 36: TransE, RotatE and ComplEx at FB15k-237's shape (one
+    warm-up epoch, then 5 timed), HAN at DBLP's (2 epochs) and SASRec,
+    gSASRec and Rec-Denoiser at ML-1M's (3 epochs), each from seed 0
+    eagerly (capture=False) and then on captured calls: steps/s and units
+    a second of both, the captured run's split (the eager first call, the
+    capture, the replays and their own rate, the host's ms a replay), the
+    graphs' node counts; equal generator states, the captured tables or
+    parameters within tolerance of the eager ones, no kernel launched.
+    ``steps_per_call``: {family: steps of a call} (default each model's
+    own)."""
+    card = _card()
+    for model in models:
+        family, unit, epochs = OWN_LOOP_MODELS[model]
+        k = (steps_per_call or {}).get(family)
+        e = own_loop_run(model, f, device, False, k)
+        r = own_loop_run(model, f, device, True, k)
+        c = r["calls"]
+        require(e["calls"].replays == 0 and c.replays == c.calls - 1,
+                f"{model}: {c.replays} replays of {c.calls} calls")
+        require(torch.equal(e["calls"].gen.get_state(), c.gen.get_state()),
+                f"{model}: the generators' states differ")
+        rtol, atol = (SEQ_RTOL, SEQ_ATOL) if family == "seq" else (RTOL,
+                                                                   ATOL)
+        want, got = own_loop_state(e["m"]), own_loop_state(r["m"])
+        errs = {}
+        for name, v in want.items():
+            errs[name] = float((got[name] - v).abs().max())
+            require(bool(torch.allclose(got[name], v, rtol=rtol, atol=atol)),
+                    f"{model}: captured {name} off the eager one by "
+                    f"{errs[name]:.3e} (rtol {rtol}, atol {atol})")
+        worst = max(errs, key=errs.get)
+        spc = r["m"].steps_per_call
+        call = ("an epoch" if spc is None or spc >= r["steps"] // epochs
+                else f"{spc} steps")
+        log(f"{model} ({epochs} epochs of {r['steps'] // epochs} steps of "
+            f"{r['per_step']} {unit}; a call {call}): eager "
+            f"{e['rate']:.1f} steps/s = {e['units']:,.0f} {unit}/s; "
+            f"captured {r['rate']:.1f} steps/s = {r['units']:,.0f} {unit}/s "
+            f"({r['rate'] / e['rate']:.2f}x)")
+        log(f"  captured split: the eager first call "
+            f"{1e3 * c.first_call_s:.1f} ms, {len(c.graphs)} capture(s) "
+            f"{1e3 * c.capture_s:.1f} ms, {c.replays} replays "
+            f"{1e3 * c.replay_s:.1f} ms = {r['replay_rate']:.1f} steps/s; "
+            f"host {r['host_ms']:.3f} ms a replay; graph nodes "
+            f"{r['nodes']}; generator states equal; max |captured - eager| "
+            f"{errs[worst]:.3e} ({worst}; rtol {rtol}, atol {atol}); no "
+            f"kernel launched [{card}]")
+
+
 def phase_profile(m, out_dir: str, name: str, warm=None, run=None,
                   steps=None, **kw) -> None:
     """Kernel time by name, the card's busy share and the host's ops and
@@ -2929,6 +3119,8 @@ def run_phases(args) -> None:
     timed("multi-device modes", phase_mesh, m_50k.graph, device)
     timed("captured against eager", phase_captured_vs_eager, g_yt,
           m_50k.graph, device)
+    timed("own loops captured against eager", phase_own_loops,
+          own_loop_files(), device)
     if args.profile:
         phase_profile(m_yt, args.profile, "line_yt")
         phase_profile(m_fused, args.profile, "line_yt_fused",
@@ -2966,19 +3158,22 @@ def run_phases(args) -> None:
                           run=dict(sample_times=2, verbose=False, **kw))
         kg = m_fb.kg
         epoch = (kg.n_triples // 1024, 1024, "triples")
-        phase_profile(m_fb, args.profile, "transe_fb15k_shape",
-                      warm=dict(epochs=1, batch=1024, alpha=0.01,
-                                verbose=False),
-                      run=dict(epochs=2, batch=1024, alpha=0.01,
-                               verbose=False),
-                      steps=(2 * epoch[0],) + epoch[1:])
         han = typed["han"]
         han_kw = dict(walk_times=5, walk_steps=4, verbose=False)
-        phase_profile(han, args.profile, "han_hetero",
-                      warm=dict(epochs=1, **han_kw),
-                      run=dict(epochs=2, **han_kw),
-                      steps=(2 * (han.hg.n_vertices // 512 + 1), 512,
-                             "node updates"))
+        for capture, tag in ((True, ""), (False, "_eager")):
+            # the own loops in both modes (phase 36)
+            m_fb.capture = han.capture = capture
+            phase_profile(m_fb, args.profile, "transe_fb15k_shape" + tag,
+                          warm=dict(epochs=1, batch=1024, alpha=0.01,
+                                    verbose=False),
+                          run=dict(epochs=2, batch=1024, alpha=0.01,
+                                   verbose=False),
+                          steps=(2 * epoch[0],) + epoch[1:])
+            phase_profile(han, args.profile, "han_hetero" + tag,
+                          warm=dict(epochs=1, **han_kw),
+                          run=dict(epochs=2, **han_kw),
+                          steps=(2 * (han.hg.n_vertices // 512 + 1), 512,
+                                 "node updates"))
         from smore_tpu_torch.models import JODIE
         from smore_tpu_torch.utils import seq_data as sd
 
@@ -2992,10 +3187,12 @@ def run_phases(args) -> None:
         m_seq = seq["sasrec"]
         n_seq = len(m_seq._holdout_seqs)
         seq_kw = dict(sd.SEQ_TRAIN, verbose=False)
-        phase_profile(m_seq, args.profile, "sasrec_markov",
-                      warm=dict(seq_kw, epochs=1),
-                      run=dict(seq_kw, epochs=2),
-                      steps=(2 * (n_seq // 128), 128, "sequences"))
+        for capture, tag in ((True, ""), (False, "_eager")):
+            m_seq.capture = capture
+            phase_profile(m_seq, args.profile, "sasrec_markov" + tag,
+                          warm=dict(seq_kw, epochs=1),
+                          run=dict(seq_kw, epochs=2),
+                          steps=(2 * (n_seq // 128), 128, "sequences"))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {

@@ -9,7 +9,9 @@ one jitted ``lax.scan`` with the tables donated; here one call of those
 steps is a Python function of static buffers (the tables, the call's
 alphas, its loss) that, on the card without a mesh, is captured once as a
 CUDA graph and replayed for every later call (``TrainDriver``). The update
-is hand-derived SGD, so no autograd is involved.
+is hand-derived SGD, so no autograd is involved. The models that run
+their own epoch loops (the JAX package jitted their step) capture their
+calls the same way (``CapturedCalls``, ``OwnLoop``).
 """
 
 from __future__ import annotations
@@ -190,8 +192,8 @@ class CallGraph:
     """One call captured as a ``torch.cuda.CUDAGraph``, with the training
     generator registered with it: each replay draws the numbers the eager
     call would have drawn next and advances the generator past them. The
-    captured graph is kept (``keep_graph``) so that its kernel nodes can be
-    counted (``kernel_launches``)."""
+    captured graph is kept (``keep_graph``) so that its nodes can be
+    counted (``kernel_launches``, ``node_count``)."""
 
     def __init__(self, gen: torch.Generator):
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -208,6 +210,10 @@ class CallGraph:
         """The launches of each kernel the graph holds, by kernel name, read
         from its nodes."""
         return launches.in_graph(self.graph.raw_cuda_graph())
+
+    def node_count(self) -> int:
+        """Every node of the graph: kernels, memsets and copies."""
+        return launches.node_count(self.graph.raw_cuda_graph())
 
     def replay(self) -> None:
         self.graph.replay()
@@ -249,6 +255,111 @@ def _warm_up(run: Callable[[], None], device: torch.device) -> None:
     torch.cuda.synchronize(device)
 
 
+class CapturedCalls:
+    """The calls of one ``train()``, each a function of static buffers: the
+    counterpart of the JAX package's compiled programs, one dispatch a
+    call. With ``captured`` False every call runs eagerly (the CPU,
+    ``capture=False``, a mesh). On the card the first call runs eagerly on
+    a side stream (``_warm_up``: it trains, and builds what is built at
+    first use: kernels, the autograd engine's state, an optimiser's
+    moments); a later call of a ``kind`` not captured yet is captured into
+    a ``CallGraph`` of its own (the training generator registered with it,
+    so a replay draws what the eager call would) and replayed, and so is
+    every later call of that kind: one replay a call. ``kind`` names what a
+    call's graph holds (a call of another length, or one that also starts
+    or ends an epoch, is another kind). The graph replays no Python, so
+    each kernel's launch counter is credited, on every replay, the
+    launches its graph's nodes hold, which must equal what the wrappers
+    launched while it was captured (``ops.launches``). A capture that
+    fails raises with CUDA's message; nothing falls back.
+
+    ``calls`` and ``replays`` count; ``graphs`` holds the graph of each
+    kind (after ``close()`` too, for its node count: an owner that may sit
+    in a reference cycle drops them, since a graph that the cyclic
+    collector frees during another capture invalidates that capture). The
+    seconds split into ``first_call_s`` (the eager first call, to its end
+    on the card), ``capture_s`` (recording, instantiating and counting
+    every graph), ``replay_s`` (the rest from the first capture on, to the
+    end on the card: the replays and what the host does between them)
+    and, within that, ``replay_host_s`` (the host's time issuing the
+    replays)."""
+
+    def __init__(self, gen: Optional[torch.Generator],
+                 device: torch.device, captured: bool):
+        self.gen, self.device, self.captured = gen, device, captured
+        self.graphs: Dict[object, CallGraph] = {}
+        self._credit: Dict[object, launches.Credit] = {}
+        self.calls = self.replays = 0
+        self.first_call_s = self.capture_s = self.replay_s = 0.0
+        self.replay_host_s = 0.0
+        self._t_capture = None  # when the first capture began
+
+    def __call__(self, run: Callable[[], None], kind=None) -> None:
+        """One call of ``run`` (see the class docstring)."""
+        if not self.captured:
+            run()
+        elif self.calls == 0:
+            t = time.perf_counter()
+            _warm_up(run, self.device)
+            self.first_call_s = time.perf_counter() - t
+        else:
+            graph = self.graphs.get(kind)
+            if graph is None:
+                t = time.perf_counter()
+                if self._t_capture is None:
+                    self._t_capture = t
+                graph = CallGraph(self.gen)
+                before = launches.read()
+                graph.capture(run)
+                self._credit[kind] = launches.recorded(
+                    before, graph.kernel_launches())
+                self.graphs[kind] = graph
+                self.capture_s += time.perf_counter() - t
+            t = time.perf_counter()
+            graph.replay()
+            launches.credit(self._credit[kind])
+            self.replay_host_s += time.perf_counter() - t
+            self.replays += 1
+        self.calls += 1
+
+    def close(self) -> None:
+        """Wait for the card (the graphs, their memory pools and the
+        buffers may go with the caller's frame, also when a call or a
+        checkpoint raised) and close the split of the seconds."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        if self._t_capture is not None:
+            self.replay_s = (time.perf_counter() - self._t_capture
+                             - self.capture_s)
+
+
+def epoch_calls(steps: int, steps_per_call: Optional[int]) -> list:
+    """The lengths of the calls of an epoch of ``steps`` steps:
+    ``steps_per_call`` whole steps each (None: the epoch in one call), the
+    last one the rest."""
+    k = min(steps, steps_per_call or steps)
+    return [k] * (steps // k) + ([steps % k] if steps % k else [])
+
+
+class OwnLoop:
+    """What the models that run their own epoch loops share (the KG
+    family, HAN, the SASRec family): their calls are ``CapturedCalls``
+    (the last ``train()``'s are ``last_calls``), captured on the card
+    unless ``capture`` is False, eager on the CPU."""
+
+    # False runs every call eagerly on the card too (to compare the two in
+    # one process)
+    capture = True
+    last_calls: Optional[CapturedCalls] = None
+
+    def _captures(self) -> bool:
+        return self.capture and self.device.type == "cuda"
+
+    def _new_calls(self, gen: torch.Generator) -> CapturedCalls:
+        self.last_calls = CapturedCalls(gen, self.device, self._captures())
+        return self.last_calls
+
+
 class TrainDriver:
     """Runs a StepFn for a total number of samples with linear alpha decay.
 
@@ -281,26 +392,17 @@ class TrainDriver:
     on static buffers (the tables of ``state``, the call's (S,) or (S, M)
     ``alphas``, a () ``loss``, the mean of the steps' losses as JAX's
     ``jnp.mean(losses)``). Each call's alphas are copied in from pinned host
-    memory. On the card (``capture`` True) the first call of a ``train()``
-    runs eagerly on a side stream (it trains, and builds the kernels and
-    their lazy state); the second is captured into a ``torch.cuda.CUDAGraph``
-    (``CallGraph``, the training generator registered with it, so a replay
-    advances it as the eager steps would) and replayed, and so is every
-    later call: one replay a call. The tables are the graph's own buffers
-    (the JAX call donated them): the steps update most in place, and a
-    table a step returns anew is copied back once a call
-    (``copy_back_bytes``). The graph replays no Python, so the kernels'
-    launch counters are credited, on every replay, the launches the
-    graph's nodes hold, which must equal what the wrappers launched while
-    it was captured (``ops.launches``). A capture that fails raises with
-    CUDA's message; nothing falls back. ``capture=False`` runs every call
-    eagerly (for a comparison on the card), as the CPU does and the mesh
-    modes do (their collectives run on the host). ``calls`` and
-    ``replays`` count the last ``train()``'s calls; its seconds are split
-    into ``first_call_s`` (the eager first call, to its end on the card),
-    ``capture_s`` (recording, instantiating and counting the graph),
-    ``replay_s`` (every replay after it, to their end on the card) and,
-    within that, ``replay_host_s`` (the host's time issuing them).
+    memory. The calls are ``CapturedCalls`` (``loop``): on the card
+    (``capture`` True) the first call of a ``train()`` runs eagerly on a
+    side stream, the second is captured into one CUDA graph and replayed,
+    and so is every later call: one replay a call. The tables are the
+    graph's own buffers (the JAX call donated them): the steps update most
+    in place, and a table a step returns anew is copied back once a call
+    (``copy_back_bytes``). ``capture=False`` runs every call eagerly (for a
+    comparison on the card), as the CPU does and the mesh modes do (their
+    collectives run on the host). ``calls`` counts the last ``train()``'s
+    calls; ``replays`` and the split of its seconds (``first_call_s``,
+    ``capture_s``, ``replay_s``, ``replay_host_s``) are its ``loop``'s.
 
     checkpoint_path: the training state (tables, the generator's state and
     the step counter) is saved there every ``checkpoint_every`` calls of
@@ -359,10 +461,16 @@ class TrainDriver:
         self.capture = capture
         self.executed_samples = 0
         self.comm = CommStats()
-        self.calls = self.replays = 0
-        self.first_call_s = self.capture_s = self.replay_s = 0.0
-        self.replay_host_s = 0.0
+        self.calls = 0
+        self.loop = CapturedCalls(None, self.device, False)
         self.copy_back_bytes = 0
+
+    # the last train()'s replays and the split of its seconds
+    replays = property(lambda self: self.loop.replays)
+    first_call_s = property(lambda self: self.loop.first_call_s)
+    capture_s = property(lambda self: self.loop.capture_s)
+    replay_s = property(lambda self: self.loop.replay_s)
+    replay_host_s = property(lambda self: self.loop.replay_host_s)
 
     def _placement(self, state: State):
         """(mesh, mode, group, rank, world) of a train() call: this
@@ -455,9 +563,9 @@ class TrainDriver:
         done = self._maybe_resume(state, gen) if self.checkpoint_path else 0
         done0 = done
         t0 = time.time()
-        self.calls = self.replays = 0
-        self.first_call_s = self.capture_s = self.replay_s = 0.0
-        self.replay_host_s = 0.0
+        self.calls = 0
+        self.loop = CapturedCalls(gen, self.device,
+                                  mode is None and self._captures())
         if mode is None:
             done = self._train_calls(state, gen, done, steps_total,
                                      inv_total, verbose, t0)
@@ -565,8 +673,6 @@ class TrainDriver:
         alphas = torch.empty(shape, dtype=torch.float32, device=dev)
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         staging = _AlphaStaging(shape, dev)
-        captured = self._captures()
-        graph, per_replay, steady0 = None, [], None
         done0 = done
 
         def run():
@@ -576,39 +682,19 @@ class TrainDriver:
             while done < steps_total:
                 staging.put(alpha_schedule(done, S, M, self.alpha, inv_total),
                             alphas)
-                if not captured:
-                    run()
-                elif self.calls == 0:
-                    t = time.perf_counter()
-                    _warm_up(run, dev)
-                    self.first_call_s = time.perf_counter() - t
-                else:
-                    if graph is None:
-                        t = time.perf_counter()
-                        graph = CallGraph(gen)
-                        before = launches.read()
-                        graph.capture(run)
-                        per_replay = launches.recorded(
-                            before, graph.kernel_launches())
-                        steady0 = time.perf_counter()
-                        self.capture_s = steady0 - t
-                    t = time.perf_counter()
-                    graph.replay()
-                    launches.credit(per_replay)
-                    self.replay_host_s += time.perf_counter() - t
-                    self.replays += 1
+                self.loop(run)
                 done += S
                 self.calls += 1
                 self._checkpoint(state, gen, done, steps_total)
                 if verbose:
                     self._progress(loss, done, done0, steps_total, t0)
         finally:
-            if dev.type == "cuda":
-                # the graph, its memory pool and the buffers go with this
-                # frame, also when a step or a checkpoint raises
-                torch.cuda.synchronize(dev)
-        if steady0 is not None:
-            self.replay_s = time.perf_counter() - steady0
+            self.loop.close()
+            # a TrainDriver sits in a reference cycle with its model (the
+            # step's closures), which the cyclic collector may free while
+            # another call is being captured, and CUDA invalidates a capture
+            # in which a graph is destroyed: the graphs go with the train()
+            self.loop.graphs.clear()
         return done
 
     def _row_shard(self, t: torch.Tensor, rank: int, world: int) -> RowShard:

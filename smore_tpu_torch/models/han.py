@@ -25,7 +25,8 @@ depend on the order of the writes (the JAX package leaves it unspecified).
 
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,6 +36,8 @@ from smore_tpu_torch.io.embeddings import save_embeddings
 from smore_tpu_torch.models.base import (
     INIT_STREAM,
     TRAIN_STREAM,
+    OwnLoop,
+    epoch_calls,
     seeded_generator,
 )
 from smore_tpu_torch.models.metapath2vec import meta_path_arrays
@@ -53,9 +56,16 @@ def last_occurrence(nodes: torch.Tensor) -> torch.Tensor:
     return torch.where(eq, pos[None, :], -1).amax(1)
 
 
-class HAN:
+class HAN(OwnLoop):
     """``device`` holds the tables and every draw: the CUDA card unless
-    the caller asks for another."""
+    the caller asks for another. A call is ``steps_per_call`` steps
+    (``OwnLoop``: captured once on the card as a CUDA graph and replayed
+    for every later call of the ``train()``)."""
+
+    # the steps of a call (None: an epoch's): one, since a capture costs
+    # its call's steps and a step's replay already runs at the card's pace
+    # (PERF.md)
+    steps_per_call: Optional[int] = 1
 
     def __init__(self, hg: HeteroGraph, seed: int = 0,
                  device: torch.device | str = "cuda"):
@@ -197,17 +207,24 @@ class HAN:
                 v.copy_(loaded[k])
             gen.set_state(extra["gen"])
             start_ep = min(int(done_ep), epochs)
-        for ep in range(start_ep, epochs):
-            for _ in range(steps_per_epoch):
+
+        def call(size: int) -> None:
+            for _ in range(size):
                 step(state, ctx, gen)
-            if verbose:
-                print(f"\tepoch {ep + 1}/{epochs}", end="\r", flush=True)
-            if checkpoint and ((ep + 1) % max(1, checkpoint_every) == 0
-                               or ep + 1 == epochs):
-                save_checkpoint(checkpoint, state, step=ep + 1,
-                                extra={"gen": gen.get_state()})
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+
+        calls = self._new_calls(gen)
+        try:
+            for ep in range(start_ep, epochs):
+                for size in epoch_calls(steps_per_epoch, self.steps_per_call):
+                    calls(functools.partial(call, size), size)
+                if verbose:
+                    print(f"\tepoch {ep + 1}/{epochs}", end="\r", flush=True)
+                if checkpoint and ((ep + 1) % max(1, checkpoint_every) == 0
+                                   or ep + 1 == epochs):
+                    save_checkpoint(checkpoint, state, step=ep + 1,
+                                    extra={"gen": gen.get_state()})
+        finally:
+            calls.close()
         if verbose:
             print()
 

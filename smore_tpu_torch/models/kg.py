@@ -16,7 +16,8 @@ One step takes a batch of triple ids, corrupts each triple's head or tail
 applies ``lr * grad`` of the summed margin loss to every table (a SUM, not
 a mean: every triple's update at the full rate). The gradient is
 ``torch.autograd`` on the gathered rows, so duplicate rows in a batch sum
-their gradients, and every delta is computed before the first in-place
+their gradients (RotatE's in a fixed order on the card too:
+``_add_rows``), and every delta is computed before the first in-place
 write. Between epochs TransE and ComplEx project the entities back onto
 the unit sphere (RotatE's relations are unit-modulus by construction).
 
@@ -27,6 +28,7 @@ standard "N dim" layout.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional
 
 import numpy as np
@@ -38,7 +40,10 @@ from smore_tpu_torch.models.base import (
     ALPHA_MIN_FRAC,
     INIT_STREAM,
     TRAIN_STREAM,
+    OwnLoop,
+    _AlphaStaging,
     clamp_batch,
+    epoch_calls,
     seeded_generator,
 )
 from smore_tpu_torch.utils.checkpoint import (
@@ -67,14 +72,38 @@ def _abs_jax(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, x, -x)
 
 
-class _KGBase:
+def _add_rows(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor,
+              ordered: bool) -> None:
+    """``table[idx] += delta`` in place. ``index_add_`` sums duplicate rows
+    in index order on the CPU, with atomics in an order that changes from
+    run to run on the card; ``ordered`` sums them in index order there too
+    (a sorted accumulate, ``index_put_``: deterministic, but ~40% slower a
+    TransE step at FB15k-237's shape)."""
+    if ordered and table.device.type == "cuda":
+        table.index_put_((idx,), delta, accumulate=True)
+    else:
+        table.index_add_(0, idx, delta)
+
+
+class _KGBase(OwnLoop):
     """Shared: epoch loop over shuffled triple batches, autograd step.
 
     ``device`` holds the tables and every draw: the CUDA card unless the
-    caller asks for another; without a card the first allocation raises."""
+    caller asks for another; without a card the first allocation raises.
+    A call is ``steps_per_call`` steps (``OwnLoop``: captured once on the
+    card as a CUDA graph and replayed for every later call of the
+    ``train()``); an epoch's first call also draws its permutation, its
+    last renormalises."""
 
     _higher_is_better = False
     _complex_rows = False  # entity rows are re | im halves of 2 * dim
+    # duplicate rows summed in a fixed order on the card too (_add_rows)
+    _ordered_sums = False
+    # the steps of a call (None: an epoch's). A capture costs its call's
+    # steps and replays run at the card's pace at any length, so a call is
+    # the fewest steps whose replay the card, not the host, bounds: at one
+    # step the host issues a replay in ~2/3 of a step's device time (PERF.md)
+    steps_per_call: Optional[int] = 4
 
     def __init__(self, kg: KnowledgeGraph, seed: int = 0, margin: float = 1.0,
                  device: torch.device | str = "cuda"):
@@ -148,10 +177,13 @@ class _KGBase:
     def _make_step(self):
         """step(state, idx (B,), u (2, B), lr) -> loss: one update of the
         tables (in place) on the triples ``idx``, corrupted by the uniforms
-        ``u``; lr a Python float."""
+        ``u``; lr a float32 (1,) tensor (a captured call's rates live on
+        the card) or a Python float. The rows move by the f32 product
+        ``grad * -lr``, as the JAX step's ``v - lr * grad``."""
         margin = self.margin
         sign = -1.0 if self._higher_is_better else 1.0
         upd = self._update_score_rows
+        ordered = self._ordered_sums
 
         def step(state, idx, u, lr):
             heads, rels, tails, _, _ = self._device_triples()
@@ -173,8 +205,9 @@ class _KGBase:
                 term = pos - (neg * w if w is not None else neg)
                 loss = torch.where(gate, term, 0.0).sum()
                 g_e, g_r = torch.autograd.grad(loss, [e_rows, r_rows])
-            E.index_add_(0, ents, g_e, alpha=-lr)
-            R.index_add_(0, r, g_r, alpha=-lr)
+            neg_lr = -lr
+            _add_rows(E, ents, g_e * neg_lr, ordered)
+            _add_rows(R, r, g_r * neg_lr, ordered)
             return loss.detach()
 
         return step
@@ -231,9 +264,7 @@ class _KGBase:
         step = self._make_step()
         gen = seeded_generator(self.seed, TRAIN_STREAM, self.device)
         state = self.state
-        alpha_min = alpha * ALPHA_MIN_FRAC
         total = epochs * n_batches
-        done = 0
         start_ep = 0
         if checkpoint and resume and checkpoint_exists(checkpoint):
             loaded, done_ep, extra = load_checkpoint(checkpoint)
@@ -241,32 +272,55 @@ class _KGBase:
                 v.copy_(loaded[k])
             gen.set_state(extra["gen"])
             start_ep = min(int(done_ep), epochs)
-            done = start_ep * n_batches
             if int(extra.get("epochs", epochs)) != epochs:
                 print(f"\twarning: resuming with -epochs {epochs} but "
                       f"checkpoint was written by an -epochs "
                       f"{int(extra['epochs'])} run; the linear lr decay "
                       f"re-stretches over the new total", flush=True)
-        loss = torch.zeros(())
-        for ep in range(start_ep, epochs):
-            perm = torch.randperm(n, generator=gen, device=self.device)
-            perm = perm[: n_batches * batch].reshape(n_batches, batch)
-            for b in range(n_batches):
-                u = torch.rand((2, batch), generator=gen, device=self.device)
-                lr = max(alpha * (1.0 - done / total), alpha_min)
-                loss = step(state, perm[b], u, lr)
-                done += 1
-            self._renorm(state)
-            if verbose:
-                print(f"\tepoch {ep + 1}/{epochs} loss={float(loss):.5f}",
-                      end="\r", flush=True)
-            if checkpoint and ((ep + 1) % max(1, checkpoint_every) == 0
-                               or ep + 1 == epochs):
-                save_checkpoint(checkpoint, state, step=ep + 1,
-                                extra={"gen": gen.get_state(),
-                                       "epochs": epochs})
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        # the static buffers of the calls: the epoch's permutation, the
+        # position of the next step in it, its rates and the last loss
+        dev = self.device
+        perm = torch.empty(n, dtype=torch.int64, device=dev)
+        batches = perm[: n_batches * batch].view(n_batches, batch)
+        pos = torch.zeros(1, dtype=torch.int64, device=dev)
+        rates = torch.empty(n_batches, dtype=torch.float32, device=dev)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        staging = _AlphaStaging((n_batches,), dev)
+        sizes = epoch_calls(n_batches, self.steps_per_call)
+
+        def call(first: bool, last: bool, size: int) -> None:
+            """``size`` steps of the epoch from ``pos`` (its start, and a
+            new permutation, when ``first``; the renorm when ``last``)."""
+            if first:
+                torch.randperm(n, generator=gen, out=perm)
+                pos.zero_()
+            for _ in range(size):
+                u = torch.rand((2, batch), generator=gen, device=dev)
+                step_loss = step(state, batches.index_select(0, pos)[0], u,
+                                 rates.index_select(0, pos))
+                pos.add_(1)
+            if last:
+                self._renorm(state)
+            loss.copy_(step_loss)
+
+        calls = self._new_calls(gen)
+        try:
+            for ep in range(start_ep, epochs):
+                staging.put(kg_rates(ep * n_batches, n_batches, alpha,
+                                     total), rates)
+                for i, size in enumerate(sizes):
+                    kind = (i == 0, i == len(sizes) - 1, size)
+                    calls(functools.partial(call, *kind), kind)
+                if verbose:
+                    print(f"\tepoch {ep + 1}/{epochs} loss={float(loss):.5f}",
+                          end="\r", flush=True)
+                if checkpoint and ((ep + 1) % max(1, checkpoint_every) == 0
+                                   or ep + 1 == epochs):
+                    save_checkpoint(checkpoint, state, step=ep + 1,
+                                    extra={"gen": gen.get_state(),
+                                           "epochs": epochs})
+        finally:
+            calls.close()
         if verbose:
             print()
 
@@ -290,6 +344,16 @@ class _KGBase:
 
     def _relation_out(self) -> torch.Tensor:
         return self.state["relation"]
+
+
+def kg_rates(done: int, steps: int, alpha: float, total: int) -> np.ndarray:
+    """The float32 learning rates of ``steps`` steps from step ``done`` of
+    ``total``: ``max(alpha * (1 - done / total), alpha * 1e-4)`` in double,
+    as the JAX loop computes it on the host, then cast to float32 as it
+    passes it to its step."""
+    d = done + np.arange(steps, dtype=np.float64)
+    return np.maximum(alpha * (1.0 - d / total),
+                      alpha * ALPHA_MIN_FRAC).astype(np.float32)
 
 
 class TransE(_KGBase):
@@ -317,6 +381,11 @@ class RotatE(_KGBase):
     """Entities: (N, 2D) re|im; relations: (R, D) PHASES."""
 
     _complex_rows = True
+    # the per-coordinate step d / |d| is a sign where d is near 0, so the
+    # card's changing atomic order would become steps of the full rate: two
+    # runs of one seed part by ~6e-2 in 1,590 steps at FB15k-237's shape
+    # (PERF.md); TransE's and ComplEx's steps keep it at round-off
+    _ordered_sums = True
 
     def __init__(self, kg, seed: int = 0, margin: float = 6.0,
                  adversarial_temp: float = 1.0,

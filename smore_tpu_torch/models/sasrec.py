@@ -28,6 +28,7 @@ generator seeded from ``seed``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, Optional
 
@@ -41,6 +42,8 @@ from smore_tpu_torch.io.embeddings import save_embeddings
 from smore_tpu_torch.models.base import (
     INIT_STREAM,
     TRAIN_STREAM,
+    OwnLoop,
+    epoch_calls,
     seeded_generator,
 )
 from smore_tpu_torch.utils.checkpoint import (
@@ -182,14 +185,21 @@ class SASRecNet(nn.Module):
         return self.final_ln(x) * pad_mask[..., None]
 
 
-class SASRec:
+class SASRec(OwnLoop):
     """loss 'bce' (SASRec) | 'gbce' (gSASRec); denoise (Rec-Denoiser).
 
     ``device`` holds the network, the sequences and every draw: the CUDA
-    card unless the caller asks for another."""
+    card unless the caller asks for another. A call is ``steps_per_call``
+    steps (the forward, the backward and the Adam update each; ``OwnLoop``:
+    captured once on the card as a CUDA graph and replayed for every later
+    call of the ``train()``)."""
 
     loss = "bce"
     denoise = False
+    # the steps of a call (None: an epoch's): one, since a capture costs
+    # its call's steps and a step's replay already runs at the card's pace
+    # (PERF.md)
+    steps_per_call: Optional[int] = 1
 
     def __init__(self, graph: Graph, seed: int = 0, beta: float = 0.5,
                  lambda_sparsity: float = 0.01, negative_samples: int = 1,
@@ -283,12 +293,16 @@ class SASRec:
                        forward_only: bool = False) -> torch.optim.Adam:
         """``optax.adam(alpha)``'s formula; with ``forward_only`` only the
         item table trains (every other parameter is frozen, which leaves
-        it exactly as zero gradients through Adam do)."""
+        it exactly as zero gradients through Adam do). On the card the
+        update is ``capturable`` (its step counts and bias corrections on
+        the card), captured or not, so that a captured run and an eager one
+        take the same update."""
         for name, p in self.net.named_parameters():
             p.requires_grad_(not forward_only or name == "item.weight")
         return torch.optim.Adam(
             [p for p in self.net.parameters() if p.requires_grad], lr=alpha,
-            betas=(0.9, 0.999), eps=1e-8)
+            betas=(0.9, 0.999), eps=1e-8,
+            capturable=self.device.type == "cuda")
 
     def train(self, epochs: int = 10, batch_size: int = 128,
               alpha: float = 0.001, verbose: bool = True,
@@ -322,26 +336,49 @@ class SASRec:
             start_ep = min(done_ep, epochs)
         bs = min(batch_size, n_seq)
         n_batches = max(1, n_seq // bs)
-        seqs_d = torch.from_numpy(seqs).long().to(self.device)
-        for ep in range(start_ep, epochs):
-            perm = torch.randperm(n_seq, generator=gen, device=self.device)
-            perm = perm[: n_batches * bs].view(n_batches, bs)
-            for b in range(n_batches):
-                loss = self.loss_fn(seqs_d[perm[b]], gen)
+        dev = self.device
+        seqs_d = torch.from_numpy(seqs).long().to(dev)
+        # the static buffers of the calls: the epoch's permutation, the
+        # position of the next batch in it and the last loss
+        perm = torch.empty(n_seq, dtype=torch.int64, device=dev)
+        batches = perm[: n_batches * bs].view(n_batches, bs)
+        pos = torch.zeros(1, dtype=torch.int64, device=dev)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+
+        def call(first: bool, size: int) -> None:
+            """``size`` steps of the epoch from ``pos`` (its start, and a
+            new permutation, when ``first``)."""
+            if first:
+                torch.randperm(n_seq, generator=gen, out=perm)
+                pos.zero_()
+            for _ in range(size):
+                step_loss = self.loss_fn(
+                    seqs_d[batches.index_select(0, pos)[0]], gen)
                 opt.zero_grad(set_to_none=True)
-                loss.backward()
+                step_loss.backward()
                 opt.step()
-            if verbose:
-                print(f"\tepoch {ep + 1}/{epochs} "
-                      f"loss={float(loss.detach()):.5f}", end="\r",
-                      flush=True)
-            if checkpoint and ((ep + 1) % max(1, checkpoint_every) == 0
-                               or ep + 1 == epochs):
-                save_checkpoint(checkpoint, {"net": self.net.state_dict(),
-                                             "opt": opt.state_dict()},
-                                step=ep + 1, extra={"gen": gen.get_state()})
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                pos.add_(1)
+            loss.copy_(step_loss.detach())
+
+        calls = self._new_calls(gen)
+        sizes = epoch_calls(n_batches, self.steps_per_call)
+        try:
+            for ep in range(start_ep, epochs):
+                for i, size in enumerate(sizes):
+                    calls(functools.partial(call, i == 0, size),
+                          (i == 0, size))
+                if verbose:
+                    print(f"\tepoch {ep + 1}/{epochs} loss={float(loss):.5f}",
+                          end="\r", flush=True)
+                if checkpoint and ((ep + 1) % max(1, checkpoint_every) == 0
+                                   or ep + 1 == epochs):
+                    save_checkpoint(checkpoint,
+                                    {"net": self.net.state_dict(),
+                                     "opt": opt.state_dict()},
+                                    step=ep + 1,
+                                    extra={"gen": gen.get_state()})
+        finally:
+            calls.close()
         if verbose:
             print()
 

@@ -93,6 +93,21 @@ def in_graph(graph: int) -> Dict[str, int]:
     return out
 
 
+def node_count(graph: int) -> int:
+    """Every node of a captured CUDA graph (``graph``:
+    ``torch.cuda.CUDAGraph.raw_cuda_graph()``, a ``CUgraph`` to the driver),
+    as the driver's ``cuGraphGetNodes`` counts them."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    rc = lib.cuGraphGetNodes(graph, None, ctypes.byref(n))
+    if rc:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return n.value
+
+
 def recorded(before: Dict[str, int], nodes: Dict[str, int]) -> Credit:
     """After a capture: the counters' moves since ``before`` (``read()``)
     are taken back, since nothing ran, and must equal the launches the

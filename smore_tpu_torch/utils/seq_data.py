@@ -55,6 +55,12 @@ def make_interactions(path, users=40, items=60, clusters=4, events=8000):
     return path
 
 
+# the SASRec paper's MovieLens-1M setting (Kang and McAuley, ICDM 2018,
+# section IV) as a shape for make_data: 6,040 users and 3,416 items,
+# sequences of 200 (its max_seq_len for ML-1M); the paper trains it at dim
+# 50, 2 blocks, 1 head, dropout 0.2, batch 128, lr 1e-3
+ML1M = dict(users=6040, items=3416, steps=200)
+
 # the JODIE paper's Wikipedia set (Kumar, Zhang and Leskovec, KDD 2019,
 # Table 1) as a shape: users, items, interactions, feature columns; the
 # paper trains at dim 128
@@ -91,19 +97,22 @@ def jodie_eval(ue, ie, user_ids, item_ids, n_items, tail=1000):
     return float((s_pos > s_neg).mean())
 
 
-def make_data(path: str, seed: int = 0) -> None:
+def make_data(path: str, seed: int = 0, users: int = N_USERS,
+              items: int = N_ITEMS, steps: int = SEQ_LEN) -> None:
     """Markov-chain interaction sequences as a user->item edge list (the
-    file order defines each user's sequence). Keeps an existing file."""
+    file order defines each user's sequence): ``users`` sequences of
+    ``steps`` items among ``items`` (default sasrec_eval's set; ML1M the
+    SASRec paper's shape). Keeps an existing file."""
     if os.path.exists(path):
         return
     rng = np.random.default_rng(seed)
-    succ = rng.integers(0, N_ITEMS, (N_ITEMS, 5))  # 5 successors per item
+    succ = rng.integers(0, items, (items, 5))  # 5 successors per item
     with open(path, "w") as f:
-        for u in range(N_USERS):
-            it = int(rng.integers(0, N_ITEMS))
-            for _ in range(SEQ_LEN):
+        for u in range(users):
+            it = int(rng.integers(0, items))
+            for _ in range(steps):
                 f.write(f"u{u} i{it} 1\n")
                 if rng.random() < 0.85:  # follow the chain
                     it = int(succ[it, rng.integers(0, 5)])
                 else:  # exploration noise
-                    it = int(rng.integers(0, N_ITEMS))
+                    it = int(rng.integers(0, items))

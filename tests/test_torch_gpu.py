@@ -23,7 +23,16 @@ from smore_tpu_torch.ops.sgns_banded import (
     sgns_banded_multiblock_ref,
 )
 from torch_graph_call_cases import CASES as CAPTURED
-from torch_graph_call_cases import LINE_ROUTES, field_graph, toy_graph
+from torch_graph_call_cases import (
+    LINE_ROUTES,
+    OWN_LOOP,
+    OWN_LOOP_CHUNK,
+    SEQ,
+    build_own_loop,
+    field_graph,
+    own_loop_state,
+    toy_graph,
+)
 from torch_graph_call_cases import build as build_case
 from torch_superstep_inputs import (
     ALL_COLLIDE,
@@ -1335,3 +1344,86 @@ def test_a_step_that_syncs_raises_at_capture(cuda):
     assert d.calls == 1 and d.replays == 0
     torch.cuda.synchronize()
     assert float(torch.ones(2, device=cuda).sum()) == 2.0  # the card works
+
+
+# ------------------------- the models with loops of their own (CUDA graph)
+# A captured SASRec-family run against the eager one: the same kernels on
+# the same inputs, each call's cuBLAS products and reductions in the same
+# order, so the same f32 round-off bound as the tables'.
+SEQ_RTOL, SEQ_ATOL = 1e-4, 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", [None, "chunk"])
+@pytest.mark.parametrize("name", OWN_LOOP)
+def test_own_loop_captured_calls_match_eager_calls(cuda, name, steps,
+                                                   tmp_path):
+    """Each model with a loop of its own, 2 epochs from one seed, its calls
+    (an epoch, or OWN_LOOP_CHUNK steps and a shorter last one) captured
+    and replayed against ``capture=False``: the first call eager and every
+    later one a replay; equal generator states; the tables within rtol
+    1e-4 / atol 1e-5 (SASRec family: SEQ_RTOL / SEQ_ATOL); no kernel
+    launched."""
+    from smore_tpu_torch.ops import launches
+
+    runs = {}
+    for capture in (True, False):
+        m, kw = build_own_loop(name, cuda, str(tmp_path), epochs=2,
+                               steps_per_call=OWN_LOOP_CHUNK[name]
+                               if steps else None)
+        m.capture = capture
+        before = launches.read()
+        m.train(**kw)
+        torch.cuda.synchronize()
+        runs[capture] = (m, m.last_calls, launches.moved(before))
+    (mc, cc, lc), (me, ce, le) = runs[True], runs[False]
+    assert cc.calls >= 2 and cc.replays == cc.calls - 1, (cc.calls,
+                                                         cc.replays)
+    assert ce.replays == 0 and ce.calls == cc.calls
+    assert lc == le == {}
+    assert torch.equal(cc.gen.get_state(), ce.gen.get_state())
+    rtol, atol = (SEQ_RTOL, SEQ_ATOL) if name in SEQ else (RTOL, ATOL)
+    got = own_loop_state(mc)
+    for k, v in own_loop_state(me).items():
+        assert got[k].device.type == "cuda"
+        np.testing.assert_allclose(got[k].cpu().numpy(), v.cpu().numpy(),
+                                   rtol=rtol, atol=atol, err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SEQ)
+def test_seq_adam_is_capturable_and_resumes_on_the_card(cuda, name,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """On the card the SASRec family's Adam is ``capturable`` (captured or
+    not), and a resumed run's Adam step counts are on the card; the
+    resumed run replays its later epochs."""
+    from smore_tpu_torch import models
+
+    cls = getattr(models, name)
+    made, loaded = [], []
+    orig_make = cls.make_optimizer
+
+    def spy_make(self, *a, **k):
+        made.append(orig_make(self, *a, **k))
+        return made[-1]
+
+    orig_load = torch.optim.Optimizer.load_state_dict
+
+    def spy_load(self, sd):
+        orig_load(self, sd)
+        loaded.extend(s["step"] for s in self.state.values())
+
+    monkeypatch.setattr(cls, "make_optimizer", spy_make)
+    monkeypatch.setattr(torch.optim.Optimizer, "load_state_dict", spy_load)
+    ck = str(tmp_path / "ck")
+    m, kw = build_own_loop(name, cuda, str(tmp_path), epochs=2)
+    m.train(checkpoint=ck, **kw)
+    m2, kw = build_own_loop(name, cuda, str(tmp_path), epochs=4)
+    m2.train(checkpoint=ck, **kw)
+    assert all(o.defaults["capturable"] for o in made) and len(made) == 2
+    assert loaded and all(t.device.type == "cuda" for t in loaded)
+    c = m2.last_calls
+    assert c.calls == 2 and c.replays == 1
+    for k, v in own_loop_state(m2).items():
+        assert bool(torch.isfinite(v).all()), k

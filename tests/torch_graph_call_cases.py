@@ -164,3 +164,64 @@ def build(name: str, device, tmp: str, dim: int = 16):
         kw = dict(walk_times=15, walk_steps=6)
     m.init(dim=dim)
     return m, dict(run, **kw)
+
+
+# ------------------------------------------- the models with their own loops
+# (KG, HAN, the SASRec family): a few epochs of a few steps each; a call is
+# an epoch's steps (steps_per_call None) or, given steps_per_call, calls of
+# that many steps and a shorter last one
+OWN_LOOP = ("TransE", "RotatE", "ComplEx", "HAN", "SASRec", "GSASRec",
+            "RecDenoiser")
+SEQ = ("SASRec", "GSASRec", "RecDenoiser")
+# calls of this many steps and a shorter last one: KG 4 + 2, HAN 3 + 1,
+# the SASRec family 3 + 1
+OWN_LOOP_CHUNK = {"TransE": 4, "RotatE": 4, "ComplEx": 4, "HAN": 3,
+                  "SASRec": 3, "GSASRec": 3, "RecDenoiser": 3}
+
+
+def seq_edges(path: str, users: int = 40, items: int = 15) -> str:
+    """User -> item edges in file order, 1-13 a user (some users under 2
+    items, some cut to the sequence length)."""
+    rng = np.random.default_rng(9)
+    with open(path, "w") as f:
+        f.writelines(f"u{u} i{rng.integers(0, items)} 1\n"
+                     for u in range(users)
+                     for _ in range(int(rng.integers(1, 14))))
+    return path
+
+
+def build_own_loop(name: str, device, tmp: str, dim: int = 16,
+                   steps_per_call=None, epochs: int = 3):
+    """(model with fresh tables on ``device``, train() arguments): TransE
+    6 steps an epoch, HAN 4, the SASRec family 4."""
+    kw = dict(epochs=epochs, verbose=False)
+    if name in ("TransE", "RotatE", "ComplEx"):
+        m = getattr(models, name).load_triples(
+            od.make_kg(f"{tmp}/kg.txt", n_clusters=2, per=20, n_rel=2,
+                       triples_per_rel=100), seed=0, device=device)
+        m.init(dim=dim)
+        kw.update(batch=32, alpha=0.02)
+    elif name == "HAN":
+        m = models.HAN.load_edge_list(od.make_hetero(
+            f"{tmp}/h.txt", topics=2, authors_pt=20, papers_pt=30),
+            seed=0, device=device)
+        for mp in od.RUNS["han"]["meta_paths"]:
+            m.add_meta_path(mp)
+        m.init(dim=dim, learning_rate=0.05)
+        kw.update(batch=32, walk_times=3, walk_steps=4)
+    else:
+        m = getattr(models, name).load_edge_list(
+            seq_edges(f"{tmp}/seq.txt"), seed=0, negative_samples=3,
+            device=device)
+        m.init(dim=dim, max_seq_len=8, num_blocks=2, num_heads=2,
+               dropout=0.2)
+        kw.update(batch_size=8, alpha=0.01)
+    m.steps_per_call = steps_per_call
+    return m, kw
+
+
+def own_loop_state(m) -> dict:
+    """The trained tables, or the network's parameters and buffers."""
+    if hasattr(m, "net"):
+        return dict(m.net.state_dict())
+    return dict(m.state)
