@@ -2930,7 +2930,7 @@ def own_loop_run(model: str, f: dict, device, capture: bool,
     out = dict(m=m, dt=dt, steps=steps, per_step=per_step, calls=c,
                rate=steps / dt, units=steps * per_step / dt)
     if c.replays:
-        out["nodes"] = {str(k): g.node_count() for k, g in c.graphs.items()}
+        out["nodes"] = {str(k): n for k, n in c.nodes.items()}
         out["replay_rate"] = (steps - first) / c.replay_s
         out["host_ms"] = 1e3 * c.replay_host_s / c.replays
     return out
@@ -2978,7 +2978,7 @@ def phase_own_loops(f: dict, device, steps_per_call=None,
             f"captured {r['rate']:.1f} steps/s = {r['units']:,.0f} {unit}/s "
             f"({r['rate'] / e['rate']:.2f}x)")
         log(f"  captured split: the eager first call "
-            f"{1e3 * c.first_call_s:.1f} ms, {len(c.graphs)} capture(s) "
+            f"{1e3 * c.first_call_s:.1f} ms, {len(c.nodes)} capture(s) "
             f"{1e3 * c.capture_s:.1f} ms, {c.replays} replays "
             f"{1e3 * c.replay_s:.1f} ms = {r['replay_rate']:.1f} steps/s; "
             f"host {r['host_ms']:.3f} ms a replay; graph nodes "

@@ -2,7 +2,7 @@
 at several call lengths, on one CUDA card.
 
     python3 experiments/torch_own_loop_call.py [--calls default,epoch,8,1]
-        [--models transe,han,sasrec] [--profile DIR]
+        [--models transe,han,sasrec] [--profile DIR] [--sums ordered,atomic]
 
 For each call length (``default``: each model's own ``steps_per_call``;
 ``epoch``: an epoch's steps in one call; or a number of steps) runs
@@ -17,8 +17,11 @@ whose capture fails prints CUDA's message and the next one runs. With
 the models' own call lengths (``chip_smoke.phase_profile``: the card's idle
 share, the torch ops and CUDA launch calls a step; tables and traces to
 DIR). ``--eager-twice`` first trains each model eagerly twice from seed 0
-and prints how far the two runs' tables part. Prints the card's name and
-power limit first; needs a card.
+and prints how far the two runs' tables part. ``--sums ordered,atomic``
+first times each chosen KG model's captured run at its own call length
+twice: its duplicate rows summed in index order (``kg._add_rows``'s
+sorted accumulate) and by ``index_add_``'s atomics. Prints the card's name
+and power limit first; needs a card.
 """
 
 from __future__ import annotations
@@ -44,10 +47,17 @@ def main() -> None:
     ap.add_argument("--eager-twice", action="store_true",
                     help="first train each model eagerly twice from one "
                     "seed and print how far the two runs part")
+    ap.add_argument("--sums", default="",
+                    help="'ordered' and / or 'atomic': time the KG models' "
+                    "captured runs with each way of summing duplicate rows")
     args = ap.parse_args()
     device = cs.phase_device()
     f = cs.own_loop_files()
     models = tuple(args.models.split(","))
+    for model in models:
+        for way in filter(None, args.sums.split(",")):
+            if cs.OWN_LOOP_MODELS[model][0] == "kg":
+                sums(model, f, device, way == "ordered")
     if args.eager_twice:
         for model in models:
             a, b = (cs.own_loop_run(model, f, device, False)
@@ -72,6 +82,29 @@ def main() -> None:
                        f"{traceback.format_exc()}")
     if args.profile:
         profile(f, device, args.profile)
+
+
+def sums(model: str, f: dict, device, ordered: bool) -> None:
+    """A KG model's captured run (phase 36's, without the eager twin) with
+    its duplicate rows summed in index order or by atomics."""
+    from smore_tpu_torch import models
+
+    cls = dict(transe=models.TransE, rotate=models.RotatE,
+               complex=models.ComplEx)[model]
+    own = cls._ordered_sums
+    cls._ordered_sums = ordered
+    try:
+        r = cs.own_loop_run(model, f, device, True)
+    finally:
+        cls._ordered_sums = own
+    c = r["calls"]
+    way = "in index order" if ordered else "by index_add_'s atomics"
+    cs.log(f"{model}, duplicate rows summed {way}: captured "
+           f"{r['rate']:.1f} steps/s, the replays alone "
+           f"{r['replay_rate']:.1f} steps/s (the eager first call "
+           f"{1e3 * c.first_call_s:.1f} ms, {len(c.nodes)} capture(s) "
+           f"{1e3 * c.capture_s:.1f} ms; host {r['host_ms']:.3f} ms a "
+           f"replay; graph nodes {r['nodes']}) [{cs._card()}]")
 
 
 def profile(f: dict, device, out_dir: str) -> None:

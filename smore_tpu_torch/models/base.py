@@ -193,27 +193,24 @@ class CallGraph:
     generator registered with it: each replay draws the numbers the eager
     call would have drawn next and advances the generator past them. The
     captured graph is kept (``keep_graph``) so that its nodes can be
-    counted (``kernel_launches``, ``node_count``)."""
+    counted (``kernel_launches``, and the count ``capture`` returns)."""
 
     def __init__(self, gen: torch.Generator):
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.graph.register_generator_state(gen)
 
-    def capture(self, run: Callable[[], None]) -> None:
+    def capture(self, run: Callable[[], None]) -> int:
         """Record ``run``'s work on the card and instantiate it; nothing
-        runs."""
+        runs. Returns the graph's nodes: kernels, memsets and copies."""
         with torch.cuda.graph(self.graph):
             run()
         self.graph.instantiate()
+        return launches.node_count(self.graph.raw_cuda_graph())
 
     def kernel_launches(self) -> Dict[str, int]:
         """The launches of each kernel the graph holds, by kernel name, read
         from its nodes."""
         return launches.in_graph(self.graph.raw_cuda_graph())
-
-    def node_count(self) -> int:
-        """Every node of the graph: kernels, memsets and copies."""
-        return launches.node_count(self.graph.raw_cuda_graph())
 
     def replay(self) -> None:
         self.graph.replay()
@@ -273,21 +270,22 @@ class CapturedCalls:
     launched while it was captured (``ops.launches``). A capture that
     fails raises with CUDA's message; nothing falls back.
 
-    ``calls`` and ``replays`` count; ``graphs`` holds the graph of each
-    kind (after ``close()`` too, for its node count: an owner that may sit
-    in a reference cycle drops them, since a graph that the cyclic
-    collector frees during another capture invalidates that capture). The
-    seconds split into ``first_call_s`` (the eager first call, to its end
-    on the card), ``capture_s`` (recording, instantiating and counting
-    every graph), ``replay_s`` (the rest from the first capture on, to the
-    end on the card: the replays and what the host does between them)
-    and, within that, ``replay_host_s`` (the host's time issuing the
-    replays)."""
+    ``calls`` and ``replays`` count; ``nodes`` holds the node count of
+    each kind's graph. ``graphs`` holds the graphs themselves until
+    ``close()`` drops them: an owner may sit in a reference cycle, and a
+    graph that the cyclic collector frees during another capture
+    invalidates that capture. The seconds split into ``first_call_s``
+    (the eager first call, to its end on the card), ``capture_s``
+    (recording, instantiating and counting every graph), ``replay_s``
+    (the rest from the first capture on, to the end on the card: the
+    replays and what the host does between them) and, within that,
+    ``replay_host_s`` (the host's time issuing the replays)."""
 
     def __init__(self, gen: Optional[torch.Generator],
                  device: torch.device, captured: bool):
         self.gen, self.device, self.captured = gen, device, captured
         self.graphs: Dict[object, CallGraph] = {}
+        self.nodes: Dict[object, int] = {}
         self._credit: Dict[object, launches.Credit] = {}
         self.calls = self.replays = 0
         self.first_call_s = self.capture_s = self.replay_s = 0.0
@@ -310,7 +308,7 @@ class CapturedCalls:
                     self._t_capture = t
                 graph = CallGraph(self.gen)
                 before = launches.read()
-                graph.capture(run)
+                self.nodes[kind] = graph.capture(run)
                 self._credit[kind] = launches.recorded(
                     before, graph.kernel_launches())
                 self.graphs[kind] = graph
@@ -325,9 +323,11 @@ class CapturedCalls:
     def close(self) -> None:
         """Wait for the card (the graphs, their memory pools and the
         buffers may go with the caller's frame, also when a call or a
-        checkpoint raised) and close the split of the seconds."""
+        checkpoint raised), drop the graphs and close the split of the
+        seconds."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self.graphs.clear()
         if self._t_capture is not None:
             self.replay_s = (time.perf_counter() - self._t_capture
                              - self.capture_s)
@@ -690,11 +690,6 @@ class TrainDriver:
                     self._progress(loss, done, done0, steps_total, t0)
         finally:
             self.loop.close()
-            # a TrainDriver sits in a reference cycle with its model (the
-            # step's closures), which the cyclic collector may free while
-            # another call is being captured, and CUDA invalidates a capture
-            # in which a graph is destroyed: the graphs go with the train()
-            self.loop.graphs.clear()
         return done
 
     def _row_shard(self, t: torch.Tensor, rank: int, world: int) -> RowShard:

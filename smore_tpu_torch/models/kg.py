@@ -77,8 +77,9 @@ def _add_rows(table: torch.Tensor, idx: torch.Tensor, delta: torch.Tensor,
     """``table[idx] += delta`` in place. ``index_add_`` sums duplicate rows
     in index order on the CPU, with atomics in an order that changes from
     run to run on the card; ``ordered`` sums them in index order there too
-    (a sorted accumulate, ``index_put_``: deterministic, but ~40% slower a
-    TransE step at FB15k-237's shape)."""
+    (a sorted accumulate, ``index_put_``: deterministic, but it costs
+    ~43% of TransE's captured steps/s and ~27% of RotatE's at FB15k-237's
+    shape)."""
     if ordered and table.device.type == "cuda":
         table.index_put_((idx,), delta, accumulate=True)
     else:

@@ -30,7 +30,9 @@ from torch_graph_call_cases import (
     SEQ,
     build_own_loop,
     field_graph,
+    optax_adam,
     own_loop_state,
+    seq_edges,
     toy_graph,
 )
 from torch_graph_call_cases import build as build_case
@@ -1427,3 +1429,77 @@ def test_seq_adam_is_capturable_and_resumes_on_the_card(cuda, name,
     assert c.calls == 2 and c.replays == 1
     for k, v in own_loop_state(m2).items():
         assert bool(torch.isfinite(v).all()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", SEQ)
+def test_seq_adam_on_the_card_is_optax_adam(cuda, name, tmp_path):
+    """The card's update (``make_optimizer``: capturable, its bias
+    corrections on the card and eps folded into its step size) against
+    ``optax_adam``, optax.adam's formula (held to optax.adam itself in
+    tests/test_torch_sasrec.py), as test_torch_sasrec.py's
+    test_two_adam_steps holds the CPU's: two steps fed the same gradients
+    (the CPU port's, which that file holds to JAX's), then the port's own
+    step on the card from its own gradients, at atol 1e-3 * alpha. The
+    card's gradients agree with the CPU's at that file's gradient
+    tolerance; an entry that is float noise on either (the key bias, which
+    the softmax cancels: exactly 0 on one, ~1e-10 on the other) makes a
+    step of up to alpha and is left out of the own step's check."""
+    from smore_tpu_torch import models
+
+    alpha, k = 0.01, 3
+    cls = getattr(models, name)
+    path = seq_edges(str(tmp_path / "seq.txt"))
+
+    def model(device):
+        m = cls.load_edge_list(path, seed=0, negative_samples=k,
+                               device=device)
+        m.init(dim=16, max_seq_len=8, num_blocks=2, num_heads=2,
+               dropout=0.0)
+        return m
+
+    m = model("cpu")
+    batch = m.build_sequences()
+    rng = np.random.default_rng(4)
+    negs = rng.integers(0, m.graph.n_vertices, (len(batch), 8, k))
+    us = [rng.uniform(1e-6, 1 - 1e-6, (2, 8, 8)).astype(np.float32)
+          for _ in range(2)]
+
+    def loss(m, device):
+        return m.loss_fn(torch.from_numpy(batch).long().to(device),
+                         negs=torch.from_numpy(negs).long().to(device),
+                         gumbel_u=[torch.from_numpy(u).to(device)
+                                   for u in us])
+
+    params = {n: p.detach().numpy().copy()
+              for n, p in m.net.named_parameters()}
+    loss(m, "cpu").backward()
+    grads = {n: p.grad.numpy() for n, p in m.net.named_parameters()}
+    for steps in (2, 1):
+        mc = model(cuda)
+        mc.net.load_state_dict(m.net.state_dict())
+        opt = mc.make_optimizer(alpha)
+        assert opt.defaults["capturable"]
+        if steps == 2:  # fed the CPU's gradients
+            for _ in range(steps):
+                for n, p in mc.net.named_parameters():
+                    p.grad = torch.from_numpy(grads[n]).to(cuda)
+                opt.step()
+        else:  # the port's own step on the card
+            loss(mc, cuda).backward()
+            own = {n: p.grad.cpu().numpy()
+                   for n, p in mc.net.named_parameters()}
+            for n, g in own.items():
+                np.testing.assert_allclose(g, grads[n], rtol=1e-4,
+                                           atol=1e-6, err_msg=n)
+            opt.step()
+        want = optax_adam(params, grads, alpha, steps)
+        for n, p in mc.net.named_parameters():
+            got = p.detach().cpu().numpy()
+            solid = np.ones(got.shape, bool)
+            if steps == 1:
+                g, gc = np.abs(grads[n]), np.abs(own[n])
+                solid = (np.minimum(g, gc) > 1e3 * 1e-8) | (g + gc == 0)
+            np.testing.assert_allclose(got[solid], want[n][solid], rtol=0,
+                                       atol=1e-3 * alpha,
+                                       err_msg=f"{n}, {steps} step(s)")

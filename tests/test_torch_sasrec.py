@@ -20,6 +20,7 @@ import torch
 
 import smore_tpu.models.sasrec as jsas
 from smore_tpu_torch.models import sasrec as sas
+from torch_graph_call_cases import optax_adam
 
 torch.set_num_threads(1)
 
@@ -180,6 +181,32 @@ def test_two_adam_steps(tmp_path, name, monkeypatch):
         np.testing.assert_allclose(p.detach()[solid].numpy(),
                                    want1[k].detach()[solid].numpy(), rtol=0,
                                    atol=1e-3 * ALPHA, err_msg=k)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_numpy_adam_is_optax_adam(tmp_path, name, monkeypatch):
+    """``optax_adam``, the reference the card's optimiser is held to in
+    tests/test_torch_gpu.py, against optax.adam on the JAX parameters and
+    gradients, two steps: elementwise float32 in either, so within a few
+    float32 ulps of the parameters."""
+    jm, m = _pair(_edges(tmp_path / "e.txt", 3), name)
+    batch = jm.build_sequences()
+    negs, us = _draws(jm, batch, seed=4)
+    _, gj = _jax_value_and_grad(jm, jm.params, batch, negs, us, monkeypatch)
+    tx = optax.adam(ALPHA)
+    params, opt_state = jm.params, tx.init(jm.params)
+    for _ in range(2):
+        upd, opt_state = tx.update(gj, opt_state)
+        params = optax.apply_updates(params, upd)
+    want = _as_port(m, params)
+    got = optax_adam({k: v.detach().numpy()
+                      for k, v in _as_port(m, jm.params).items()},
+                     {k: v.detach().numpy()
+                      for k, v in _as_port(m, gj).items()}, ALPHA, 2)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got[k], v.detach().numpy(), rtol=0,
+                                   atol=1e-7, err_msg=k)
 
 
 @pytest.mark.parametrize("name", MODELS)

@@ -225,3 +225,25 @@ def own_loop_state(m) -> dict:
     if hasattr(m, "net"):
         return dict(m.net.state_dict())
     return dict(m.state)
+
+
+def optax_adam(params: dict, grads: dict, alpha: float, steps: int) -> dict:
+    """``optax.adam(alpha)`` (b1 0.9, b2 0.999, eps 1e-8) in float32 numpy:
+    ``params`` after ``steps`` updates that each take the same ``grads``
+    ({name: array} both). Held to optax.adam itself in
+    tests/test_torch_sasrec.py, so that the card's optimiser can be held to
+    it where JAX is not installed."""
+    f, b1, b2 = np.float32, 0.9, 0.999
+    out = {}
+    for k, p in params.items():
+        p, g = np.asarray(p, f), np.asarray(grads[k], f)
+        mu, nu = np.zeros_like(p), np.zeros_like(p)
+        for t in range(1, steps + 1):
+            mu = f(1 - b1) * g + f(b1) * mu
+            nu = f(1 - b2) * (g * g) + f(b2) * nu
+            # the bias corrections in float32, as optax computes them
+            c1, c2 = f(1) - f(b1) ** f(t), f(1) - f(b2) ** f(t)
+            upd = (mu / c1) / (np.sqrt(nu / c2) + f(1e-8))
+            p = p + upd * f(-alpha)
+        out[k] = p
+    return out
