@@ -174,18 +174,27 @@ Phases (any failure exits non-zero; there is no CPU path):
      launched once an epoch; the forward-only recall@10 printed beside its
      JAX record; the wall split
  33. multi-device modes on the card, LINE o2 on the 50k graph: (a) a
-     one-rank NCCL group in this process, 4M samples each of "dp" and
+     one-rank NCCL group in this process, 16M samples each of "dp" and
      "rows" (unbanded, use_pallas=True: K1 launched) and "hogwild"
-     (banded=True: the multiblock route, K4 launched), finite tables, each
-     beside a single-device run; (b) two ranks sharing the card over gloo
-     (NCCL refuses two ranks on one device), child processes of this
-     script whose exit codes are checked: "rows" at 8M, its community AUC
+     (banded=True: the multiblock route, K4 launched), each trained from
+     one seed eagerly (capture=False) and captured (the first call eager,
+     every later call one replay of one CUDA graph that holds the call's
+     collectives): the captured tables within rtol 1e-4 / atol 1e-5 of
+     the eager ones, equal generator states, the same collectives' calls
+     and bytes and the same launches, at least 2 replays; samples/s of
+     both and their ratio, the captured run's split (the eager first call,
+     the capture, the replays) and its graph's nodes, each mode beside a
+     single-device run; (b) two ranks sharing the card over gloo (NCCL
+     refuses two ranks on one device; eager, since gloo's collectives
+     cannot be captured), child processes of this script whose exit codes
+     are checked: "rows" at 8M, its community AUC
      within 0.005 of the single-device run at the same seed and budget;
      "dp" at 40M in all (each rank's batch 16384, so a merged step applies
      32768 samples), AUC >= 0.99; "hogwild" (banded=True) at 40M in all,
      AUC within 0.01 of a single-device banded run, K4 launched on each
      rank. Each mode prints its samples/s, its collectives' calls, bytes
-     and seconds, and the backend
+     and seconds (an eager run's; a captured run's are not timed), and
+     the backend
  34. JODIE at full width (run after phase 30): both arms on phase 29's set
      at dim 128, gated at their dim-128 JAX records less 0.03
      (SEQ_RECORDS_128); then the JODIE paper's Wikipedia shape
@@ -225,7 +234,8 @@ Phases (any failure exits non-zero; there is no CPU path):
      parameters (SEQ_RTOL, SEQ_ATOL) against the eager ones; no kernel
      launched
 Every path that trains through TrainDriver without a mesh (phases 8-28
-and 33's single-device runs) and every model with a loop of its own but
+and 33's single-device runs) or on an NCCL mesh (33 (a)'s captured arms)
+and every model with a loop of its own but
 JODIE and FastRP (the KG models, HAN, the SASRec family; phases 26, 27,
 31) trains on captured calls: the first call of a train() eager, the
 others replays of CUDA graphs; a kernel's launch
@@ -2598,9 +2608,12 @@ def phase_seq_cli(f: dict) -> None:
 
 
 # ------------------------------------------ multi-device modes (phase 33)
-# (a) one NCCL rank in this process at MESH_ONE_MILLIONS a mode; (b) two
-# gloo ranks sharing the card, as child processes of this script
-MESH_ONE_MILLIONS = 4
+# (a) one NCCL rank in this process at MESH_ONE_MILLIONS a mode, eager and
+# captured; (b) two gloo ranks sharing the card, as child processes of this
+# script. A "dp" call is 128 steps of 32,768 samples and a "rows" call 4 of
+# 32 x 32,768, so 16M is 4 calls: the eager first call, the capture and 3
+# replays ("hogwild" calls are 262,144 samples: 62 calls)
+MESH_ONE_MILLIONS = 16
 MESH_RANKS = 2
 MESH_RUNS = (  # (mode, millions in all, LINE o2 train kwargs, kernel)
     # rows: one logical stream, so the single-device run's AUC less atomics'
@@ -2629,8 +2642,9 @@ def _mesh_run(m, millions: float, counter: str, warm: bool = True,
               **kw) -> dict:
     """With ``warm``, 1M samples (tables, stream, warm-up) and fresh tables
     first; then ``m.train`` with every launch count set to 0 just before
-    it. Returns its samples/s, collectives and launches of ``counter``,
-    gated on > 0, and checks that the tables are finite."""
+    it. Returns its samples/s, collectives, launches of ``counter`` (gated
+    on > 0), calls and replays, the split of a captured run's seconds and
+    its graph's nodes; checks that the tables are finite."""
     from smore_tpu_torch.parallel.mesh import full_table
 
     if warm:
@@ -2646,21 +2660,31 @@ def _mesh_run(m, millions: float, counter: str, warm: bool = True,
     dt = time.perf_counter() - t0
     d = m.last_driver
     launches = counters[counter].launches
-    require(launches > 0, f"{kw.get('sharding', 'single')}: the path never "
-            f"launched {counter}")
+    mode = d.sharding if kw.get("mesh") is not None else "single device"
+    require(launches > 0, f"{mode}: the path never launched {counter}")
     for k, t in m.state.items():
         require(bool(torch.isfinite(full_table(t)).all()),
                 f"non-finite {k} table")
     return dict(rate=d.executed_samples / dt, seconds=dt,
                 executed=d.executed_samples, launches=launches,
                 comm_s=d.comm.seconds, comm_calls=d.comm.calls,
-                comm_bytes=d.comm.bytes)
+                comm_bytes=d.comm.bytes, calls=d.calls, replays=d.replays,
+                first_call_s=d.first_call_s, capture_s=d.capture_s,
+                replay_s=d.replay_s, replay_host_s=d.replay_host_s,
+                nodes=sum(d.loop.nodes.values()),
+                per_call=d.steps_per_call * d.samples_per_step)
 
 
 def _mesh_line(r: dict) -> str:
+    """A mesh run's samples/s, collectives and launches. The collectives'
+    seconds: an eager run's host seconds inside them, the device
+    synchronised before and after each; a captured run's collectives run
+    inside CUDA graphs, where nothing can be timed: "not timed"."""
+    secs = ("not timed (captured)" if r["comm_s"] is None
+            else f"{r['comm_s']:.3f} s")
     return (f"{r['executed']:,} samples in {r['seconds']:.3f} s = "
             f"{r['rate']:,.0f} samples/s; collectives {r['comm_calls']} "
-            f"calls, {r['comm_bytes'] / 1e9:.3f} GB, {r['comm_s']:.3f} s; "
+            f"calls, {r['comm_bytes'] / 1e9:.3f} GB, {secs}; "
             f"launches {r['launches']}")
 
 
@@ -2703,9 +2727,11 @@ def mesh_rank_main(rank: int, world: int, port: int) -> None:
 def phase_mesh(g, device) -> None:
     """(a) LINE o2 on the 50k graph under dp and rows (unbanded,
     use_pallas=True: K1) and hogwild (banded=True: the multiblock route,
-    K4) on a one-rank NCCL mesh in this process, each beside a single-device
-    run; (b) MESH_RUNS on two gloo ranks sharing the card, child processes,
-    gated against single-device runs in this process."""
+    K4) on a one-rank NCCL mesh in this process, each eager and captured
+    from one seed and budget and gated captured against eager, beside a
+    single-device run; (b) MESH_RUNS on two gloo ranks sharing the card
+    (eager: gloo's collectives cannot be captured), child processes, gated
+    against single-device runs in this process."""
     card = _card()
     # the ranks of (b) start now: their imports and graph load overlap (a)
     port = _free_port()
@@ -2747,7 +2773,8 @@ def _mesh_phases(g, device, card, procs):
     try:
         mesh = make_mesh()
         log(f"(a) one rank, backend {backend_of(mesh)}, "
-            f"{MESH_ONE_MILLIONS}M samples a mode [{card}]")
+            f"{MESH_ONE_MILLIONS}M samples a mode, eager then captured from "
+            f"one seed [{card}]")
         for mode, m, kw, counter, one in (
             ("dp", m_u, unbanded, "sgns_shared_grads", one_u),
             ("rows", m_u, dict(unbanded, sharding="rows"),
@@ -2755,11 +2782,7 @@ def _mesh_phases(g, device, card, procs):
             ("hogwild", m_b, dict(banded=True), "sgns_banded_multiblock",
              one_b),
         ):
-            r = _mesh_run(m, MESH_ONE_MILLIONS, counter, mesh=mesh, **kw)
-            require(m.last_driver.sharding == mode,
-                    f"{mode}: TrainDriver ran {m.last_driver.sharding}")
-            log(f"  {mode}: {_mesh_line(r)} (one device, no mesh: "
-                f"{one['rate']:,.0f} samples/s)")
+            _mesh_captured_vs_eager(m, mode, mesh, kw, counter, one)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -2787,14 +2810,77 @@ def _mesh_phases(g, device, card, procs):
     return ranks, ref
 
 
+def _mesh_captured_vs_eager(m, mode: str, mesh, kw: dict, counter: str,
+                            one: dict) -> None:
+    """Phase 33 (a) for one mode: ``m`` trained on ``mesh`` eagerly
+    (capture=False) and captured (the first call eager, every later call
+    one replay of one CUDA graph holding the call's collectives), each
+    after 1M of warm-up on fresh tables from one seed: the captured tables
+    within RTOL / ATOL of the eager ones, equal generator states, the same
+    collectives' calls and bytes and the same launches, at least 2
+    replays; samples/s of both, the captured run's split and nodes."""
+    from smore_tpu_torch.parallel.mesh import full_table
+
+    runs = {}
+    for capture in (False, True):
+        m.capture = capture
+        r = _mesh_run(m, MESH_ONE_MILLIONS, counter, mesh=mesh, **kw)
+        d = m.last_driver
+        require(d.sharding == mode, f"{mode}: TrainDriver ran {d.sharding}")
+        r["gen"] = d.gen.get_state()
+        r["tables"] = {k: full_table(t).clone() for k, t in m.state.items()}
+        runs["captured" if capture else "eager"] = r
+    m.capture = True
+    e, c = runs["eager"], runs["captured"]
+    log(f"  {mode} eager: {_mesh_line(e)}; {e['calls']} calls")
+    log(f"  {mode} captured: {_mesh_line(c)}; {c['calls']} calls of "
+        f"{c['per_call']:,} samples ({c['replays']} replays)")
+    steady = c["replays"] * c["per_call"] / max(c["replay_s"], 1e-9)
+    log(f"  {mode} captured: the eager first call "
+        f"{1e3 * c['first_call_s']:.1f} ms, the capture "
+        f"{1e3 * c['capture_s']:.1f} ms ({c['nodes']} graph nodes), "
+        f"{c['replays']} replays {1e3 * c['replay_s']:.1f} ms = "
+        f"{steady:,.0f} samples/s in the steady state, host ms a replay "
+        f"{1e3 * c['replay_host_s'] / max(c['replays'], 1):.3f}")
+    log(f"  {mode}: samples/s eager {e['rate']:,.0f}, captured "
+        f"{c['rate']:,.0f} ({c['rate'] / e['rate']:.2f}x); one device, no "
+        f"mesh: {one['rate']:,.0f}")
+    require(e["replays"] == 0 and c["replays"] >= 2
+            and c["replays"] == c["calls"] - 1,
+            f"{mode}: {c['replays']} replays of {c['calls']} calls captured, "
+            f"{e['replays']} eager")
+    require(e["comm_s"] is not None and c["comm_s"] is None,
+            f"{mode}: collective seconds eager {e['comm_s']}, captured "
+            f"{c['comm_s']}")
+    require((c["comm_calls"], c["comm_bytes"])
+            == (e["comm_calls"], e["comm_bytes"]),
+            f"{mode}: collectives captured {c['comm_calls']} calls "
+            f"{c['comm_bytes']} B, eager {e['comm_calls']} {e['comm_bytes']}")
+    require(c["launches"] == e["launches"],
+            f"{mode}: {counter} launches captured {c['launches']}, eager "
+            f"{e['launches']}")
+    require(torch.equal(c["gen"], e["gen"]),
+            f"{mode}: the generators' states differ")
+    for k, v in e["tables"].items():
+        got = c["tables"][k]
+        err = float((got - v).abs().max())
+        log(f"  {mode} {k} table, captured against eager: max |diff| "
+            f"{err:.3e} (rtol {RTOL}, atol {ATOL})")
+        require(bool(torch.allclose(got, v, rtol=RTOL, atol=ATOL)),
+                f"{mode}: captured {k} table off the eager one by {err:.3e}")
+
+
 def _mesh_report(ranks: list, ref: dict, card: str) -> None:
     """(b)'s gates and prints."""
     log(f"(b) {MESH_RANKS} ranks sharing the card, backend "
-        f"{ranks[0]['backend']} [{card}]")
+        f"{ranks[0]['backend']}: eager (gloo's collectives cannot be "
+        f"captured) [{card}]")
     for mode, millions, kw, counter in MESH_RUNS:
         got = ranks[0][mode]
         require(got["sharding"] == mode,
                 f"{mode}: TrainDriver ran {got['sharding']}")
+        require(all(r[mode]["replays"] == 0 for r in ranks),
+                f"{mode}: a gloo rank replayed a captured call")
         for r in ranks[1:]:
             log(f"  {mode} rank {r['rank']}: {_mesh_line(r[mode])}")
         auc = got["auc"]

@@ -7,8 +7,10 @@ call, its "dp", "hogwild" and "rows" modes on a mesh and checkpoint and
 resume, ``PairModelBase``). The JAX driver ran ``steps_per_call`` steps as
 one jitted ``lax.scan`` with the tables donated; here one call of those
 steps is a Python function of static buffers (the tables, the call's
-alphas, its loss) that, on the card without a mesh, is captured once as a
-CUDA graph and replayed for every later call (``TrainDriver``). The update
+alphas, its loss) that, on the card, is captured once as a CUDA graph and
+replayed for every later call (``TrainDriver``); on a mesh the graph holds
+the call's collectives too, where the group's backend (NCCL) can capture
+them. The update
 is hand-derived SGD, so no autograd is involved. The models that run
 their own epoch loops (the JAX package jitted their step) capture their
 calls the same way (``CapturedCalls``, ``OwnLoop``).
@@ -31,6 +33,7 @@ from smore_tpu_torch.ops import launches
 from smore_tpu_torch.parallel.mesh import (
     CommStats,
     RowShard,
+    backend_of,
     full_table,
     gather_rows,
     is_dtensor,
@@ -193,16 +196,19 @@ class CallGraph:
     generator registered with it: each replay draws the numbers the eager
     call would have drawn next and advances the generator past them. The
     captured graph is kept (``keep_graph``) so that its nodes can be
-    counted (``kernel_launches``, and the count ``capture`` returns)."""
+    counted (``kernel_launches``, and the count ``capture`` returns).
+    ``error_mode`` is ``torch.cuda.graph``'s ``capture_error_mode``."""
 
-    def __init__(self, gen: torch.Generator):
+    def __init__(self, gen: torch.Generator, error_mode: str = "global"):
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         self.graph.register_generator_state(gen)
+        self.error_mode = error_mode
 
     def capture(self, run: Callable[[], None]) -> int:
         """Record ``run``'s work on the card and instantiate it; nothing
         runs. Returns the graph's nodes: kernels, memsets and copies."""
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph,
+                              capture_error_mode=self.error_mode):
             run()
         self.graph.instantiate()
         return launches.node_count(self.graph.raw_cuda_graph())
@@ -256,19 +262,28 @@ class CapturedCalls:
     """The calls of one ``train()``, each a function of static buffers: the
     counterpart of the JAX package's compiled programs, one dispatch a
     call. With ``captured`` False every call runs eagerly (the CPU,
-    ``capture=False``, a mesh). On the card the first call runs eagerly on
-    a side stream (``_warm_up``: it trains, and builds what is built at
-    first use: kernels, the autograd engine's state, an optimiser's
-    moments); a later call of a ``kind`` not captured yet is captured into
-    a ``CallGraph`` of its own (the training generator registered with it,
-    so a replay draws what the eager call would) and replayed, and so is
-    every later call of that kind: one replay a call. ``kind`` names what a
+    ``capture=False``, a mesh whose backend cannot capture collectives:
+    gloo). On the card the first call runs eagerly on a side stream
+    (``_warm_up``: it trains, and builds what is built at first use:
+    kernels, the autograd engine's state, an optimiser's moments, NCCL's
+    communicator); a later call of a ``kind`` not captured yet is captured
+    into a ``CallGraph`` of its own (the training generator registered
+    with it, so a replay draws what the eager call would) and replayed, and
+    so is every later call of that kind: one replay a call. ``kind`` names what a
     call's graph holds (a call of another length, or one that also starts
     or ends an epoch, is another kind). The graph replays no Python, so
     each kernel's launch counter is credited, on every replay, the
     launches its graph's nodes hold, which must equal what the wrappers
-    launched while it was captured (``ops.launches``). A capture that
-    fails raises with CUDA's message; nothing falls back.
+    launched while it was captured (``ops.launches``).
+
+    ``comm``, given when the calls issue collectives (a mesh), is credited
+    the same way the collectives' calls and bytes that a capture tallied
+    (``parallel.mesh.CommStats``). Such a call is captured with
+    ``capture_error_mode="thread_local"``: NCCL's watchdog thread queries
+    the events of earlier collectives (the eager first call's) at any
+    time, and under the default "global" mode such a query from another
+    thread invalidates the capture. A capture that fails raises with
+    CUDA's or NCCL's message; nothing falls back.
 
     ``calls`` and ``replays`` count; ``nodes`` holds the node count of
     each kind's graph. ``graphs`` holds the graphs themselves until
@@ -282,11 +297,14 @@ class CapturedCalls:
     ``replay_host_s`` (the host's time issuing the replays)."""
 
     def __init__(self, gen: Optional[torch.Generator],
-                 device: torch.device, captured: bool):
+                 device: torch.device, captured: bool,
+                 comm: Optional[CommStats] = None):
         self.gen, self.device, self.captured = gen, device, captured
+        self.comm = comm
         self.graphs: Dict[object, CallGraph] = {}
         self.nodes: Dict[object, int] = {}
         self._credit: Dict[object, launches.Credit] = {}
+        self._comm_credit: Dict[object, Tuple[int, int]] = {}
         self.calls = self.replays = 0
         self.first_call_s = self.capture_s = self.replay_s = 0.0
         self.replay_host_s = 0.0
@@ -306,16 +324,23 @@ class CapturedCalls:
                 t = time.perf_counter()
                 if self._t_capture is None:
                     self._t_capture = t
-                graph = CallGraph(self.gen)
+                graph = CallGraph(self.gen, "global" if self.comm is None
+                                  else "thread_local")
                 before = launches.read()
+                if self.comm is not None:
+                    comm_before = self.comm.read()
                 self.nodes[kind] = graph.capture(run)
                 self._credit[kind] = launches.recorded(
                     before, graph.kernel_launches())
+                if self.comm is not None:
+                    self._comm_credit[kind] = self.comm.recorded(comm_before)
                 self.graphs[kind] = graph
                 self.capture_s += time.perf_counter() - t
             t = time.perf_counter()
             graph.replay()
             launches.credit(self._credit[kind])
+            if self.comm is not None:
+                self.comm.credit(self._comm_credit[kind])
             self.replay_host_s += time.perf_counter() - t
             self.replays += 1
         self.calls += 1
@@ -386,23 +411,34 @@ class TrainDriver:
       is the single-device run's. The tables come back as ``Shard(0)``
       DTensors; tables that arrive as such train this way without ``mesh``.
 
-    The collectives' count, bytes and seconds are ``comm``.
+    The collectives' count, bytes and seconds are ``comm``
+    (``parallel.mesh.CommStats``: the seconds of eager collectives; None,
+    not timed, once a call's collectives were captured).
 
-    Without a mesh a call of ``steps_per_call`` steps is ``_call``: S steps
-    on static buffers (the tables of ``state``, the call's (S,) or (S, M)
-    ``alphas``, a () ``loss``, the mean of the steps' losses as JAX's
-    ``jnp.mean(losses)``). Each call's alphas are copied in from pinned host
-    memory. The calls are ``CapturedCalls`` (``loop``): on the card
-    (``capture`` True) the first call of a ``train()`` runs eagerly on a
-    side stream, the second is captured into one CUDA graph and replayed,
-    and so is every later call: one replay a call. The tables are the
-    graph's own buffers (the JAX call donated them): the steps update most
-    in place, and a table a step returns anew is copied back once a call
-    (``copy_back_bytes``). ``capture=False`` runs every call eagerly (for a
-    comparison on the card), as the CPU does and the mesh modes do (their
-    collectives run on the host). ``calls`` counts the last ``train()``'s
-    calls; ``replays`` and the split of its seconds (``first_call_s``,
-    ``capture_s``, ``replay_s``, ``replay_host_s``) are its ``loop``'s.
+    A call of ``steps_per_call`` steps is ``_call``: S steps on static
+    buffers (the tables of ``state``, the call's (S,) or (S, M) ``alphas``,
+    a () ``loss``, the mean of the steps' losses as JAX's
+    ``jnp.mean(losses)``), with the mode's merges on a mesh ("dp" the
+    snapshot, the delta, its ``all_reduce`` and the add every step,
+    "hogwild" once a call, "rows" the ``RowShard`` gathers' ``all_reduce``
+    in the steps; the loss's mean over the "dp" or "hogwild" ranks, as
+    JAX's ``pmean``, when ``train`` prints). Each call's alphas are copied
+    in from pinned host memory. The calls are ``CapturedCalls``
+    (``loop``): on the card (``capture`` True), without a mesh or on a
+    mesh whose backend is NCCL, the first call of a ``train()`` runs
+    eagerly on a side stream (building NCCL's communicator, which a capture
+    cannot), the second is captured into one CUDA graph (with its
+    collectives) and replayed, and so is every later call: one replay a
+    call. The tables are the graph's own buffers (the JAX call donated
+    them): the steps update most in place, and a table a step returns anew
+    is copied back once a call (``copy_back_bytes``; a ``RowShard``'s
+    ``.local``); the merges' snapshot is built in the eager first call and
+    reused by every replay. ``capture=False`` runs every call eagerly (for
+    a comparison on the card), as the CPU does and a gloo mesh does (gloo's
+    collectives cannot be captured). ``calls`` counts the last
+    ``train()``'s calls; ``replays`` and the split of its seconds
+    (``first_call_s``, ``capture_s``, ``replay_s``, ``replay_host_s``) are
+    its ``loop``'s. Checkpoints gather eagerly between calls.
 
     checkpoint_path: the training state (tables, the generator's state and
     the step counter) is saved there every ``checkpoint_every`` calls of
@@ -464,6 +500,7 @@ class TrainDriver:
         self.calls = 0
         self.loop = CapturedCalls(None, self.device, False)
         self.copy_back_bytes = 0
+        self._old: Optional[State] = None  # the merges' snapshot
 
     # the last train()'s replays and the split of its seconds
     replays = property(lambda self: self.loop.replays)
@@ -564,14 +601,14 @@ class TrainDriver:
         done0 = done
         t0 = time.time()
         self.calls = 0
-        self.loop = CapturedCalls(gen, self.device,
-                                  mode is None and self._captures())
-        if mode is None:
-            done = self._train_calls(state, gen, done, steps_total,
-                                     inv_total, verbose, t0)
-        else:
-            state, done = self._train_mesh(state, gen, done, steps_total,
-                                           inv_total, verbose, show, t0)
+        # the loss's mean over the ranks that train copies, when printed
+        self._pmean = show and mode in ("dp", "hogwild")
+        captured = ((mode is None or backend_of(mesh) == "nccl")
+                    and self._captures())
+        self.loop = CapturedCalls(gen, self.device, captured,
+                                  None if mode is None else self.comm)
+        done = self._train_calls(state, gen, done, steps_total, inv_total,
+                                 verbose, t0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         # the steps this call ran (not those restored from a checkpoint);
@@ -587,42 +624,6 @@ class TrainDriver:
                      if isinstance(v, RowShard) else v
                      for k, v in state.items()}
         return state
-
-    def _train_mesh(self, state: State, gen: torch.Generator, done: int,
-                    steps_total: int, inv_total: float, verbose: bool,
-                    show: bool, t0: float):
-        """The calls of a train() on a mesh, eagerly ("dp": a merge every
-        step, "hogwild": every call, "rows": row-sharded tables). Returns
-        (state, steps done)."""
-        S, M, mode = self.steps_per_call, self.micro_steps, self._mode
-        done0, old = done, None
-        while done < steps_total:
-            # one host->device copy of the rates per call of S steps
-            alphas = torch.from_numpy(alpha_schedule(
-                done, S, M, self.alpha, inv_total)).to(self.device)
-            loss = torch.zeros((), dtype=torch.float32, device=self.device)
-            if mode == "hogwild":
-                old = _snapshot(state, old)
-            for i in range(S):
-                if mode == "dp":
-                    old = _snapshot(state, old)
-                state, step_loss = self.step_fn(state, self.ctx, gen,
-                                                alphas[i])
-                if mode == "dp":
-                    state = self._merge(old, state)
-                loss += step_loss
-            if mode == "hogwild":
-                state = self._merge(old, state)
-            loss /= S
-            done += S
-            self.calls += 1
-            self._checkpoint(state, gen, done, steps_total)
-            if show and mode in ("dp", "hogwild"):
-                self.comm.all_reduce(loss, self._group)
-                loss /= self._world
-            if verbose:
-                self._progress(loss, done, done0, steps_total, t0)
-        return state, done
 
     def _checkpoint(self, state: State, gen: torch.Generator, done: int,
                     steps_total: int) -> None:
@@ -640,34 +641,48 @@ class TrainDriver:
               f"samples/sec: {rate:,.0f}", end="\r", flush=True)
 
     def _captures(self) -> bool:
-        """Whether the calls of a train() without a mesh are captured."""
+        """Whether this driver captures its calls: ``capture`` on the card
+        (``train`` also needs an NCCL group on a mesh)."""
         return self.capture and self.device.type == "cuda"
 
     def _call(self, state: State, gen: torch.Generator,
               alphas: torch.Tensor, loss: torch.Tensor) -> None:
         """One call: ``steps_per_call`` steps on the tables of ``state``
-        with the rates ``alphas``, the tables left in ``state``'s tensors
-        (a table a step returned anew is copied back), the mean of the
-        steps' losses written to ``loss``."""
-        cur, losses = dict(state), []
+        with the rates ``alphas`` and the mesh mode's merges, the tables
+        left in ``state``'s tensors (a table a step returned anew is copied
+        back), the mean of the steps' losses written to ``loss``."""
+        mode, cur, losses = self._mode, dict(state), []
+        if mode == "hogwild":
+            self._old = _snapshot(cur, self._old)
         for i in range(self.steps_per_call):
+            if mode == "dp":
+                self._old = _snapshot(cur, self._old)
             cur, step_loss = self.step_fn(cur, self.ctx, gen, alphas[i])
+            if mode == "dp":
+                cur = self._merge(self._old, cur)
             losses.append(step_loss)
+        if mode == "hogwild":
+            cur = self._merge(self._old, cur)
         nbytes = 0
         for k, t in state.items():
             v = cur[k]
+            if isinstance(t, RowShard):
+                t, v = t.local, v.local
             if v is not t and v.data_ptr() != t.data_ptr():
                 t.copy_(v)
                 nbytes += t.numel() * t.element_size()
         self.copy_back_bytes = nbytes
         loss.copy_(torch.stack(losses).mean())
+        if self._pmean:
+            self.comm.all_reduce(loss, self._group)
+            loss /= self._world
 
     def _train_calls(self, state: State, gen: torch.Generator, done: int,
                      steps_total: int, inv_total: float, verbose: bool,
                      t0: float) -> int:
-        """The calls of a train() without a mesh (eager, or the first
-        eager and the rest replays of one captured call; see the class
-        docstring). Returns the steps done."""
+        """The calls of a train() (eager, or the first eager and the rest
+        replays of one captured call; see the class docstring). Returns the
+        steps done."""
         S, M, dev = self.steps_per_call, self.micro_steps, self.device
         shape = (S, M) if M > 1 else (S,)
         alphas = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -690,6 +705,7 @@ class TrainDriver:
                     self._progress(loss, done, done0, steps_total, t0)
         finally:
             self.loop.close()
+            self._old = None
         return done
 
     def _row_shard(self, t: torch.Tensor, rank: int, world: int) -> RowShard:

@@ -19,7 +19,10 @@ The backend is chosen once, in ``init_distributed``: NCCL when every rank
 has a card of its own, gloo when ranks share a card or run on the CPU
 (NCCL refuses two ranks on one device). Gloo reduces CUDA tensors but does
 not gather them (``all_gather`` of CUDA tensors over gloo crashed on the
-H100 machine), so whole-table gathers go through the CPU under gloo.
+H100 machine), so whole-table gathers go through the CPU under gloo. NCCL's
+collectives can be captured into a CUDA graph, gloo's cannot: on an NCCL
+group ``TrainDriver`` captures each call with its collectives
+(``CommStats`` counts them), on a gloo group it runs them eagerly.
 """
 
 from __future__ import annotations
@@ -152,23 +155,63 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def _capturing(t: torch.Tensor) -> bool:
+    """Whether the current stream of ``t``'s card is being captured into a
+    CUDA graph (never for a CPU tensor)."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 class CommStats:
-    """The collectives of one training run: count, payload bytes and the
-    host's wall seconds inside them (the device is synchronised before and
-    after each, so the compute queued before a collective is not charged to
-    it)."""
+    """The collectives of one training run: count, payload bytes and
+    seconds.
+
+    An eager collective is timed by the host's clock with the device
+    synchronised before and after it, so the compute queued before it is
+    not charged to it; ``seconds`` sums those times. A collective issued
+    while the current stream is being captured into a CUDA graph is issued
+    with no synchronisation (a capture cannot wait on the device), and its
+    call and bytes are tallied against that graph: ``recorded`` takes them
+    back after the capture, since nothing ran, and ``credit`` adds them on
+    every replay (``models.base.CapturedCalls`` does both), so a captured
+    run counts the calls and bytes an eager one would. They are tallied as
+    issued, not read from the graph's nodes: an in-place ``all_reduce`` on
+    one rank may leave no node at all. Nothing inside a graph can be timed,
+    so once a collective was captured ``seconds`` is None: not timed."""
 
     def __init__(self):
-        self.calls, self.bytes, self.seconds = 0, 0, 0.0
+        self.calls, self.bytes = 0, 0
+        self.seconds: Optional[float] = 0.0
 
     def all_reduce(self, t: torch.Tensor, group=None) -> None:
-        _sync(t)
-        t0 = time.perf_counter()
-        dist.all_reduce(t, group=group)
-        _sync(t)
-        self.seconds += time.perf_counter() - t0
+        if _capturing(t):
+            dist.all_reduce(t, group=group)
+            self.seconds = None
+        else:
+            _sync(t)
+            t0 = time.perf_counter()
+            dist.all_reduce(t, group=group)
+            _sync(t)
+            if self.seconds is not None:
+                self.seconds += time.perf_counter() - t0
         self.calls += 1
         self.bytes += t.numel() * t.element_size()
+
+    def read(self) -> Tuple[int, int]:
+        """(calls, bytes) so far."""
+        return self.calls, self.bytes
+
+    def recorded(self, before: Tuple[int, int]) -> Tuple[int, int]:
+        """After a capture: the calls and bytes tallied since ``before``
+        (``read()``) are taken back, since nothing ran; returns them as the
+        credit of one replay for ``credit``."""
+        calls, nbytes = self.calls - before[0], self.bytes - before[1]
+        self.credit((-calls, -nbytes))
+        return calls, nbytes
+
+    def credit(self, replayed: Tuple[int, int]) -> None:
+        """Add a replay's (calls, bytes)."""
+        self.calls += replayed[0]
+        self.bytes += replayed[1]
 
 
 def gather_rows(local: torch.Tensor, n_rows: int, group=None) -> torch.Tensor:
@@ -255,12 +298,25 @@ class RowShard(torch.Tensor):
 
     def _index_add(self, dim: int, idx: torch.Tensor, src: torch.Tensor,
                    alpha=1):
+        """Add the owned rows' deltas in ``idx`` order, in a form of fixed
+        shape (no boolean index, so that a CUDA graph can capture it). An
+        unowned id adds a zero whose product with ``alpha`` is -0.0 to row
+        ``id % local_rows`` of this shard: x + -0.0 is x for every x, +0.0
+        and -0.0 included, so the rows end bit for bit as the owned adds
+        alone leave them. The unowned ids are spread over the shard's rows
+        because adds that pile onto one row serialise the card's
+        atomics."""
         if dim != 0:
             raise TypeError(f"a row-sharded table adds rows (dim 0), not "
                             f"dim {dim}")
+        n = self.local.shape[0]
+        if n == 0:  # nothing owned, no row to send the rest to
+            return self
         owned = self._owned(idx)
-        self.local.index_add_(0, idx[owned] - self.lo, src[owned],
-                              alpha=alpha)
+        rows = torch.where(owned, idx - self.lo, idx % n)
+        zero = -0.0 if alpha >= 0 else 0.0  # alpha * zero is -0.0
+        src = torch.where(owned.unsqueeze(-1), src, zero)
+        self.local.index_add_(0, rows, src, alpha=alpha)
         return self
 
     @classmethod

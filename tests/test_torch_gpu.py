@@ -1,10 +1,14 @@
-"""The port's CUDA kernels on the card, against their PyTorch twins.
+"""The port's CUDA kernels on the card, against their PyTorch twins, and
+the captured calls (CUDA graphs) against eager ones, the mesh modes' on a
+one-rank NCCL group included.
 
 Needs a CUDA card and nvcc; skipped elsewhere. This file imports neither JAX
 nor smore_tpu, so it also runs where JAX is not installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
+
+import socket
 
 import numpy as np
 import pytest
@@ -25,9 +29,11 @@ from smore_tpu_torch.ops.sgns_banded import (
 from torch_graph_call_cases import CASES as CAPTURED
 from torch_graph_call_cases import (
     LINE_ROUTES,
+    MESH_CASES,
     OWN_LOOP,
     OWN_LOOP_CHUNK,
     SEQ,
+    build_mesh,
     build_own_loop,
     field_graph,
     optax_adam,
@@ -1346,6 +1352,96 @@ def test_a_step_that_syncs_raises_at_capture(cuda):
     assert d.calls == 1 and d.replays == 0
     torch.cuda.synchronize()
     assert float(torch.ones(2, device=cuda).sum()) == 2.0  # the card works
+
+
+# ------------------------------- the mesh modes' calls on NCCL (CUDA graph)
+@pytest.fixture
+def nccl_mesh(cuda):
+    """A one-rank NCCL group in this process on a free port, and its 1-D
+    mesh; the group is destroyed after the test."""
+    import torch.distributed as dist
+
+    from smore_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0, backend="nccl")
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [n for n in sorted(MESH_CASES)
+                                  if n.startswith("line")])
+def test_mesh_captured_calls_match_eager_calls(cuda, nccl_mesh, name,
+                                               tmp_path):
+    """LINE "dp", "rows" and "hogwild" on a one-rank NCCL group, from one
+    seed, trained with every call after the first a replay of one captured
+    CUDA graph that holds the call's collectives, and eagerly
+    (``capture=False``): the tables agree within the kernels' tolerance,
+    the generator states are equal, the collectives' calls and bytes are
+    equal (credited on each replay; not timed), and K1 or K4 was launched
+    as often."""
+    from smore_tpu_torch.ops import launches
+    from smore_tpu_torch.parallel.mesh import full_table
+
+    _, mode, _, kernel = MESH_CASES[name]
+    runs = {}
+    for capture in (True, False):
+        m, kw = build_mesh(name, cuda, str(tmp_path), nccl_mesh)
+        m.capture = capture
+        before = launches.read()
+        m.train(**kw)
+        torch.cuda.synchronize()
+        runs[capture] = (m, m.last_driver, launches.moved(before))
+    (mc, dc, lc), (me, de, le) = runs[True], runs[False]
+    assert dc.sharding == de.sharding == mode
+    assert dc.calls >= 3 and dc.replays == dc.calls - 1, (dc.calls,
+                                                         dc.replays)
+    assert de.replays == 0 and de.calls == dc.calls
+    assert lc == le and lc.get(kernel, 0) > 0, (lc, le)
+    assert (dc.comm.calls, dc.comm.bytes) == (de.comm.calls, de.comm.bytes)
+    assert dc.comm.calls > 0
+    assert dc.comm.seconds is None and de.comm.seconds > 0
+    assert torch.equal(dc.gen.get_state(), de.gen.get_state())
+    for k, v in me.state.items():
+        np.testing.assert_allclose(full_table(mc.state[k]).cpu().numpy(),
+                                   full_table(v).cpu().numpy(), rtol=RTOL,
+                                   atol=ATOL, err_msg=k)
+
+
+@pytest.mark.gpu
+def test_row_shard_add_captured_alone_matches_the_boolean_form(cuda):
+    """``RowShard``'s masked add of a 32,768-id batch into rows 1536:2048
+    of 4,096 (seven ids in eight unowned), captured into a CUDA graph
+    after one eager call and replayed: the shard as the boolean-index form
+    leaves it after two adds."""
+    from smore_tpu_torch.parallel.mesh import CommStats, RowShard
+
+    rng = np.random.default_rng(0)
+    n_rows, lo, rows, B, D = 4096, 1536, 512, 32768, 64
+    local = torch.from_numpy(rng.standard_normal((rows, D)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, n_rows, B)).to(cuda)
+    delta = torch.from_numpy(rng.standard_normal((B, D)).astype(
+        np.float32)).to(cuda)
+    shard = RowShard(local.clone(), n_rows, lo, CommStats())
+    shard.index_add_(0, idx, delta)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        shard.index_add_(0, idx, delta)
+    graph.replay()
+    owned = (idx >= lo) & (idx < lo + rows)
+    want = local.clone()
+    for _ in range(2):
+        want.index_add_(0, idx[owned] - lo, delta[owned])
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(shard.local.cpu().numpy(),
+                               want.cpu().numpy(), rtol=RTOL, atol=ATOL)
 
 
 # ------------------------- the models with loops of their own (CUDA graph)

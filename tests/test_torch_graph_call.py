@@ -15,7 +15,8 @@
 - The captured path's control flow (warm-up, capture, replays) with a
   stand-in graph: checkpoint and resume at a call boundary step-identical;
   each launch counter credited, on every replay, the launches the graph
-  holds, which must equal how far it moved while the call was captured.
+  holds, which must equal how far it moved while the call was captured;
+  the collectives a capture tallied credited on every replay, not timed.
 
 The capture itself is held on the card (tests/test_torch_gpu.py, marker
 ``gpu``, and chip_smoke.py).
@@ -26,7 +27,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from smore_tpu.models.base import TrainDriver as JDriver
 from smore_tpu_torch.models import LINE, base
@@ -34,36 +34,15 @@ from smore_tpu_torch.models.base import TrainDriver, alpha_schedule
 from smore_tpu_torch.ops import launches
 from smore_tpu_torch.ops.sgns import sgns_shared_grads
 from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
-from torch_graph_call_cases import CASES, build, toy_graph
+from smore_tpu_torch.parallel import mesh
+from smore_tpu_torch.parallel.mesh import CommStats
+from torch_graph_call_cases import CASES, CaptureGuard, build, toy_graph
 
 # one intra-op thread: test workers share the cores, and a thread pool
 # in each of them oversubscribes the CPU on these tiny shapes
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")  # the port defaults to the card
-
-
-class CaptureGuard(TorchDispatchMode):
-    """Fails on an op a CUDA graph cannot capture: a host sync or an
-    output whose shape depends on the data."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        name = func._schema.name.split("::")[-1]
-        overload = func._overloadname
-        flagged = (name in ("_local_scalar_dense", "nonzero", "masked_select")
-                   or name.startswith("unique")
-                   or name.startswith("_unique")
-                   or (name == "repeat_interleave" and overload == "Tensor"
-                       and kwargs.get("output_size") is None)
-                   # a boolean index is a nonzero inside the op
-                   or (name in ("index", "index_put", "index_put_",
-                                "_index_put_impl_")
-                       and any(t is not None and t.dtype == torch.bool
-                               for t in args[1])))
-        if flagged:
-            raise AssertionError(f"{func} inside a call cannot be captured")
-        return func(*args, **kwargs)
 
 
 @pytest.fixture
@@ -238,7 +217,7 @@ class RecordingGraph:
     """Capture keeps the call and runs nothing; a replay runs it, as the
     card would run what capture recorded."""
 
-    def __init__(self, gen):
+    def __init__(self, gen, error_mode="global"):
         self.run = None
 
     def capture(self, run):
@@ -298,8 +277,8 @@ def _counting_graph(nodes):
     whose replay runs no Python."""
 
     class CountingGraph:
-        def __init__(self, gen):
-            pass
+        def __init__(self, gen, error_mode="global"):
+            self.error_mode = error_mode
 
         def capture(self, run):
             run()
@@ -350,6 +329,44 @@ def test_a_graph_whose_launches_differ_from_the_capture_raises(monkeypatch):
     assert d.replays == 0
     assert launches.moved(before) == {"sgns_shared_grads": 2 * S,
                                       "sgns_banded_multiblock": S}
+
+
+def test_each_replay_credits_the_collectives_its_capture_tallied(
+        monkeypatch):
+    """A call of two all_reduces: the eager first call's are timed; the
+    capture's are issued with no synchronisation, tallied, taken back and
+    credited on every replay, so the calls and bytes are the eager run's
+    and the seconds are not timed; the graph is captured in the
+    thread-local error mode."""
+    monkeypatch.setattr(mesh.dist, "all_reduce", lambda t, group=None: None)
+    modes = []
+
+    class TallyingGraph(_counting_graph({})):
+        def __init__(self, gen, error_mode="global"):
+            modes.append(error_mode)
+
+        def capture(self, run):
+            with monkeypatch.context() as m:
+                m.setattr(mesh, "_capturing", lambda t: True)
+                run()
+
+    monkeypatch.setattr(base, "CallGraph", TallyingGraph)
+    monkeypatch.setattr(base, "_warm_up", lambda run, device: run())
+    comm = CommStats()
+    loop = base.CapturedCalls(None, CPU, True, comm)
+    x = torch.ones(3, 2)
+
+    def run():
+        comm.all_reduce(x)
+        comm.all_reduce(x[0])
+
+    loop(run)
+    assert comm.seconds is not None and comm.seconds >= 0  # timed, eager
+    for _ in range(4):
+        loop(run)
+    assert (loop.calls, loop.replays) == (5, 4)
+    assert (comm.calls, comm.bytes) == (10, 5 * (24 + 8))
+    assert comm.seconds is None and modes == ["thread_local"]
 
 
 def test_what_is_captured():

@@ -24,6 +24,15 @@ A spawn that does not end within SPAWN_TIMEOUT seconds fails its tests.
 - Ports of tests/test_parallel.py (its graphs, arguments and thresholds)
   and of the hogwild kill and resume of tests/test_checkpoint_resume.py:282
   (step-identical at W = 2); a checkpoint of 2 ranks resumed by 3 raises.
+- The mesh modes' call (what an NCCL rank captures as one CUDA graph), at
+  W = 2 on LINE "dp", "rows" and "hogwild", DeepWalk "rows" and BPR "dp"
+  (tests/torch_graph_call_cases.py ``MESH_CASES``): no host sync and no
+  data-dependent shape inside it (``CaptureGuard``), "rows" adding
+  unowned ids through ``RowShard``'s masked add; its tables bit-equal to
+  the eager loop it replaced, with the same collectives' calls and bytes;
+  eager on gloo; on a stand-in graph the captured control flow (one eager
+  call, then replays) with the same tables and collectives. ``RowShard``'s
+  masked add bit for bit the owned adds alone, signed zeros included.
 """
 
 import os
@@ -41,6 +50,8 @@ import torch_parallel_worker as W
 from smore_tpu.models.base import TrainDriver as JTrainDriver
 from smore_tpu.parallel.mesh import make_mesh as j_make_mesh
 from smore_tpu_torch.graph.graph import Graph
+from smore_tpu_torch.parallel.mesh import CommStats, RowShard
+from torch_graph_call_cases import MESH_CASES, CaptureGuard
 
 torch.set_num_threads(1)
 
@@ -51,7 +62,7 @@ MERGE_RTOL, MERGE_ATOL = 1e-6, 1e-7
 TASKS = {
     2: ["mesh_checks", "merge_law", "rows_line", "rows_deepwalk", "dp_line",
         "dp_deepwalk", "row_sharded_tables", "rec_dp", "hogwild_banded",
-        "kill_resume"],
+        "kill_resume", "mesh_calls"],
     3: ["mesh_checks", "rows_line", "rows_deepwalk", "resume_other_world"],
     4: ["mesh_checks", "merge_law"],
 }
@@ -344,3 +355,79 @@ def test_resume_at_another_world_size_raises(w3):
     for rank in range(3):
         err = w3("resume_other_world", rank)["error"]
         assert "saved by 2 ranks" in err and "has 3" in err
+
+
+# --------------------------------------------------- the mesh modes' call
+@pytest.mark.parametrize("name", sorted(MESH_CASES))
+def test_a_mesh_call_has_no_sync_and_no_data_dependent_shape(w2, name):
+    for rank in range(2):
+        got = w2("mesh_calls", rank)[name]
+        assert got["error"] == ""
+        assert got["sharding"] == MESH_CASES[name][1]
+        # gloo's collectives cannot be captured: every call eager
+        assert got["calls"] >= 1 and got["replays"] == 0
+        assert not got["captured"]
+        if got["sharding"] == "rows":  # the masked add took unowned ids
+            assert 0 < got["unowned"] < got["adds"]
+
+
+@pytest.mark.parametrize("name", sorted(MESH_CASES))
+def test_the_mesh_call_is_bit_equal_to_the_eager_loop(w2, name):
+    for rank in range(2):
+        got = w2("mesh_calls", rank)[name]
+        assert got["calls"] == got["old_calls"]
+        assert got["comm"] == got["old_comm"] and got["comm"][0] > 0
+        assert set(got["state"]) == set(got["old_state"])
+        for k, v in got["old_state"].items():
+            assert torch.equal(got["state"][k], v), k
+
+
+@pytest.mark.parametrize("name", [n for n in sorted(MESH_CASES)
+                                  if n.startswith("line")])
+def test_a_mesh_call_captured_on_a_stand_in_graph(w2, name):
+    """As on an NCCL group: the first call eager, the rest replays of one
+    graph captured with the thread-local error mode; the tables and the
+    collectives are the eager run's."""
+    for rank in range(2):
+        got = w2("mesh_calls", rank)[name]
+        assert got["stand_in_calls"] == got["calls"] >= 3
+        assert got["stand_in_replays"] == got["calls"] - 1
+        assert got["stand_in_modes"] == ["thread_local"]
+        assert got["stand_in_comm"] == got["comm"]
+        for k, v in got["state"].items():
+            assert torch.equal(got["stand_in_state"][k], v), k
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("alpha", [1, -0.5])
+def test_row_shard_masked_add_is_the_owned_adds_bit_for_bit(alpha):
+    """Rows 8:16 of 23, most ids unowned, duplicates; the owned ids hit
+    rows 8:12 only and rows 12:16 hold -0.0 entries, which only unowned
+    ids' zeros reach: every bit as the boolean-index form leaves them,
+    with no op a capture cannot take."""
+    rng = np.random.default_rng(4)
+    lo, hi = 8, 16
+    local = torch.from_numpy(rng.standard_normal((hi - lo, 4)).astype(
+        np.float32))
+    local[4:, 0], local[::2, 1] = -0.0, 0.0
+    idx = torch.from_numpy(rng.permutation(np.r_[
+        rng.integers(lo, lo + 4, 12), rng.choice(np.r_[0:lo, hi:23], 48)]))
+    delta = torch.from_numpy(rng.standard_normal((60, 4)).astype(np.float32))
+    delta[::3, 2] = -0.0
+    owned = (idx >= lo) & (idx < hi)
+    want = local.clone().index_add_(0, idx[owned] - lo, delta[owned],
+                                    alpha=alpha)
+    shard = RowShard(local.clone(), 23, lo, CommStats())
+    with CaptureGuard():
+        shard.index_add_(0, idx, delta, alpha=alpha)
+    assert torch.signbit(want[4:, 0]).all()  # the -0.0 entries stay
+    assert torch.equal(_bits(shard.local), _bits(want))
+
+
+def test_row_shard_empty_shard_adds_nothing():
+    shard = RowShard(torch.zeros(0, 4), 3, 3, CommStats())
+    shard.index_add_(0, torch.tensor([0, 2, 1]), torch.ones(3, 4))
+    assert tuple(shard.local.shape) == (0, 4)

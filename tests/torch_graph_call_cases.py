@@ -1,20 +1,48 @@
 """The StepFns that TrainDriver captures as one CUDA graph a call: every
 single-device LINE route and the families that train through
 ``PairModelBase._drive``, each as a small model and the ``train()``
-arguments that take that route (a few calls of a few steps).
+arguments that take that route (a few calls of a few steps), and the
+mesh modes' cases (``MESH_CASES``); ``CaptureGuard``, which fails on what
+a capture cannot take.
 
 Shared by tests/test_torch_graph_call.py (on the CPU: no host sync and no
-data-dependent shape inside a call) and tests/test_torch_gpu.py (on the
-card: captured against eager). Imports neither JAX nor smore_tpu.
+data-dependent shape inside a call), tests/torch_parallel_worker.py (the
+same for the mesh modes' calls on gloo ranks) and tests/test_torch_gpu.py
+(on the card: captured against eager). Imports neither JAX nor smore_tpu.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from smore_tpu_torch import models
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.utils import oracle_data as od
+
+
+class CaptureGuard(TorchDispatchMode):
+    """Fails on an op a CUDA graph cannot capture: a host sync or an
+    output whose shape depends on the data."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func._schema.name.split("::")[-1]
+        overload = func._overloadname
+        flagged = (name in ("_local_scalar_dense", "nonzero", "masked_select")
+                   or name.startswith("unique")
+                   or name.startswith("_unique")
+                   or (name == "repeat_interleave" and overload == "Tensor"
+                       and kwargs.get("output_size") is None)
+                   # a boolean index is a nonzero inside the op
+                   or (name in ("index", "index_put", "index_put_",
+                                "_index_put_impl_")
+                       and any(t is not None and t.dtype == torch.bool
+                               for t in args[1])))
+        if flagged:
+            raise AssertionError(f"{func} inside a call cannot be captured")
+        return func(*args, **kwargs)
 
 
 def toy_graph() -> Graph:
@@ -119,7 +147,6 @@ FAMILIES = {
 TYPED = ("SNE", "CPR", "TPR", "Metapath2Vec", "CTDNE")
 CASES = sorted(LINE_ROUTES) + sorted(FAMILIES) + list(TYPED)
 
-
 def build(name: str, device, tmp: str, dim: int = 16):
     """(model with fresh tables on ``device``, train() arguments) of a
     case: several calls of a few steps."""
@@ -164,6 +191,31 @@ def build(name: str, device, tmp: str, dim: int = 16):
         kw = dict(walk_times=15, walk_steps=6)
     m.init(dim=dim)
     return m, dict(run, **kw)
+
+
+# the mesh modes: a case of ``build``, its sharding, its train()
+# arguments on a mesh ("dp" takes one batch a step; the rec family trains
+# "dp" only, and takes no ``sharding``) and the kernel the card runs; each
+# several calls at one rank and at two
+MESH_CASES = {
+    "line_dp": ("line_unbanded_g8", "dp", dict(sharding="dp", hoist=1),
+                "sgns_shared_grads"),
+    "line_rows": ("line_unbanded_g8", "rows", dict(sharding="rows"),
+                  "sgns_shared_grads"),
+    "line_hogwild": ("line_multiblock", "hogwild",
+                     dict(sharding="hogwild"), "sgns_banded_multiblock"),
+    "deepwalk_rows": ("DeepWalk", "rows", dict(sharding="rows",
+                                               walk_times=1), None),
+    "bpr_dp": ("BPR", "dp", {}, None),
+}
+
+
+def build_mesh(name: str, device, tmp: str, mesh):
+    """(model with fresh tables on ``device``, train() arguments) of a
+    mesh case on ``mesh``."""
+    case, _, kw, _ = MESH_CASES[name]
+    m, run = build(case, device, tmp)
+    return m, dict(run, mesh=mesh, **kw)
 
 
 # ------------------------------------------- the models with their own loops

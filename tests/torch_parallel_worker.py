@@ -10,7 +10,7 @@ imports torch and the port only; the tests hold the results to smore_tpu's
 and to the port's single-device runs. The graphs and training arguments
 are those of tests/test_parallel.py and tests/test_checkpoint_resume.py,
 and live here so that the tests train the single-device runs with the same
-ones.
+ones; the mesh modes' calls are those of tests/torch_graph_call_cases.py.
 """
 
 from __future__ import annotations
@@ -29,8 +29,12 @@ if ROOT not in sys.path:
 import torch.distributed as dist  # noqa: E402
 
 from smore_tpu_torch.graph.graph import Graph  # noqa: E402
-from smore_tpu_torch.models import BPR, DeepWalk, LINE  # noqa: E402
-from smore_tpu_torch.models.base import TrainDriver  # noqa: E402
+from smore_tpu_torch.models import BPR, DeepWalk, LINE, base  # noqa: E402
+from smore_tpu_torch.models.base import (  # noqa: E402
+    TrainDriver,
+    _snapshot,
+    alpha_schedule,
+)
 from smore_tpu_torch.parallel.mesh import (  # noqa: E402
     CommStats,
     RowShard,
@@ -39,6 +43,11 @@ from smore_tpu_torch.parallel.mesh import (  # noqa: E402
     row_range,
     row_sharded,
     shard_state,
+)
+from torch_graph_call_cases import (  # noqa: E402
+    MESH_CASES,
+    CaptureGuard,
+    build_mesh,
 )
 
 CPU = torch.device("cpu")
@@ -366,10 +375,120 @@ def resume_other_world(run, out):
         out["error"] = str(e)
 
 
+def old_mesh_loop(self, state, gen, done, steps_total, inv_total, verbose,
+                  t0):
+    """The eager loop that the mesh modes' call of static buffers replaced:
+    a fresh alpha tensor a call, the merges threaded through the steps, the
+    tables as the last step left them."""
+    S, M, mode = self.steps_per_call, self.micro_steps, self._mode
+    cur, old = dict(state), None
+    while done < steps_total:
+        alphas = torch.from_numpy(alpha_schedule(
+            done, S, M, self.alpha, inv_total)).to(self.device)
+        if mode == "hogwild":
+            old = _snapshot(cur, old)
+        for i in range(S):
+            if mode == "dp":
+                old = _snapshot(cur, old)
+            cur, _ = self.step_fn(cur, self.ctx, gen, alphas[i])
+            if mode == "dp":
+                cur = self._merge(old, cur)
+        if mode == "hogwild":
+            cur = self._merge(old, cur)
+        done += S
+        self.calls += 1
+    state.update(cur)
+    return done
+
+
+def _mesh_run(run, name, patches=()):
+    """Train ``name`` of MESH_CASES with ``patches`` ((owner, attribute,
+    value), undone after); returns (model, driver)."""
+    saved = [(o, a, getattr(o, a)) for o, a, _ in patches]
+    for o, a, v in patches:
+        setattr(o, a, v)
+    try:
+        m, kw = build_mesh(name, CPU, run.dir, run.mesh)
+        m.train(**kw)
+    finally:
+        for o, a, v in saved:
+            setattr(o, a, v)
+    return m, m.last_driver
+
+
+def mesh_calls(run, out):
+    """Each MESH_CASES case trained three ways: its calls under
+    CaptureGuard (no host sync, no boolean index, no data-dependent shape:
+    what a capture cannot take), with the ids that "rows" adds to each
+    shard recorded; the eager loop those calls replaced; and, for LINE,
+    the captured path's control flow as on an NCCL group, with a stand-in
+    graph. The tables and the collectives of each."""
+    guarded, add = TrainDriver._call, RowShard._index_add
+    adds, modes = [], []
+
+    def call(self, *a):
+        with CaptureGuard():
+            guarded(self, *a)
+
+    def recording_add(self, dim, idx, src, alpha=1):
+        adds.append((idx.clone(), self.lo, self.local.shape[0]))
+        return add(self, dim, idx, src, alpha)
+
+    class StandInGraph:
+        """Capture keeps the call and runs nothing; a replay runs it, as
+        the card would run what capture recorded."""
+
+        def __init__(self, gen, error_mode="global"):
+            modes.append(error_mode)
+            self.run = None
+
+        def capture(self, run):
+            self.run = run
+            return 0
+
+        def kernel_launches(self):
+            return {}
+
+        def replay(self):
+            self.run()
+
+    for name in MESH_CASES:
+        adds[:], modes[:] = [], []
+        try:
+            m, d = _mesh_run(run, name, [(TrainDriver, "_call", call),
+                                         (RowShard, "_index_add",
+                                          recording_add)])
+        except AssertionError as e:
+            out[name] = dict(error=str(e))
+            continue
+        got = dict(error="", state=_tables(m), sharding=d.sharding,
+                   calls=d.calls, replays=d.replays,
+                   captured=d.loop.captured,
+                   comm=(d.comm.calls, d.comm.bytes),
+                   adds=sum(len(i) for i, _, _ in adds),
+                   unowned=sum(int(((i < lo) | (i >= lo + n)).sum())
+                               for i, lo, n in adds))
+        m, d = _mesh_run(run, name, [(TrainDriver, "_train_calls",
+                                      old_mesh_loop)])
+        got.update(old_state=_tables(m), old_calls=d.calls,
+                   old_comm=(d.comm.calls, d.comm.bytes))
+        if name.startswith("line"):
+            m, d = _mesh_run(run, name, [
+                (base, "CallGraph", StandInGraph),
+                (base, "_warm_up", lambda run, device: run()),
+                (base, "backend_of", lambda mesh: "nccl"),
+                (TrainDriver, "_captures", lambda self: True)])
+            got.update(stand_in_state=_tables(m), stand_in_calls=d.calls,
+                       stand_in_replays=d.replays,
+                       stand_in_comm=(d.comm.calls, d.comm.bytes),
+                       stand_in_modes=list(modes))
+        out[name] = got
+
+
 TASKS = {f.__name__: f for f in (
     mesh_checks, merge_law, rows_line, rows_deepwalk, dp_line, dp_deepwalk,
     row_sharded_tables, rec_dp, hogwild_banded, kill_resume,
-    resume_other_world)}
+    resume_other_world, mesh_calls)}
 
 
 def main(argv) -> None:
