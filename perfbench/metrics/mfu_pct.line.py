@@ -1,0 +1,19 @@
+"""The whole step's share of the card's float32 peak: the SGNS operations
+that the traced job's work needs (perfbench/harness/flops.py), over its wall
+and 67 TFLOP/s."""
+
+from perfbench.harness import readers
+
+NAME = "mfu_pct.line"
+UNIT = "%"
+BETTER = "higher"
+SOURCE = "host_clock"
+LAYER = "whole step"
+MOVES = "samples_per_s"
+WORKLOADS = ["line_o2.youtube", "line_o2.flickr"]
+
+
+def read(ctx):
+    if not readers.of_family(ctx, "samples"):
+        return None
+    return readers.mfu_pct(ctx)

@@ -1,0 +1,14 @@
+"""Seconds of set-up's warm train(): the sampler and band tables, the edge
+stream, the first call, the capture and its replays (harness span)."""
+
+NAME = "warm_train_s"
+UNIT = "s"
+BETTER = "lower"
+SOURCE = "program_span"
+LAYER = "models: models/line.py, models/deepwalk.py, models/walk_base.py"
+MOVES = "setup_s"
+WORKLOADS = ["line_o2.youtube", "deepwalk.youtube", "line_o2.flickr", "deepwalk.flickr"]
+
+
+def read(ctx):
+    return ctx.spans.get("warm_train")
