@@ -16,6 +16,8 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from smore_tpu_torch.utils import profiling
+
 
 def _iter_edge_files(path: str) -> List[str]:
     """An input path may be a single file or a directory of files."""
@@ -88,6 +90,7 @@ class Graph:
         return self.weights[self.indptr[vid]:self.indptr[vid + 1]]
 
     @staticmethod
+    @profiling.spanned("graph.from_arrays")
     def from_arrays(
         src: np.ndarray,
         dst: np.ndarray,

@@ -42,6 +42,7 @@ from smore_tpu_torch.parallel.mesh import (
     rows_to_dtensor,
 )
 from smore_tpu_torch.sampling.tables import SamplerTables
+from smore_tpu_torch.utils import profiling
 from smore_tpu_torch.utils.checkpoint import (
     checkpoint_exists,
     load_checkpoint,
@@ -64,22 +65,25 @@ FRESH_MIN_BATCH = 8
 TRUNC_TINY_BATCH = 64
 
 
-def hoisted_scan_step(draw_fn, update_fn, hoist: int) -> StepFn:
+def hoisted_scan_step(draw_fn, update_fn, hoist: int,
+                      update_segment: Optional[str] = None) -> StepFn:
     """The StepFn of every mega-draw path: ``draw_fn(ctx, gen)`` returns a
     tuple of tensors with a leading (hoist,) axis (the draws of ``hoist``
     inner batches in one shot; they do not depend on the state, so hoisting
     them keeps the sampling law), and ``update_fn(state, x, alpha) ->
     (state, loss)`` applies one inner batch. The step takes the (hoist,)
     alpha vector of TrainDriver(micro_steps=hoist) and returns the mean
-    loss of its inner batches."""
+    loss of its inner batches. ``update_segment`` names the tracer's
+    segment around the whole inner loop."""
 
     def step(state, ctx, gen, alphas):
         xs = draw_fn(ctx, gen)
         losses = []
-        for i in range(hoist):
-            state, loss = update_fn(state, tuple(x[i] for x in xs),
-                                    alphas[i])
-            losses.append(loss)
+        with profiling.segment(update_segment):
+            for i in range(hoist):
+                state, loss = update_fn(state, tuple(x[i] for x in xs),
+                                        alphas[i])
+                losses.append(loss)
         return state, torch.stack(losses).mean()
 
     return step
@@ -206,12 +210,25 @@ class CallGraph:
 
     def capture(self, run: Callable[[], None]) -> int:
         """Record ``run``'s work on the card and instantiate it; nothing
-        runs. Returns the graph's nodes: kernels, memsets and copies."""
-        with torch.cuda.graph(self.graph,
-                              capture_error_mode=self.error_mode):
-            run()
-        self.graph.instantiate()
-        return launches.node_count(self.graph.raw_cuda_graph())
+        runs. Returns the graph's nodes: kernels, memsets and copies. The
+        tracer's spans: ``capture.prepare`` (``torch.cuda.graph``'s entry:
+        it waits for the card, empties the allocator's and the pinned host
+        memory's caches, and begins the capture), ``capture.record`` (the
+        call's Python and the capture's end), ``capture.instantiate``,
+        ``capture.count``."""
+        ctx = torch.cuda.graph(self.graph,
+                               capture_error_mode=self.error_mode)
+        with profiling.span("capture.prepare"):
+            ctx.__enter__()
+        with profiling.span("capture.record"):
+            try:
+                run()
+            finally:
+                ctx.__exit__(None, None, None)
+        with profiling.span("capture.instantiate"):
+            self.graph.instantiate()
+        with profiling.span("capture.count"):
+            return launches.node_count(self.graph.raw_cuda_graph())
 
     def kernel_launches(self) -> Dict[str, int]:
         """The launches of each kernel the graph holds, by kernel name, read
@@ -237,7 +254,7 @@ class _AlphaStaging:
     def put(self, values: np.ndarray, dst: torch.Tensor) -> None:
         i, self.i = self.i, 1 - self.i
         if self.copied[i] is not None:
-            self.copied[i].synchronize()
+            profiling.wait(self.copied[i], "driver.alphas.wait")
         self.host[i].copy_(torch.from_numpy(values))
         dst.copy_(self.host[i], non_blocking=self.cuda)
         if self.cuda:
@@ -294,7 +311,11 @@ class CapturedCalls:
     (recording, instantiating and counting every graph), ``replay_s``
     (the rest from the first capture on, to the end on the card: the
     replays and what the host does between them) and, within that,
-    ``replay_host_s`` (the host's time issuing the replays)."""
+    ``replay_host_s`` (the host's time issuing the replays); with the
+    tracer on (``utils.profiling``) the same clock readings are its spans
+    ``calls.first``, ``calls.capture`` and ``driver.replay``, each call's
+    first and last node are stamped on the card, and ``close()`` ends the
+    tracer's group of this ``train()``."""
 
     def __init__(self, gen: Optional[torch.Generator],
                  device: torch.device, captured: bool,
@@ -308,40 +329,45 @@ class CapturedCalls:
         self.calls = self.replays = 0
         self.first_call_s = self.capture_s = self.replay_s = 0.0
         self.replay_host_s = 0.0
-        self._t_capture = None  # when the first capture began
+        self._t_capture = None  # when the first capture began (ns)
 
     def __call__(self, run: Callable[[], None], kind=None) -> None:
         """One call of ``run`` (see the class docstring)."""
+        if self.calls == 0:
+            profiling.begin(self.device)
+        run = profiling.stamped(run, self.device)
         if not self.captured:
             run()
         elif self.calls == 0:
-            t = time.perf_counter()
-            _warm_up(run, self.device)
-            self.first_call_s = time.perf_counter() - t
+            with profiling.timed("calls.first") as t:
+                _warm_up(run, self.device)
+            self.first_call_s = t.seconds
         else:
             graph = self.graphs.get(kind)
             if graph is None:
-                t = time.perf_counter()
+                with profiling.timed("calls.capture") as t:
+                    graph = CallGraph(self.gen, "global" if self.comm is None
+                                      else "thread_local")
+                    before = launches.read()
+                    if self.comm is not None:
+                        comm_before = self.comm.read()
+                    self.nodes[kind] = graph.capture(run)
+                    with profiling.span("capture.count"):
+                        self._credit[kind] = launches.recorded(
+                            before, graph.kernel_launches())
+                        if self.comm is not None:
+                            self._comm_credit[kind] = self.comm.recorded(
+                                comm_before)
+                    self.graphs[kind] = graph
                 if self._t_capture is None:
-                    self._t_capture = t
-                graph = CallGraph(self.gen, "global" if self.comm is None
-                                  else "thread_local")
-                before = launches.read()
+                    self._t_capture = t.t0
+                self.capture_s += t.seconds
+            with profiling.timed("driver.replay") as t:
+                graph.replay()
+                launches.credit(self._credit[kind])
                 if self.comm is not None:
-                    comm_before = self.comm.read()
-                self.nodes[kind] = graph.capture(run)
-                self._credit[kind] = launches.recorded(
-                    before, graph.kernel_launches())
-                if self.comm is not None:
-                    self._comm_credit[kind] = self.comm.recorded(comm_before)
-                self.graphs[kind] = graph
-                self.capture_s += time.perf_counter() - t
-            t = time.perf_counter()
-            graph.replay()
-            launches.credit(self._credit[kind])
-            if self.comm is not None:
-                self.comm.credit(self._comm_credit[kind])
-            self.replay_host_s += time.perf_counter() - t
+                    self.comm.credit(self._comm_credit[kind])
+            self.replay_host_s += t.seconds
             self.replays += 1
         self.calls += 1
 
@@ -354,8 +380,10 @@ class CapturedCalls:
             torch.cuda.synchronize(self.device)
         self.graphs.clear()
         if self._t_capture is not None:
-            self.replay_s = (time.perf_counter() - self._t_capture
+            self.replay_s = ((time.perf_counter_ns() - self._t_capture) * 1e-9
                              - self.capture_s)
+        profiling.end(captured=self.captured, calls=self.calls,
+                      replays=self.replays, nodes=dict(self.nodes))
 
 
 def epoch_calls(steps: int, steps_per_call: Optional[int]) -> list:
@@ -630,7 +658,8 @@ class TrainDriver:
         """Save after every ``checkpoint_every`` calls and after the last."""
         if self.checkpoint_path and (self.calls % self.checkpoint_every == 0
                                      or done >= steps_total):
-            self._save_ckpt(state, gen, done)
+            with profiling.span("driver.checkpoint"):
+                self._save_ckpt(state, gen, done)
 
     def _progress(self, loss, done, done0, steps_total, t0) -> None:
         last = float(loss)
@@ -657,7 +686,8 @@ class TrainDriver:
         for i in range(self.steps_per_call):
             if mode == "dp":
                 self._old = _snapshot(cur, self._old)
-            cur, step_loss = self.step_fn(cur, self.ctx, gen, alphas[i])
+            with profiling.step(i):
+                cur, step_loss = self.step_fn(cur, self.ctx, gen, alphas[i])
             if mode == "dp":
                 cur = self._merge(self._old, cur)
             losses.append(step_loss)
@@ -695,8 +725,9 @@ class TrainDriver:
 
         try:
             while done < steps_total:
-                staging.put(alpha_schedule(done, S, M, self.alpha, inv_total),
-                            alphas)
+                with profiling.span("driver.alphas"):
+                    staging.put(alpha_schedule(done, S, M, self.alpha,
+                                               inv_total), alphas)
                 self.loop(run)
                 done += S
                 self.calls += 1

@@ -12,6 +12,7 @@ import torch
 from smore_tpu_torch.models.walk_base import WalkSGNSBase
 from smore_tpu_torch.sampling.mappers import skipgram_pairs
 from smore_tpu_torch.sampling.walks import random_walk
+from smore_tpu_torch.utils import profiling
 
 
 class DeepWalk(WalkSGNSBase):
@@ -22,8 +23,10 @@ class DeepWalk(WalkSGNSBase):
         self.window_size = 5
 
     def _emit_pairs(self, tables, gen, starts):
-        walk, row_mask = random_walk(tables, gen, starts, self.walk_steps)
-        return skipgram_pairs(walk, gen, self.window_size, row_mask)
+        with profiling.segment("walk.walk"):
+            walk, row_mask = random_walk(tables, gen, starts, self.walk_steps)
+        with profiling.segment("walk.pairs"):
+            return skipgram_pairs(walk, gen, self.window_size, row_mask)
 
     def train(
         self,

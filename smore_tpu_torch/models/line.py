@@ -70,6 +70,7 @@ from smore_tpu_torch.sampling.banded import (
     MULTI_BAND_SIZE,
     BandedTables,
 )
+from smore_tpu_torch.utils import profiling
 
 # graph size from which LINE takes the banded path by default (the JAX
 # package's threshold, set by TPU scatter costs; kept so both packages
@@ -97,18 +98,22 @@ def multiblock_apply(state, band_size: int, sb, db, src_l, pos_l, negs,
     """Apply one superstep to the padded tables ``state["vertex"]`` and
     ``state["context"]`` IN PLACE: snapshot the negatives' context rows,
     run the kernel, then add the deferred negative deltas. Returns the mean
-    loss per sample."""
+    loss per sample. The tracer's segments: ``line.snapshot``, ``line.k4``
+    and ``line.neg_add``."""
     wv, wc = state["vertex"], state["context"]
     S, B = src_l.shape
     D = wv.shape[1]
     Ks = negs.shape[1]
-    flat = negs.reshape(-1).long()
-    cn = wc[flat].reshape(S, Ks, D)  # the superstep's snapshot
-    wv, wc, d_neg, loss_sum = sgns_banded_multiblock(
-        wv, wc, sb // band_size, db // band_size, src_l, pos_l, cn, alphas,
-        band_size=band_size, k_equiv=k_equiv,
-    )
-    wc.index_add_(0, flat, d_neg.reshape(-1, D))
+    with profiling.segment("line.snapshot"):
+        flat = negs.reshape(-1).long()
+        cn = wc[flat].reshape(S, Ks, D)  # the superstep's snapshot
+    with profiling.segment("line.k4"):
+        wv, wc, d_neg, loss_sum = sgns_banded_multiblock(
+            wv, wc, sb // band_size, db // band_size, src_l, pos_l, cn,
+            alphas, band_size=band_size, k_equiv=k_equiv,
+        )
+    with profiling.segment("line.neg_add"):
+        wc.index_add_(0, flat, d_neg.reshape(-1, D))
     return loss_sum / (S * B)
 
 
@@ -160,21 +165,29 @@ class LINE(PairModelBase):
 
         if shared_negatives and hoist > 1:
             Ks = shared_negatives
+
+            def draw(tables, gen):
+                with profiling.segment("line.draw"):
+                    return tables.draw_edge_batches_hoisted(
+                        gen, batch, group, Ks, hoist)
+
             return hoisted_scan_step(
-                lambda tables, gen: tables.draw_edge_batches_hoisted(
-                    gen, batch, group, Ks, hoist),
-                lambda st, x, a: update(st, *x, a, group), hoist)
+                draw, lambda st, x, a: update(st, *x, a, group), hoist,
+                update_segment="line.update")
 
         if shared_negatives:
             Ks = shared_negatives
 
             def step(state, tables, gen, alpha):
                 grouped = group > 1 and tables.has_edge_table
-                if grouped:
-                    x = tables.draw_edge_batch_grouped(gen, batch, group, Ks)
-                else:
-                    x = tables.draw_edge_batch(gen, batch, Ks)
-                return update(state, *x, alpha, group if grouped else 1)
+                with profiling.segment("line.draw"):
+                    if grouped:
+                        x = tables.draw_edge_batch_grouped(gen, batch, group,
+                                                           Ks)
+                    else:
+                        x = tables.draw_edge_batch(gen, batch, Ks)
+                with profiling.segment("line.update"):
+                    return update(state, *x, alpha, group if grouped else 1)
 
             return step
 
@@ -238,7 +251,8 @@ class LINE(PairModelBase):
         band_size = self.banded_tables.band_size
 
         def step(state, bt, gen, alphas):
-            x = multiblock_draw(bt, gen, batch, shared_negatives, hoist)
+            with profiling.segment("line.draw"):
+                x = multiblock_draw(bt, gen, batch, shared_negatives, hoist)
             loss = multiblock_apply(state, band_size, *x, alphas,
                                     k_equiv=negatives)
             return state, loss
@@ -480,11 +494,12 @@ class LINE(PairModelBase):
 
         n_pad = bt.n_rows_padded
         state = {}
-        for k, v in self.state.items():
-            padded = torch.zeros(n_pad, v.shape[1], dtype=torch.float32,
-                                 device=self.device)
-            padded[:n] = v
-            state[k] = padded
+        with profiling.span("line.pad"):
+            for k, v in self.state.items():
+                padded = torch.zeros(n_pad, v.shape[1], dtype=torch.float32,
+                                     device=self.device)
+                padded[:n] = v
+                state[k] = padded
         # a checkpoint holds (and a resume restores) these padded tables
         out = self._drive(step_fn, bt, batch * hoist, alpha, total,
                           steps_per_call, verbose, micro_steps=hoist,

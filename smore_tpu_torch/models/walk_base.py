@@ -27,6 +27,7 @@ from smore_tpu_torch.models.base import (
     zeros_embedding,
 )
 from smore_tpu_torch.ops.update import sgns_shared_negs_step
+from smore_tpu_torch.utils import profiling
 
 
 # the epoch hoist: graphs up to this many vertices, at most this many
@@ -77,23 +78,26 @@ class WalkSGNSBase(PairModelBase):
             tables = self._tables_of(ctx)
             n = tables.n_vertices
             dev = tables.device
-            if epoch_starts:
-                # the reference's start law: per epoch a shuffle of all
-                # vertices, each starting one walk; slack past n is filled
-                # by uniform draws
-                starts = torch.randperm(n, generator=gen, device=dev,
-                                        dtype=torch.int32)
-                if n_walks > n:
-                    fill = torch.randint(0, n, (n_walks - n,), generator=gen,
-                                         device=dev, dtype=torch.int32)
-                    starts = torch.cat([starts, fill])
+            with profiling.segment("walk.starts"):
+                if epoch_starts:
+                    # the reference's start law: per epoch a shuffle of all
+                    # vertices, each starting one walk; slack past n is
+                    # filled by uniform draws
+                    starts = torch.randperm(n, generator=gen, device=dev,
+                                            dtype=torch.int32)
+                    if n_walks > n:
+                        fill = torch.randint(0, n, (n_walks - n,),
+                                             generator=gen, device=dev,
+                                             dtype=torch.int32)
+                        starts = torch.cat([starts, fill])
+                    else:
+                        starts = starts[:n_walks]
                 else:
-                    starts = starts[:n_walks]
-            else:
-                starts = torch.randint(0, n, (n_walks,), generator=gen,
-                                       device=dev, dtype=torch.int32)
+                    starts = torch.randint(0, n, (n_walks,), generator=gen,
+                                           device=dev, dtype=torch.int32)
             src, pos, mask = self._emit_pairs(ctx, gen, starts)
-            negs = tables.negative_sample(gen, (n_negs,))
+            with profiling.segment("walk.negatives"):
+                negs = tables.negative_sample(gen, (n_negs,))
             return src, pos, mask, negs
 
         passes = int(getattr(self, "inner_passes", 1))
@@ -117,17 +121,21 @@ class WalkSGNSBase(PairModelBase):
             # on the tables, so the law is kept); the mapper's pairs are
             # per-walk blocks in start order, so the reshape is exact
             def hdraw(ctx, gen):
-                src, pos, mask, negs = draw(ctx, gen, hoist * batch_walks,
-                                            hoist * shared_negatives)
+                with profiling.segment("walk.draw"):
+                    src, pos, mask, negs = draw(ctx, gen, hoist * batch_walks,
+                                                hoist * shared_negatives)
                 return (src.reshape(hoist, -1), pos.reshape(hoist, -1),
                         mask.reshape(hoist, -1),
                         negs.reshape(hoist, shared_negatives))
 
-            return hoisted_scan_step(hdraw, update, hoist)
+            return hoisted_scan_step(hdraw, update, hoist,
+                                     update_segment="walk.update")
 
         def step(state, ctx, gen, alpha):
-            return update(state, draw(ctx, gen, batch_walks,
-                                      shared_negatives), alpha)
+            with profiling.segment("walk.draw"):
+                x = draw(ctx, gen, batch_walks, shared_negatives)
+            with profiling.segment("walk.update"):
+                return update(state, x, alpha)
 
         return step
 

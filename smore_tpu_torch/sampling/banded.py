@@ -30,6 +30,7 @@ from smore_tpu_torch.sampling.tables import (
     _vertex_distribution,
     build_negative_table,
 )
+from smore_tpu_torch.utils import profiling
 
 # edge_pa columns (slot edge | alias edge): 0 prob | 1 src 2 dst | 3 asrc
 # 4 adst | 5..7 zero pad, as in the JAX package
@@ -90,6 +91,7 @@ class BandedTables:
         return self.band_pa.device
 
     @staticmethod
+    @profiling.spanned("banded.build")
     def build(
         g: Graph,
         band_size: int = DEFAULT_BAND_SIZE,
@@ -193,6 +195,7 @@ class BandedTables:
             two_d=two_d,
         )
 
+    @profiling.spanned("banded.stream")
     def build_stream(self, mult: int = 4, min_len: int = 4096,
                      seed: int = 0) -> "BandedTables":
         """Pre-sample per-stratum edge STREAMS (numpy's seeded uniforms,
@@ -242,8 +245,10 @@ class BandedTables:
                            | (pos - db * self.band_size)).int()
         self.stream = packed
         self.stream_meta = torch.stack([ends - L, L], 1).int()
+        profiling.count("banded.stream.entries", total)
         return self
 
+    @profiling.spanned("banded.neg_bands")
     def build_neg_bands(self, g: Graph, negative_method: str = "degrees",
                         power: float = 0.75,
                         nb2: int = 400) -> "BandedTables":

@@ -26,6 +26,7 @@ import torch
 
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.sampling.alias import build_alias, build_alias_segmented
+from smore_tpu_torch.utils import profiling
 
 
 def _vertex_distribution(g: Graph, method: str) -> np.ndarray:
@@ -118,6 +119,7 @@ class SamplerTables:
         return self.edge_pa.shape[0] > 1
 
     @staticmethod
+    @profiling.spanned("sampler.build")
     def build(
         g: Graph,
         vertex_method: str = "out_degrees",

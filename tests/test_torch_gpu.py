@@ -9,6 +9,7 @@ nor smore_tpu, so it also runs where JAX is not installed:
 """
 
 import socket
+from collections import defaultdict
 
 import numpy as np
 import pytest
@@ -1599,3 +1600,138 @@ def test_seq_adam_on_the_card_is_optax_adam(cuda, name, tmp_path):
             np.testing.assert_allclose(got[solid], want[n][solid], rtol=0,
                                        atol=1e-3 * alpha,
                                        err_msg=f"{n}, {steps} step(s)")
+
+
+# ------------------------------------------------------------- the tracer
+@pytest.fixture
+def tracer():
+    from smore_tpu_torch.utils import profiling
+
+    profiling.disable()
+    profiling.reset()
+    yield profiling
+    profiling.disable()
+    profiling.reset()
+
+
+@pytest.mark.gpu
+def test_a_stamp_eager_and_captured(cuda, tracer):
+    """The stamp writes (code, the card's ns) when the stream reaches it:
+    eagerly, and on each replay of a graph that captured it (the capture
+    itself writes nothing); the anchor maps the card's clock onto the
+    host's."""
+    import time
+
+    tracer.enable()
+    ring = tracer._ring(cuda)
+    ring.cursor.zero_()
+    code = tracer._code("probe")
+    ring.stamp(code << 1)
+    torch.cuda.synchronize()
+    assert int(ring.cursor.item()) == 1
+    c0, t0 = ring.records[0].tolist()
+    assert c0 == code << 1 and t0 > 0
+    g = torch.cuda.CUDAGraph()
+    x = torch.zeros(1, device=cuda)
+    with torch.cuda.graph(g):
+        ring.stamp(code << 1)
+        x += 1
+        ring.stamp(code << 1 | 1)
+    torch.cuda.synchronize()
+    assert int(ring.cursor.item()) == 1
+    for _ in range(3):
+        g.replay()
+    torch.cuda.synchronize()
+    assert int(ring.cursor.item()) == 7 and float(x) == 3.0
+    rec = ring.records[:7].cpu().numpy()
+    assert rec[1:, 0].tolist() == [code << 1, code << 1 | 1] * 3
+    assert (np.diff(rec[:, 1]) >= 0).all() and rec[-1, 1] > t0
+    host, card = ring.anchor()
+    torch.cuda.synchronize()
+    h0 = time.perf_counter_ns()
+    ring.stamp(code << 1)
+    torch.cuda.synchronize()
+    h1 = time.perf_counter_ns()
+    at = int(ring.records[7, 1]) - card + host
+    assert h0 - 1_000_000 < at < h1 + 1_000_000
+
+
+_TRACED = {
+    "line_multiblock": {"line.draw", "line.snapshot", "line.k4",
+                        "line.neg_add"},
+    "line_unbanded_g8": {"line.draw", "line.update"},
+    "DeepWalk": {"walk.draw", "walk.starts", "walk.walk", "walk.pairs",
+                 "walk.negatives", "walk.update"},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_TRACED))
+def test_every_replay_writes_its_stamps(cuda, tracer, case, tmp_path):
+    """Each call, the eager first one and every replay of the captured
+    graph, writes its first and last node's stamps and its first step's
+    segments, in the card's order, none dropped."""
+    tracer.enable()
+    m, kw = build_case(case, cuda, str(tmp_path))
+    m.train(**kw)
+    d = m.last_driver
+    g = tracer.groups()[-1]
+    calls = tracer.calls(g)
+    assert d.replays == d.calls - 1 >= 2 and len(calls) == d.calls
+    per_call = 4 + 2 * len(_TRACED[case])  # call, step, the segments
+    assert per_call <= tracer.MAX_STAMPS
+    assert g.counters["stamps_written"] == per_call * d.calls
+    assert g.counters["stamps_dropped"] == 0
+    for c in calls:
+        assert set(c.seg) == _TRACED[case] | {"step"}
+    assert all(a.t1 <= b.t0 for a, b in zip(calls, calls[1:]))
+    assert len(tracer.replays(g)) == d.replays
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_TRACED))
+def test_a_steps_segments_fit_in_its_call(cuda, tracer, case, tmp_path):
+    """In every replay: the segments directly inside the step sum to at
+    most the step, a segment inside another to at most that one, and the
+    step lasts at most its call."""
+    tracer.enable()
+    m, kw = build_case(case, cuda, str(tmp_path))
+    m.train(**kw)
+    g = tracer.groups()[-1]
+    for c in tracer.replays(g):
+        inner = defaultdict(int)
+        for k, parent in c.parent.items():
+            if parent is not None:
+                inner[parent] += c.seg[k]
+        assert 0 < c.seg["step"] <= c.t1 - c.t0
+        for parent, total in inner.items():
+            assert total <= c.seg[parent], (parent, dict(c.seg))
+    assert 0 < tracer.coverage_pct(g) <= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(_TRACED))
+def test_graphs_captured_with_the_tracer_off_hold_no_stamp(cuda, tracer,
+                                                           case, tmp_path):
+    """With the tracer off a captured graph has the node count and launch
+    credit it has without the tracer (before it was on and after); on,
+    it holds one call's stamps more and the same kernel launches."""
+
+    def run():
+        m, kw = build_case(case, cuda, str(tmp_path))
+        m.train(**kw)
+        loop = m.last_driver.loop
+        return (dict(loop.nodes),
+                {k: sorted((f.__name__, n) for f, n in c)
+                 for k, c in loop._credit.items()})
+
+    off = run()
+    tracer.enable()
+    on = run()
+    g = tracer.groups()[-1]
+    tracer.disable()
+    assert run() == off
+    per_call = g.counters["stamps_written"] // g.info["calls"]
+    assert per_call == 4 + 2 * len(_TRACED[case])
+    assert on[0] == {k: v + per_call for k, v in off[0].items()}
+    assert on[1] == off[1]

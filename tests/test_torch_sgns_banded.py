@@ -27,6 +27,7 @@ from smore_tpu_torch.ops import scatter as scatter_ops
 from smore_tpu_torch.ops import sgns as sgns_ops
 from smore_tpu_torch.ops import sgns_banded as sgns_banded_ops
 from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
+from smore_tpu_torch.utils import profiling
 from torch_superstep_inputs import ALL_COLLIDE, multiblock_inputs
 
 # one intra-op thread: test workers share the cores, and a thread pool
@@ -153,6 +154,7 @@ def _ctypes_kinds(argtypes):
 @pytest.mark.parametrize("name", _LAUNCHERS)
 def test_launch_signature_matches_ctypes(name):
     argtypes = {**sgns_banded_ops.LAUNCH_ARGTYPES, **sgns_ops.LAUNCH_ARGTYPES,
-                **scatter_ops.LAUNCH_ARGTYPES, **jodie_ops.LAUNCH_ARGTYPES}
+                **scatter_ops.LAUNCH_ARGTYPES, **jodie_ops.LAUNCH_ARGTYPES,
+                **profiling.LAUNCH_ARGTYPES}
     assert name in argtypes, f"no wrapper binds csrc/{name}.cu"
     assert _c_kinds(name) == _ctypes_kinds(argtypes[name])
