@@ -10,7 +10,7 @@ and the SASRec family, on one NVIDIA card.
 Phases (any failure exits non-zero; there is no CPU path):
   1. device: a CUDA card must be present; prints its name and power limit
   2. build: compiles smore_tpu_torch/csrc/*.cu with nvcc (the five SGNS
-     kernels and jodie_epoch) and csrc/jodie_schedule.cpp with g++, one
+     kernels, jodie_epoch and random_walk) and csrc/jodie_schedule.cpp with g++, one
      process per source, all started together (first use)
   3. K4 vs twin at the banded path's shapes (S=16 micro-steps, B=2048,
      band 16400, Ks=128, D=64, 68 x 16400 table rows) and on the
@@ -81,12 +81,15 @@ Phases (any failure exits non-zero; there is no CPU path):
      CLIs' default budgets, -dimensions 64: DeepWalk and Walklets link-AUC
      (experiments/walk_parity.py's probe) >= 0.9592 / 0.9600; node2vec and
      APP finite, their vertex rows past the init scale, AUC printed (APP's
-     vertex . context, from its final checkpoint); no kernel launched (the
-     masked walk update is plain); walks/s and wall printed
+     vertex . context, from its final checkpoint); no update kernel
+     launched (the masked walk update is plain), the walk kernel by every
+     model but node2vec; walks/s and wall printed
  20. kill and resume on the card: DeepWalk on that graph checkpointing
      every call, killed after its 4th save, resumed in a fresh model: the
      restored tables and generator state must be the saved bytes, the
-     resumed link-AUC within 0.005 of an uninterrupted run's
+     resumed link-AUC within 0.005 of an uninterrupted run's; the walk
+     kernel's launches in the uninterrupted run (counter set to 0 just
+     before it) are its count in the kernel table
  21. ``line`` through the command line at Youtube scale, 40M samples, with
      -checkpoint: K4 launched, community AUC >= 0.58; the same command
      again resumes the finished checkpoint, trains nothing and must write
@@ -233,6 +236,13 @@ Phases (any failure exits non-zero; there is no CPU path):
      generator states, the captured tables (rtol 1e-4, atol 1e-5) or
      parameters (SEQ_RTOL, SEQ_ATOL) against the eager ones; no kernel
      launched
+ 37. the walk kernel (csrc/random_walk.cu; run after phase 7) against its
+     plain twin sampling/walks.random_walk_ref at the DeepWalk cells'
+     shapes: 128 walks of 40 steps on the tables of perfbench's Youtube
+     graph and 80,640 (one epoch's hoisted starts on Flickr) on its Flickr
+     graph's, both at seed 0, from uniform starts and uniforms: walks and
+     row mask torch.equal in both restart modes; one call is ONE launch of
+     the kernel; its ptxas report, both times alternated, the bound
 Every path that trains through TrainDriver without a mesh (phases 8-28
 and 33's single-device runs) or on an NCCL mesh (33 (a)'s captured arms)
 and every model with a loop of its own but
@@ -359,10 +369,18 @@ def _counters():
     return launches.wrappers()
 
 
+def _update_launches(counts: dict) -> dict:
+    """The launch counts of the update kernels: the walk kernel
+    (``csrc/random_walk.cu``), which draws the walks of DeepWalk, Walklets,
+    APP, HPE and FINE, left out."""
+    return {k: n for k, n in counts.items() if k != "random_walk"}
+
+
 def phase_build() -> None:
     from smore_tpu_torch.ops import (
         _build,
         jodie_epoch,
+        random_walk,
         scatter,
         sgns,
         sgns_banded,
@@ -370,7 +388,7 @@ def phase_build() -> None:
 
     loaders = (sgns_banded._load, sgns._load, sgns_banded._load_fused,
                scatter._load, sgns_banded._load_nb, jodie_epoch._load,
-               jodie_epoch._load_schedule)
+               jodie_epoch._load_schedule, random_walk._load)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as ex:
         for f in [ex.submit(load) for load in loaders]:
@@ -380,7 +398,7 @@ def phase_build() -> None:
     for name in ("sgns_banded_multiblock", "sgns_shared_grads",
                  "sgns_banded_fused", "band_scatter_add",
                  "sgns_banded_multiblock_nb", "jodie_epoch",
-                 "jodie_schedule"):
+                 "jodie_schedule", "random_walk"):
         secs, report = _build.build_info[name]
         log(f"  {name}: {secs:.2f} s")
         for line in report.splitlines():
@@ -850,6 +868,98 @@ def phase_k2_vs_twin(device) -> dict:
                        library_ms=min(t_lib))
     return out
 
+
+
+WALK_STEPS = 40  # DeepWalk's walk_steps (SMORe's CLI default)
+# the DeepWalk cells' walk batches: 128 walks a step on Youtube, one
+# epoch's hoisted starts on Flickr
+WALK_SHAPES = (("youtube", 128), ("flickr", 80_640))
+
+
+def _walk_tables(traffic: str, device):
+    """Sampler tables of a DeepWalk cell's graph (perfbench/traffic/), made
+    at seed 0 as the benchmark makes it."""
+    from perfbench.harness import graphs, spec
+    from smore_tpu_torch.graph.graph import Graph
+    from smore_tpu_torch.sampling.tables import SamplerTables
+
+    a = graphs.make(spec.cell(f"deepwalk.{traffic}").traffic["graph"], 0)
+    g = Graph.from_arrays(a.src, a.dst, a.weights, a.names, a.name2id)
+    return SamplerTables.build(g, device=device)
+
+
+def _walk_bound(B: int, steps: int) -> dict:
+    """One product a step (u0 x degree); the starts and their vert_meta
+    rows, per step the uniforms (8 B), the cursor's vert_meta row (8 B) and
+    one ctx_pa row (16 B), the int32 walks and the row mask, each read or
+    written once."""
+    nbytes = B * (4 + 8 + 4) + B * steps * (8 + 8 + 16) + B * (steps + 1) * 4
+    return _bound("random_walk", B * steps, nbytes)
+
+
+def phase_random_walk_vs_twin(device) -> dict:
+    """The walk kernel against its plain twin at WALK_SHAPES: the walks and
+    row mask torch.equal in both restart modes; a call is ONE launch of
+    the kernel; ptxas's report; both times alternated on the card, the
+    bound. Returns the Youtube shape's numbers (a DeepWalk Youtube step's
+    walk), the Flickr shape's under "flickr"."""
+    from smore_tpu_torch.ops import _build
+    from smore_tpu_torch.sampling.walks import random_walk, random_walk_ref
+
+    card = _card()
+    out = {}
+    for traffic, b in WALK_SHAPES:
+        t = _walk_tables(traffic, device)
+        gen = torch.Generator(device=device).manual_seed(b)
+        starts = torch.randint(0, t.n_vertices, (b,), generator=gen,
+                               device=device, dtype=torch.int32)
+        u = torch.rand((WALK_STEPS, b, 2), generator=gen, device=device)
+        for restart in (True, False):
+            got = random_walk(t, None, starts, WALK_STEPS, restart, u=u)
+            want = random_walk_ref(t, starts, WALK_STEPS, u, restart)
+            require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                    f"random_walk on {traffic} (B={b}, restart {restart}): "
+                    "the kernel's walks differ from the twin's")
+        dead = int((got[1] == 0).sum())
+
+        def kernel():
+            random_walk(t, None, starts, WALK_STEPS, u=u)
+
+        for _ in range(3):
+            host, kernels = _cuda_work(kernel)
+            require(len(host) == 3 and all(h.startswith("cudaLaunchKernel")
+                                           for h in host)
+                    and len(kernels) <= 3
+                    and all("random_walk_steps" in k for k in kernels),
+                    f"random_walk: 3 calls put {host} / {kernels} on the "
+                    "card, not 3 launches of random_walk_steps")
+            if kernels:
+                break
+        ms, t_kern, plain_ms, t_plain = _alternate(
+            lambda: random_walk_ref(t, starts, WALK_STEPS, u), kernel, 20,
+            200)
+        bound = _walk_bound(b, WALK_STEPS)
+        log(f"random_walk vs twin on {traffic} ({t.n_vertices:,} vertices, "
+            f"{t.n_edges:,} edges; B={b:,}, {WALK_STEPS} steps, {dead} dead "
+            f"starts): walks and row mask equal in both restart modes; "
+            f"kernel {ms:.4f} ms {t_kern} ({1e6 * ms / WALK_STEPS:.0f} ns a "
+            f"step), twin {plain_ms:.4f} ms {t_plain} ({plain_ms / ms:.0f}x); "
+            f"{100 * bound['bound_ms'] / ms:.2f}% of its bytes bound: "
+            f"latency-bound, {2 * WALK_STEPS} dependent loads a walk [{card}]")
+        shape = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **bound,
+                     library_ms=None, traffic=traffic, walks=b,
+                     steps=WALK_STEPS)
+        if out:
+            out["flickr"] = shape
+        else:
+            out.update(shape)
+    log(f"random_walk CUDA launches per call (profiler, 3 calls): host "
+        f"{len(host) / 3:g} {sorted(set(host))}, device kernels recorded "
+        f"{len(kernels)} {sorted(set(kernels)) or '(none: CUPTI dropped them)'}")
+    for line in _build.build_info["random_walk"][1].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+    return out
 
 def _train_counted(m, counter, never=(), **kw):
     """1M samples (tables, stream, warm-up), fresh tables, then the timed
@@ -1362,7 +1472,8 @@ def _card() -> str:
 def phase_walks_cli() -> str:
     """The four walk models through ``python -m smore_tpu_torch`` on the
     20k walk-parity graph at the reference's default budgets; each must
-    launch no kernel (the walk update is the masked plain path). APP also
+    launch no update kernel (the walk update is the masked plain path), and
+    every model but node2vec the walk kernel. APP also
     checkpoints its final state, whose context table scores its AUC."""
     from smore_tpu_torch.utils.bench_graphs import make_graph
     from smore_tpu_torch.utils.checkpoint import load_checkpoint
@@ -1380,8 +1491,10 @@ def phase_walks_cli() -> str:
                      "-no_resume"]
         r = run_cli([model, "-train", path, "-save", save] + WALK_COMMON
                     + flags + extra)
-        require(not any(r["launches"].values()),
+        require(not any(_update_launches(r["launches"]).values()),
                 f"{model} launched a kernel: {r['launches']}")
+        require((r["launches"]["random_walk"] > 0) == (model != "node2vec"),
+                f"{model}'s walk kernel launches: {r['launches']}")
         name2row, emb = _load_emb(save)
         require(len(name2row) == WALK_GRAPH["n"] and np.isfinite(emb).all(),
                 f"{model}: {len(name2row)} rows or non-finite values")
@@ -1429,12 +1542,14 @@ def phase_walk_kill_resume(path: str, device):
     restored tables and generator state must be the saved bytes, and the
     resumed run's link-AUC within 0.005 of an uninterrupted run's (atomics
     sum duplicate rows in a changing order, so the two differ in the last
-    bits). Returns the resumed model."""
+    bits). Returns the resumed model and the walk kernel's launches in the
+    uninterrupted run."""
     import shutil
 
     from smore_tpu_torch.graph.graph import Graph
     from smore_tpu_torch.models import DeepWalk
     from smore_tpu_torch.models.base import TrainDriver
+    from smore_tpu_torch.ops.random_walk import random_walk
     from smore_tpu_torch.utils.checkpoint import load_checkpoint
 
     g = Graph.load_edge_list(path, undirected=True)
@@ -1452,16 +1567,19 @@ def phase_walk_kill_resume(path: str, device):
         return link_auc(path, *_load_emb(f))
 
     ref = fresh()
+    random_walk.launches = 0
     t0 = time.perf_counter()
     ref.train(**kw)
     dt = time.perf_counter() - t0
+    walk_launches = random_walk.launches
+    require(walk_launches > 0, "DeepWalk launched no walk kernel")
     auc_ref = auc_of(ref, "deepwalk_ref.txt")
     d = ref.last_driver
     log(f"kill and resume: DeepWalk uninterrupted {d.executed_samples:,} "
         f"walks in {dt:.2f} s ({d.executed_samples / dt:,.0f} walks/s), "
         f"batch {d.samples_per_step // d.micro_steps} x {d.micro_steps} "
-        f"(epoch hoist), {d.steps_per_call} step(s) per call; link-AUC "
-        f"{auc_ref:.4f}")
+        f"(epoch hoist), {d.steps_per_call} step(s) per call, "
+        f"{walk_launches} walk kernel launches; link-AUC {auc_ref:.4f}")
 
     ck = os.path.join(OUT, "deepwalk_ckpt")
     shutil.rmtree(ck, ignore_errors=True)
@@ -1520,7 +1638,7 @@ def phase_walk_kill_resume(path: str, device):
     require(abs(auc - auc_ref) <= 0.005,
             f"resumed link-AUC {auc:.4f} vs uninterrupted {auc_ref:.4f}")
     m2.set_checkpoint(None)
-    return m2
+    return m2, walk_launches
 
 
 def _cli_table(g, path: str) -> np.ndarray:
@@ -1665,7 +1783,8 @@ def _rec_gate(model: str, path: str, files: dict, record,
 
 def _no_launch(model: str, counters: dict) -> None:
     counts = {name: c.launches for name, c in counters.items()}
-    require(not any(counts.values()), f"{model} launched {counts}")
+    require(not any(_update_launches(counts).values()),
+            f"{model} launched {counts}")
 
 
 def _finite(model: str, state: dict) -> None:
@@ -1743,7 +1862,7 @@ def phase_rec_cli(files: dict) -> None:
         save = os.path.join(OUT, f"rec_cli_{model}.txt")
         r = run_cli([model, "-train", files["train.txt"], "-save", save]
                     + common + extra)
-        require(not any(r["launches"].values()),
+        require(not any(_update_launches(r["launches"]).values()),
                 f"{model} through the CLI launched {r['launches']}")
         scores = _rec_gate(model, save, files, REC_RECORDS[model])
         log(f"{model} (CLI, {' '.join(extra) or 'directed default'}): "
@@ -1871,7 +1990,7 @@ def phase_community_cli(files: dict) -> None:
                  "-field", files["field.txt"], "-walk_steps", "2",
                  "-sample_times", str(MSFINE_SAMPLES), "-dimensions",
                  str(D)])
-    require(not any(r["launches"].values()),
+    require(not any(_update_launches(r["launches"]).values()),
             f"msfine through the CLI launched {r['launches']}")
     ue, ie = rec_data.load_wide_embeddings(save)
     require(ue.shape[1] == 2 * D, f"msfine wrote {ue.shape[1]} columns")
@@ -3162,6 +3281,7 @@ def run_phases(args) -> None:
     k1 = timed("K1 vs twin", phase_k1_vs_twin, device)
     k3 = timed("K3 vs twin", phase_k3_vs_twin, device)
     k2 = timed("K2 vs twin", phase_k2_vs_twin, device)
+    kw_ = timed("random_walk vs twin", phase_random_walk_vs_twin, device)
     g_yt, m_yt, k4_launches = timed("Youtube multiblock and unbanded",
                                     phase_youtube, device)
     routes = timed("Youtube routes", phase_youtube_routes, g_yt, device)
@@ -3172,8 +3292,8 @@ def run_phases(args) -> None:
     m_50k, k1_launches = unbanded["group 8 (main path)"]
     t0 = time.perf_counter()
     walk_graph = timed("walks through the CLI", phase_walks_cli)
-    m_dw = timed("kill and resume", phase_walk_kill_resume, walk_graph,
-                 device)
+    m_dw, kw_launches = timed("kill and resume", phase_walk_kill_resume,
+                              walk_graph, device)
     timed("line through the CLI", phase_line_cli, g_yt)
     log(f"CLI, walk and checkpoint phases: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3328,6 +3448,14 @@ def run_phases(args) -> None:
             "replaces": "smore_tpu/models/jodie.py:141",
             "launches": kj_launches,
             **kj,
+        },
+        {
+            "name": "random_walk",
+            "route": "cuda",
+            "source": "smore_tpu_torch/csrc/random_walk.cu",
+            "replaces": "smore_tpu/sampling/walks.py:39",
+            "launches": kw_launches,
+            **kw_,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

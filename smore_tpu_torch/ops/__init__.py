@@ -1,1 +1,2 @@
-"""Update kernels: hand-written CUDA for Hopper, each with a PyTorch twin."""
+"""Hand-written CUDA kernels for Hopper, the updates' and the walk's, each
+with a PyTorch twin."""

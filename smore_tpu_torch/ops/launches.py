@@ -3,14 +3,14 @@ CUDA graph holds.
 
 Each wrapper (``sgns_shared_grads``, ``band_scatter_add``,
 ``sgns_banded_multiblock``, ``sgns_banded_multiblock_nb``,
-``sgns_banded_fused``, ``jodie_epoch``) adds one to its own ``launches``
-attribute where it launches its kernel. A CUDA graph replays its kernels
-without running the wrappers' Python, so ``TrainDriver`` reads, from the
-captured graph's own nodes, how many launches of each kernel it holds
-(``in_graph``), holds that to how far each counter moved while the call
-was captured, takes the capture's count back (nothing ran) and credits the
-graph's on every replay (``recorded``, ``credit``): the counters count
-launches the card ran.
+``sgns_banded_fused``, ``jodie_epoch``, ``random_walk``) adds one to its
+own ``launches`` attribute where it launches its kernel. A CUDA graph
+replays its kernels without running the wrappers' Python, so
+``TrainDriver`` reads, from the captured graph's own nodes, how many
+launches of each kernel it holds (``in_graph``), holds that to how far each
+counter moved while the call was captured, takes the capture's count back
+(nothing ran) and credits the graph's on every replay (``recorded``,
+``credit``): the counters count launches the card ran.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ _PREFIX = {
     "band_scatter_add": "band_scatter",
     "sgns_banded_multiblock_nb": "sgns_nb",
     "jodie_epoch": "jodie_epoch",
+    "random_walk": "random_walk",
 }
 
 Credit = List[Tuple[object, int]]
@@ -37,6 +38,7 @@ Credit = List[Tuple[object, int]]
 def wrappers() -> dict:
     """The launch-counting wrappers of every kernel, by kernel name."""
     from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
+    from smore_tpu_torch.ops.random_walk import random_walk
     from smore_tpu_torch.ops.scatter import band_scatter_add
     from smore_tpu_torch.ops.sgns import sgns_shared_grads
     from smore_tpu_torch.ops.sgns_banded import (
@@ -47,7 +49,8 @@ def wrappers() -> dict:
 
     funcs = {f.__name__: f for f in (sgns_banded_multiblock, sgns_shared_grads,
                                      sgns_banded_fused, band_scatter_add,
-                                     sgns_banded_multiblock_nb, jodie_epoch)}
+                                     sgns_banded_multiblock_nb, jodie_epoch,
+                                     random_walk)}
     assert list(funcs) == list(_PREFIX)
     return funcs
 

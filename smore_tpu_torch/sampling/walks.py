@@ -16,7 +16,10 @@ Port of ``smore_tpu/sampling/walks.py``. The reference's walks:
   draws, each accepted with probability bias / max_bias, the last taken
   when all are rejected.
 
-JAX's ``lax.scan`` over the steps is a Python loop over steps here, each
+JAX's ``lax.scan`` over the steps is, for ``random_walk`` on a CUDA card,
+one launch of the hand-written kernel ``csrc/random_walk.cu`` (one thread a
+walk, every step in the launch); on the CPU its plain twin
+``random_walk_ref``, and for the other walks, a Python loop over steps, each
 step a few tensor ops on the whole batch. Every function takes its
 uniforms as optional arguments of the JAX draws' shapes and draws them
 from ``gen`` when they are not given; given the same uniforms the walks are
@@ -33,23 +36,21 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from smore_tpu_torch.ops import random_walk as walk_kernel
 from smore_tpu_torch.sampling.tables import SamplerTables
 
 
-def random_walk(
+def random_walk_ref(
     tables: SamplerTables,
-    gen: Optional[torch.Generator],
     starts: torch.Tensor,  # (B,) int32
     steps: int,
+    u: torch.Tensor,  # (steps, B, 2)
     restart_on_deadend: bool = True,
-    u: Optional[torch.Tensor] = None,  # (steps, B, 2)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched RandomWalk. Returns (walk (B, steps+1) int32, row_mask (B,)
-    float32, 0 where the start vertex has no out-edges)."""
+    """Plain PyTorch twin of the kernel: the JAX scan as a loop over the
+    steps, a few tensor ops on the whole batch each."""
     meta0 = tables.vert_meta[starts]
     row_mask = (meta0[..., 1] > 0).to(torch.float32)
-    if u is None:
-        u = tables._uniform(gen, (steps,) + tuple(starts.shape) + (2,))
     path = [starts]
     cur = starts
     for t in range(steps):
@@ -61,6 +62,35 @@ def random_walk(
         cur = tables._context_of(cur, meta, u[t])
         path.append(cur)
     return torch.stack(path, dim=1), row_mask
+
+
+def random_walk(
+    tables: SamplerTables,
+    gen: Optional[torch.Generator],
+    starts: torch.Tensor,  # (B,) int32
+    steps: int,
+    restart_on_deadend: bool = True,
+    u: Optional[torch.Tensor] = None,  # (steps, B, 2)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched RandomWalk. Returns (walk (B, steps+1) int32, row_mask (B,)
+    float32, 0 where the start vertex has no out-edges).
+
+    The uniforms are drawn from ``gen`` in one call when not given. CPU
+    tensors run ``random_walk_ref``; CUDA tensors launch the kernel
+    (``csrc/random_walk.cu``) on the current stream, bit-equal to the twin
+    given the same ``u``; any other device raises: nothing falls back.
+    ``ops/random_walk.random_walk.launches`` counts kernel launches. Vertex
+    ids are not bounds-checked on the card."""
+    dev = starts.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    if u is None:
+        u = tables._uniform(gen, (steps,) + tuple(starts.shape) + (2,))
+    if dev.type == "cuda":
+        return walk_kernel.random_walk(starts, u, tables.vert_meta,
+                                       tables.ctx_pa, restart_on_deadend)
+    walk_kernel.check(starts, steps, u, tables.vert_meta, tables.ctx_pa)
+    return random_walk_ref(tables, starts, steps, u, restart_on_deadend)
 
 
 def jumping_walk_endpoints(

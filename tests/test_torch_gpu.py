@@ -51,6 +51,7 @@ from torch_superstep_inputs import (
     multiblock_inputs,
     multiblock_nb_inputs,
 )
+from torch_walk_inputs import dead_end_graph, walk_inputs
 
 # Atomics sum duplicate rows in an order that changes from run to run, and
 # later tiles gather those sums: f32 round-off scale, not bit-equal.
@@ -527,6 +528,100 @@ def test_walks_on_the_card_match_the_cpu(cuda):
     np.testing.assert_array_equal(got[0].cpu().numpy()[off],
                                   want[0].numpy()[off])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+def _walk_kernel_tables(device):
+    """Sampler tables of ``torch_walk_inputs.dead_end_graph``: every fifth
+    vertex and the last one have no out-edge, the last one's indptr E."""
+    from smore_tpu_torch.sampling.tables import SamplerTables
+
+    g = Graph.from_arrays(*dead_end_graph())
+    t = SamplerTables.build(g, device=device)
+    n = g.n_vertices
+    assert t.vert_meta[n - 1].tolist() == [t.n_edges, 0]
+    assert t.vert_meta[0, 1].item() == 0
+    return t
+
+
+def _walk_inputs(t, B, steps, seed):
+    """``torch_walk_inputs.walk_inputs`` on the tables' device."""
+    device = t.vert_meta.device
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in walk_inputs(t.n_vertices, B, steps, seed))
+
+
+WALK_KERNEL_CASES = [(B, steps) for B in (1, 128, 4096, 80640)
+                     for steps in (1, 40, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("restart", [True, False])
+@pytest.mark.parametrize("B,steps", WALK_KERNEL_CASES)
+def test_walk_kernel_matches_twin(cuda, B, steps, restart):
+    """The walk kernel's walks and row mask are the twin's, bit for bit,
+    given the same uniforms: dead starts, a dead start past the last edge,
+    restarts or held cursors at dead ends, one pass (40 steps) or two (64)
+    of the kernel's staging."""
+    from smore_tpu_torch.ops import random_walk as walk_kernel
+    from smore_tpu_torch.sampling import walks
+
+    t = _walk_kernel_tables(cuda)
+    starts, u = _walk_inputs(t, B, steps, seed=B * 1000 + steps)
+    before = walk_kernel.random_walk.launches
+    got = walks.random_walk(t, None, starts, steps, restart, u=u)
+    assert walk_kernel.random_walk.launches == before + 1
+    want = walks.random_walk_ref(t, starts, steps, u, restart)
+    assert got[0].shape == (B, steps + 1) and got[0].dtype == torch.int32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_walk_kernel_captured_matches_eager(cuda):
+    """Two walk launches (both restart modes) captured into one CUDA graph:
+    the graph's nodes hold two launches of the walk kernel, and a replay on
+    new uniforms, copied into the captured input, gives the twin's walks on
+    those uniforms."""
+    from smore_tpu_torch.ops import launches
+    from smore_tpu_torch.sampling import walks
+
+    t = _walk_kernel_tables(cuda)
+    B, steps = 4096, 40
+    starts, u = _walk_inputs(t, B, steps, seed=1)
+
+    def call():
+        return [walks.random_walk(t, None, starts, steps, restart, u=u)
+                for restart in (True, False)]
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        got = call()
+    assert launches.in_graph(graph.raw_cuda_graph()) == {"random_walk": 2}
+    u.copy_(_walk_inputs(t, B, steps, seed=2)[1])
+    graph.replay()
+    torch.cuda.synchronize()
+    for (walk, mask), restart in zip(got, (True, False)):
+        want = walks.random_walk_ref(t, starts, steps, u, restart)
+        assert torch.equal(walk, want[0]) and torch.equal(mask, want[1])
+
+
+@pytest.mark.gpu
+def test_deepwalk_draws_its_walks_with_the_kernel(cuda):
+    """DeepWalk on captured calls launches the walk kernel once a step (its
+    replays credited), and no update kernel."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.ops import launches
+
+    m = models.DeepWalk(_walk_graph()[0], seed=0, device=cuda)
+    m.init(dim=16)
+    before = launches.read()
+    m.train(walk_times=4, steps_per_call=4, verbose=False)
+    d = m.last_driver
+    assert d.replays >= 1
+    moved = launches.moved(before)
+    assert moved == {"random_walk":
+                     d.executed_samples // d.samples_per_step}, moved
 
 
 @pytest.mark.gpu

@@ -23,6 +23,8 @@ from smore_tpu.ops.pallas_sgns_banded import (
     unfold_table,
 )
 from smore_tpu_torch.ops import jodie_epoch as jodie_ops
+from smore_tpu_torch.ops import launches
+from smore_tpu_torch.ops import random_walk as walk_ops
 from smore_tpu_torch.ops import scatter as scatter_ops
 from smore_tpu_torch.ops import sgns as sgns_ops
 from smore_tpu_torch.ops import sgns_banded as sgns_banded_ops
@@ -155,6 +157,21 @@ def _ctypes_kinds(argtypes):
 def test_launch_signature_matches_ctypes(name):
     argtypes = {**sgns_banded_ops.LAUNCH_ARGTYPES, **sgns_ops.LAUNCH_ARGTYPES,
                 **scatter_ops.LAUNCH_ARGTYPES, **jodie_ops.LAUNCH_ARGTYPES,
-                **profiling.LAUNCH_ARGTYPES}
+                **profiling.LAUNCH_ARGTYPES, **walk_ops.LAUNCH_ARGTYPES}
     assert name in argtypes, f"no wrapper binds csrc/{name}.cu"
     assert _c_kinds(name) == _ctypes_kinds(argtypes[name])
+
+
+@pytest.mark.parametrize("name", sorted(launches._PREFIX))
+def test_each_counted_kernel_exports_its_graph_node_count(name):
+    """Every kernel that ``ops/launches`` credits on replays has its own
+    library, ``csrc/<name>.cu``, exporting ``<prefix>_graph_launches`` and
+    ``<prefix>_error_string`` under the prefix the registry gives it, and
+    a wrapper of that name."""
+    prefix = launches._PREFIX[name]
+    with open(os.path.join(_CSRC, f"{name}.cu")) as f:
+        extern = f.read().split('extern "C"', 1)[1]
+    assert re.search(rf"\bint\s+{prefix}_graph_launches\s*\(\s*void\s*\*"
+                     rf"\s*\w+\s*,\s*long long\s*\*\s*\w+\s*\)", extern)
+    assert re.search(rf"\b{prefix}_error_string\s*\(\s*int\b", extern)
+    assert launches.wrappers()[name].__name__ == name

@@ -21,9 +21,11 @@ from smore_tpu.sampling import mappers as JM
 from smore_tpu.sampling import walks as JW
 from smore_tpu.sampling.tables import SamplerTables as JTables
 from smore_tpu_torch.graph.graph import Graph as TGraph
+from smore_tpu_torch.ops import random_walk as walk_kernel
 from smore_tpu_torch.sampling import mappers as TM
 from smore_tpu_torch.sampling import walks as TW
 from smore_tpu_torch.sampling.tables import SamplerTables as TTables
+from torch_walk_inputs import dead_end_graph, walk_inputs
 
 # one intra-op thread: test workers share the cores, and a thread pool
 # in each of them oversubscribes the CPU on these tiny shapes
@@ -125,6 +127,109 @@ def test_random_walk_draws_its_own_uniforms(both):
                 assert c in tg.neighbors(a)
             else:  # dead end: restart from the start, or a dead start
                 assert c in tg.neighbors(w[b, 0]) or c == w[b, 0]
+
+
+@pytest.mark.parametrize("restart", [True, False])
+def test_random_walk_on_the_cpu_is_its_twin(both, restart):
+    """On CPU tensors ``random_walk`` is ``random_walk_ref`` on the uniforms
+    that one draw of the generator gives, and launches no kernel."""
+    _, _, tg, tt = both
+    B, steps = 48, 9
+    starts = torch.from_numpy(_starts(tg.n_vertices, B, 4))
+    launches = walk_kernel.random_walk.launches
+    got = TW.random_walk(tt, torch.Generator().manual_seed(11), starts,
+                         steps, restart_on_deadend=restart)
+    u = torch.rand((steps, B, 2), generator=torch.Generator().manual_seed(11))
+    want = TW.random_walk_ref(tt, starts, steps, u, restart)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert walk_kernel.random_walk.launches == launches
+
+
+@pytest.fixture(scope="module")
+def dead_end_tables():
+    arrays = dead_end_graph()
+    return (JTables.build(JGraph.from_arrays(*arrays)),
+            TTables.build(TGraph.from_arrays(*arrays), device=CPU))
+
+
+@pytest.mark.parametrize("restart", [True, False])
+def test_random_walk_bit_equal_on_the_kernel_tests_inputs(
+        dead_end_tables, monkeypatch, restart):
+    """The JAX package's random_walk and the port's, on the graph and the
+    uniforms that the card tests feed the kernel: dead starts, a dead
+    vertex whose indptr is E, u0 at the float just below 1. JAX's walk
+    draws its uniforms inside; the draw is made to return these."""
+    jt, tt = dead_end_tables
+    n = tt.n_vertices
+    assert tt.vert_meta[n - 1].tolist() == [tt.n_edges, 0]
+    B, steps = 640, 40
+    starts, u = walk_inputs(n, B, steps, seed=7)
+
+    def uniform(key, shape):
+        assert tuple(shape) == u.shape
+        return jnp.asarray(u)
+
+    monkeypatch.setattr(JW.jax.random, "uniform", uniform)
+    jw, jm = JW.random_walk(jt, jax.random.PRNGKey(0), jnp.asarray(starts),
+                            steps, restart_on_deadend=restart)
+    tw, tm = TW.random_walk(tt, None, torch.from_numpy(starts), steps,
+                            restart_on_deadend=restart,
+                            u=torch.from_numpy(u))
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(jw))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    assert (np.asarray(jm) == 0).any()
+
+
+def _walk_args(device):
+    tables = TTables.build(TGraph.from_edges(*_ring_edges()), device=CPU)
+    tables = TTables(*(t.to(device) for t in (
+        tables.vertex_pa, tables.neg_pa, tables.vert_meta, tables.ctx_pa,
+        tables.edge_pa)))
+    starts = torch.zeros(8, dtype=torch.int32, device=device)
+    return tables, starts, torch.zeros(5, 8, 2, device=device)
+
+
+def test_random_walk_has_no_fallback_off_cpu():
+    """A device that is neither the CPU nor a CUDA card gets an error, never
+    the twin, and before the generator is drawn from."""
+    tables, starts, u = _walk_args("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        TW.random_walk(tables, None, starts, 5, u=u)
+    gen = torch.Generator().manual_seed(0)
+    state = gen.get_state()
+    with pytest.raises(ValueError, match="no kernel"):
+        TW.random_walk(tables, gen, starts, 5)
+    assert torch.equal(gen.get_state(), state)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_walk_kernel_wrapper_launches_only_on_the_card(device):
+    """``ops/random_walk.random_walk`` is the launch alone: off a CUDA card
+    it raises and counts nothing (``sampling/walks`` runs the twin)."""
+    tables, starts, u = _walk_args(device)
+    launches = walk_kernel.random_walk.launches
+    with pytest.raises(ValueError, match="no kernel"):
+        walk_kernel.random_walk(starts, u, tables.vert_meta, tables.ctx_pa)
+    assert walk_kernel.random_walk.launches == launches
+
+
+@pytest.mark.parametrize("bad", ["starts_int64", "starts_2d", "u_shape",
+                                 "u_float64"])
+def test_random_walk_rejects_what_the_kernel_does_not_take(bad):
+    """The kernel's contract holds on the CPU too, so a caller that breaks
+    it fails in the CPU tests and not first on the card."""
+    tables, starts, u = _walk_args(CPU)
+    if bad == "starts_int64":
+        starts = starts.long()
+    elif bad == "starts_2d":
+        starts, u = starts.reshape(2, 4), u.reshape(5, 2, 4, 2)
+    elif bad == "u_shape":
+        u = u[:, :4]
+    else:
+        u = u.double()
+    with pytest.raises(ValueError):
+        TW.random_walk(tables, None, starts, 5, u=u)
 
 
 @pytest.mark.parametrize("jump", [0.15, 0.5])

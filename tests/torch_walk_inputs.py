@@ -1,0 +1,33 @@
+"""A graph and walk inputs at the edges of the walk kernel's contract
+(``csrc/random_walk.cu``), in numpy, so that the card tests
+(tests/test_torch_gpu.py) and the comparison with the JAX package's walk
+(tests/test_torch_walks.py) feed the same vertices and uniforms."""
+
+import numpy as np
+
+
+def dead_end_graph(n: int = 2000):
+    """(src, dst, weights, names, name2id) of a weighted directed graph
+    where every fifth vertex and the last one have no out-edge: the last
+    one's indptr is E, past the last edge."""
+    rng = np.random.default_rng(5)
+    src = rng.integers(0, n - 1, 16 * n)
+    src = src[src % 5 != 0]
+    dst = rng.integers(0, n, src.shape[0])
+    keep = src != dst
+    names = [f"v{i}" for i in range(n)]
+    return (src[keep], dst[keep], rng.uniform(0.5, 3.0, int(keep.sum())),
+            names, {nm: i for i, nm in enumerate(names)})
+
+
+def walk_inputs(n_vertices: int, B: int, steps: int, seed: int):
+    """(starts (B,) int32, u (steps, B, 2) float32): dead starts (vertex 0,
+    and the last vertex, past the last edge), and some u0 at the float just
+    below 1, whose product with a degree may round up to the degree."""
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, n_vertices, B).astype(np.int32)
+    starts[::5] = n_vertices - 1
+    starts[1::5] = 0
+    u = rng.random((steps, B, 2), dtype=np.float32)
+    u[:, 2::7, 0] = np.float32(1.0 - 2.0 ** -24)
+    return starts, u
