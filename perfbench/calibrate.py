@@ -52,7 +52,7 @@ def replay_readings(st, cell, device, train_seed: int, fault=None) -> dict:
     with faults.plant(fault) if fault else contextlib.nullcontext():
         probe.install()
         try:
-            fam.job(model, cell, cell.traffic["jobs"][cell.family])
+            fam.job(model, cell, cell.budget)
         except replay.Abort:
             pass
         finally:

@@ -3,21 +3,22 @@ the output check, and the result line.
 
 Set-up (``setup_s``, from the process's start): imports, the graph made
 from ``--seed`` (``graphs``) and handed to ``Graph.from_arrays``, the model
-built from the seed, and one warm ``train()`` at the traffic's warm-up
-budget, which builds the kernels (served from the checkout's build
-directory after the first run), the sampler and band tables and the edge
-stream, and runs the first call and the capture. The output check records
-that ``train()``'s first updates (``record``).
+built from the seed, and one warm ``train()`` at the cell's warm-up budget
+(``spec.Cell.warm``), which builds the kernels (served from the
+checkout's build directory after the first run), the sampler and band
+tables and the edge stream, and runs the first call and the capture. The
+output check records that ``train()``'s first updates (``record``).
 
 Window (``--trace 0``): whole jobs back to back, each ``init`` then
-``train()`` at the traffic's job budget, until ``--seconds`` have passed;
-the job in flight at the deadline finishes and counts. A rate is all the
-jobs' work over the wall time from the first job's start to the last one's
-end, ended by ``torch.cuda.synchronize()``. The AUC is read from the last
-job's vertex table afterwards. While the window runs, the output check
-keeps one replay of each job (``replay``); after it, and after the card's
-memory peak has been read, the last job's kept call runs again eagerly,
-and the program's state is freed before the reference runs.
+``train()`` at the cell's job budget (``spec.Cell.budget``), until
+``--seconds`` have passed; the job in flight at the deadline finishes and
+counts. A rate is all the jobs' work over the wall time from the first
+job's start to the last one's end, ended by ``torch.cuda.synchronize()``.
+The AUC is read from the last job's vertex table afterwards. While the
+window runs, the output check keeps one replay of each job (``replay``);
+after it, and after the card's memory peak has been read, the last job's
+kept call runs again eagerly, and the program's state is freed before the
+reference runs.
 
 Traced run (``--trace 1``): one job, its replays after the capture under
 ``torch.profiler`` (``trace``), read by the per-layer metrics; the output
@@ -94,7 +95,7 @@ def set_up(cell: spec.Cell, seed: int, device) -> types.SimpleNamespace:
     with the output check's recorder on its first updates."""
     from smore_tpu_torch.graph.graph import Graph
 
-    fam = spec.family(cell.family)
+    fam = spec.family(cell.family, cell.root)
     spans: Dict[str, float] = {}
 
     @contextlib.contextmanager
@@ -113,7 +114,7 @@ def set_up(cell: spec.Cell, seed: int, device) -> types.SimpleNamespace:
     fam.hooks(rec)
     try:
         with span("warm_train"):
-            fam.job(model, cell, cell.traffic["warm"][cell.family])
+            fam.job(model, cell, cell.warm)
             _sync(device)
     finally:
         rec.restore()
@@ -167,7 +168,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     fam, model = st.fam, st.model
     setup_s = time.perf_counter() - t_start
 
-    budget = cell.traffic["jobs"][cell.family]
+    budget = cell.budget
     jobs, summary, auc = [], None, None
     probe = replay.ReplayProbe(from_end=cell.replay.get("from_end"))
     probe.install()
@@ -218,7 +219,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, traced: bool,
     wanted = cell.per_layer if traced else cell.end_to_end
     metrics = {}
     for m in wanted:
-        value = spec.metric_reader(m["name"]).read(ctx)
+        value = spec.metric_reader(m["name"], cell.root).read(ctx)
         if value is None:
             if not traced:
                 raise RuntimeError(f"end-to-end metric {m['name']} read "

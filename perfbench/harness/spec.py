@@ -4,22 +4,27 @@
 configurations and the metrics; each is a file of its own under
 ``perfbench/``:
 
-- a cell ``<config>.<traffic>``: ``workloads/<cell>.json`` (the limits of
-  its output check);
+- a cell: ``workloads/<cell>.json``: the limits of its output check, the
+  call its replay check keeps (``replay``, optional), its own job and
+  warm-up budgets (``jobs``, ``warm``: ``job()`` keyword arguments,
+  optional: the traffic's budgets for the family where absent) and its
+  sizes for the CPU tests (``tiny``, which a run on the card never reads);
 - a configuration: the ``file`` that BENCHMARK.json gives it (the model's
   published settings and the family that drives it);
 - a traffic mix: ``traffic/<traffic>.json`` (the graph's law and sizes,
   the job's and the warm-up's budgets per family);
-- a metric: ``metrics/<name>.py``, a reader with its declarations;
+- a metric: ``metrics/<name>.py``, a reader with its declarations; the
+  cells it applies to are the ``workloads`` of its BENCHMARK.json entry,
+  and only there;
 - a family of models: ``harness/families/<family>.py``.
 
-Adding a cell, a configuration, a traffic mix or a metric adds files and
-entries; no file already there changes.
+Adding a cell, a configuration, a traffic mix, a family or a metric adds
+files and entries, and appends the cell's name to the ``workloads`` lists
+of the metrics it reports; no file already there changes.
 """
 
 from __future__ import annotations
 
-import importlib
 import importlib.util
 import json
 import os
@@ -50,10 +55,10 @@ class Cell:
     entry: dict  # the workloads entry of BENCHMARK.json
     config: dict  # the configuration's file
     traffic: dict  # traffic/<traffic>.json
-    limits: dict  # workloads/<cell>.json "limits"
-    replay: dict  # workloads/<cell>.json "replay" (the call kept), or {}
+    work: dict  # workloads/<cell>.json
     end_to_end: List[dict]  # the cell's end-to-end metrics
     per_layer: List[dict]  # the cell's per-layer metrics
+    root: str  # the checkout the cell was read from
 
     @property
     def chips(self) -> int:
@@ -62,6 +67,31 @@ class Cell:
     @property
     def family(self) -> str:
         return self.config["family"]
+
+    @property
+    def limits(self) -> dict:
+        return self.work["limits"]
+
+    @property
+    def replay(self) -> dict:
+        """The call the replay check keeps (``from_end``), or {}."""
+        return self.work.get("replay", {})
+
+    @property
+    def budget(self) -> dict:
+        """A job's ``job()`` keyword arguments: the cell's own, else the
+        traffic's for the family."""
+        return self._budget("jobs")
+
+    @property
+    def warm(self) -> dict:
+        """Set-up's warm ``train()``'s, the same way."""
+        return self._budget("warm")
+
+    def _budget(self, key: str) -> dict:
+        if key in self.work:
+            return self.work[key]
+        return self.traffic[key][self.family]
 
 
 def benchmark(root: str = ROOT) -> dict:
@@ -97,10 +127,10 @@ def cell(name: str, root: str = ROOT) -> Cell:
         config=_json(os.path.join(root, cfg_entry["file"])),
         traffic=_json(os.path.join(here, "traffic",
                                    f"{entry['traffic']}.json")),
-        limits=work["limits"],
-        replay=work.get("replay", {}),
+        work=work,
         end_to_end=e2e,
         per_layer=per_layer,
+        root=root,
     )
 
 
@@ -110,5 +140,11 @@ def metric_reader(name: str, root: str = ROOT) -> ModuleType:
                        f"perfbench_metric_{name.replace('.', '_')}")
 
 
-def family(name: str) -> ModuleType:
-    return importlib.import_module(f"perfbench.harness.families.{name}")
+def family_path(name: str, root: str = ROOT) -> str:
+    return os.path.join(root, "perfbench", "harness", "families",
+                        f"{name}.py")
+
+
+def family(name: str, root: str = ROOT) -> ModuleType:
+    """The family's module, from its file in the checkout at ``root``."""
+    return load_module(family_path(name, root), f"perfbench_family_{name}")

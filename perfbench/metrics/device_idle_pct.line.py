@@ -9,7 +9,6 @@ BETTER = "lower"
 SOURCE = "device_trace"
 LAYER = "device: the card"
 MOVES = "samples_per_s"
-WORKLOADS = ["line_o2.youtube", "line_o2.flickr"]
 
 
 def read(ctx):

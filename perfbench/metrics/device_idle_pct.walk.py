@@ -9,7 +9,6 @@ BETTER = "lower"
 SOURCE = "device_trace"
 LAYER = "device: the card"
 MOVES = "walks_per_s"
-WORKLOADS = ["deepwalk.youtube", "deepwalk.flickr"]
 
 
 def read(ctx):

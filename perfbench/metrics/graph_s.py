@@ -6,7 +6,6 @@ BETTER = "lower"
 SOURCE = "program_span"
 LAYER = "graph: graph/graph.py Graph.from_arrays"
 MOVES = "setup_s"
-WORKLOADS = ["line_o2.youtube", "deepwalk.youtube", "line_o2.flickr", "deepwalk.flickr"]
 
 
 def read(ctx):

@@ -9,7 +9,6 @@ BETTER = "higher"
 SOURCE = "device_trace"
 LAYER = "kernel K4: csrc/sgns_banded_multiblock.cu"
 MOVES = "samples_per_s"
-WORKLOADS = ["line_o2.youtube"]
 
 
 def read(ctx):

@@ -10,7 +10,6 @@ BETTER = "higher"
 SOURCE = "host_clock"
 LAYER = "whole step"
 MOVES = "samples_per_s"
-WORKLOADS = ["line_o2.youtube", "line_o2.flickr"]
 
 
 def read(ctx):

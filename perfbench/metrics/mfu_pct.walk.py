@@ -10,7 +10,6 @@ BETTER = "higher"
 SOURCE = "host_clock"
 LAYER = "whole step"
 MOVES = "walks_per_s"
-WORKLOADS = ["deepwalk.youtube", "deepwalk.flickr"]
 
 
 def read(ctx):

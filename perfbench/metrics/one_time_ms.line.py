@@ -9,7 +9,6 @@ BETTER = "lower"
 SOURCE = "program_counter"
 LAYER = "driver: models/base.py TrainDriver, CapturedCalls"
 MOVES = "samples_per_s"
-WORKLOADS = ["line_o2.youtube", "line_o2.flickr"]
 
 
 def read(ctx):

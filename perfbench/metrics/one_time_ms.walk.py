@@ -9,7 +9,6 @@ BETTER = "lower"
 SOURCE = "program_counter"
 LAYER = "driver: models/base.py TrainDriver, CapturedCalls"
 MOVES = "walks_per_s"
-WORKLOADS = ["deepwalk.youtube", "deepwalk.flickr"]
 
 
 def read(ctx):

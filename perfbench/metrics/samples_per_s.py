@@ -7,7 +7,6 @@ NAME = "samples_per_s"
 UNIT = "samples/s"
 BETTER = "higher"
 SOURCE = "host_clock"
-WORKLOADS = ["line_o2.youtube", "line_o2.flickr"]
 
 
 def read(ctx):

@@ -7,7 +7,6 @@ NAME = "walks_per_s"
 UNIT = "walks/s"
 BETTER = "higher"
 SOURCE = "host_clock"
-WORKLOADS = ["deepwalk.youtube", "deepwalk.flickr"]
 
 
 def read(ctx):

@@ -7,7 +7,6 @@ BETTER = "lower"
 SOURCE = "program_span"
 LAYER = "models: models/line.py, models/deepwalk.py, models/walk_base.py"
 MOVES = "setup_s"
-WORKLOADS = ["line_o2.youtube", "deepwalk.youtube", "line_o2.flickr", "deepwalk.flickr"]
 
 
 def read(ctx):

@@ -12,11 +12,11 @@ import time
 import pytest
 import torch
 
-from perfbench.harness import check, faults, main
+from perfbench.harness import check, faults, main, spec
 
 import tiny
 
-CELLS = list(tiny.TINY)
+CELLS = tiny.names()
 
 
 def _unchanged_shared(orig):
@@ -51,17 +51,35 @@ def _half_block(orig):
     return f
 
 
-def _break(monkeypatch, name: str, fault: str):
-    from smore_tpu_torch.models import line, walk_base
+# the update boundaries that a family's hooks wrap, broken each way
+BREAKS = {
+    "sgns_shared_negs_step": {"unchanged": _unchanged_shared,
+                              "half_batch": _half_shared},
+    "multiblock_apply": {"unchanged": _unchanged_block,
+                         "half_batch": _half_block},
+}
 
-    if name == "line_o2.youtube":
-        mod, attr = line, "multiblock_apply"
-        make = {"unchanged": _unchanged_block, "half_batch": _half_block}
-    else:
-        mod = line if name.startswith("line") else walk_base
-        attr = "sgns_shared_negs_step"
-        make = {"unchanged": _unchanged_shared, "half_batch": _half_shared}
-    monkeypatch.setattr(mod, attr, make[fault](getattr(mod, attr)))
+
+class _Breaker:
+    """Stands in for the recorder in a family's ``hooks``: breaks each
+    update the family records, wherever its cell's route goes."""
+
+    def __init__(self, monkeypatch, fault: str):
+        self.monkeypatch, self.fault = monkeypatch, fault
+        self.broken = []
+
+    def patch(self, module, name: str, make) -> None:
+        if name in BREAKS:
+            self.monkeypatch.setattr(module, name, BREAKS[name][self.fault](
+                getattr(module, name)))
+            self.broken.append(name)
+
+
+def _break(monkeypatch, name: str, fault: str):
+    c = spec.cell(name)
+    breaker = _Breaker(monkeypatch, fault)
+    spec.family(c.family, c.root).hooks(breaker)
+    assert breaker.broken, f"{c.family}'s hooks wrap no update in BREAKS"
 
 
 def _run(name: str):

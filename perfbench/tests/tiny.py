@@ -1,38 +1,25 @@
-"""The benchmark's cells at sizes a CPU test holds: the same configurations
-and code paths (LINE's multiblock route forced where the card would take
-it by size), small graphs and budgets, and the walk models' calls cut to
-one step, so that every job has calls after the first two (the card's
+"""The benchmark's cells at sizes a CPU test holds, from the ``tiny`` key of
+each cell's ``workloads/<cell>.json``: the same configurations and code
+paths at a small graph (``graph``), small job and warm-up budgets
+(``jobs``, ``warm``) and any ``train`` overrides (LINE's multiblock route
+forced where the card would take it by size; the walk models' calls cut to
+one step), so that every job has calls after the first two (the card's
 replays, which the output check keeps one of)."""
-
-import copy
 
 from perfbench.harness import spec
 
-TINY = {
-    "line_o2.youtube": ({"law": "youtube", "n": 20_000, "e": 60_000,
-                         "n_comm": 20}, 0.6, 0.3),
-    "line_o2.flickr": ({"law": "community", "n": 3_000, "e": 40_000,
-                        "n_comm": 20}, 1.2, 1.2),
-    "deepwalk.youtube": ({"law": "youtube", "n": 2_000, "e": 6_000,
-                          "n_comm": 20}, 3, 0.3),
-    "deepwalk.flickr": ({"law": "community", "n": 3_000, "e": 40_000,
-                         "n_comm": 20}, 3, 1),
-}
+
+def names(root: str = spec.ROOT) -> list:
+    """Every cell of BENCHMARK.json."""
+    return [w["name"] for w in spec.benchmark(root)["workloads"]]
 
 
-def cell(name: str) -> spec.Cell:
-    c = spec.cell(name)
-    graph, job, warm = TINY[name]
-    c.traffic = copy.deepcopy(c.traffic)
-    c.traffic["graph"] = graph
-    key = "sample_times" if c.family == "line" else "walk_times"
-    c.traffic["jobs"][c.family] = {key: job}
-    c.traffic["warm"][c.family] = {key: warm}
-    if c.family == "walk":
+def cell(name: str, root: str = spec.ROOT) -> spec.Cell:
+    c = spec.cell(name, root)
+    small = c.work["tiny"]
+    c.traffic = dict(c.traffic, graph=small["graph"])
+    c.work = dict(c.work, jobs=small["jobs"], warm=small["warm"])
+    if "train" in small:
         c.config = dict(c.config, train=dict(c.config["train"],
-                                             steps_per_call=1))
-    if name == "line_o2.youtube":
-        # the route the card takes from 262,144 vertices, on a small graph
-        c.config = dict(c.config, train=dict(c.config["train"], banded=True,
-                                             multiband=True))
+                                             **small["train"]))
     return c
