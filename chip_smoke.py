@@ -10,7 +10,8 @@ and the SASRec family, on one NVIDIA card.
 Phases (any failure exits non-zero; there is no CPU path):
   1. device: a CUDA card must be present; prints its name and power limit
   2. build: compiles smore_tpu_torch/csrc/*.cu with nvcc (the five SGNS
-     kernels, jodie_epoch and random_walk) and csrc/jodie_schedule.cpp with g++, one
+     kernels, jodie_epoch, random_walk and node2vec_walk) and
+     csrc/jodie_schedule.cpp with g++, one
      process per source, all started together (first use)
   3. K4 vs twin at the banded path's shapes (S=16 micro-steps, B=2048,
      band 16400, Ks=128, D=64, 68 x 16400 table rows) and on the
@@ -243,6 +244,12 @@ Phases (any failure exits non-zero; there is no CPU path):
      graph's, both at seed 0, from uniform starts and uniforms: walks and
      row mask torch.equal in both restart modes; one call is ONE launch of
      the kernel; its ptxas report, both times alternated, the bound
+ 38. the node2vec walk kernel (csrc/node2vec_walk.cu) against its plain
+     twin sampling/walks.node2vec_walk_ref at the node2vec cells' shapes
+     (phase 37's graphs and batches, 4 trials a step): walks and row mask
+     torch.equal at p/q (0.5, 2), (2, 0.5) and (1, 1); one call is ONE
+     launch of the kernel; its ptxas report, both times alternated at the
+     cells' p = 0.5, q = 2, the bound from the benchmark's byte count
 Every path that trains through TrainDriver without a mesh (phases 8-28
 and 33's single-device runs) or on an NCCL mesh (33 (a)'s captured arms)
 and every model with a loop of its own but
@@ -370,16 +377,19 @@ def _counters():
 
 
 def _update_launches(counts: dict) -> dict:
-    """The launch counts of the update kernels: the walk kernel
-    (``csrc/random_walk.cu``), which draws the walks of DeepWalk, Walklets,
-    APP, HPE and FINE, left out."""
-    return {k: n for k, n in counts.items() if k != "random_walk"}
+    """The launch counts of the update kernels: the walk kernels
+    (``csrc/random_walk.cu``, which draws the walks of DeepWalk, Walklets,
+    APP, HPE and FINE, and ``csrc/node2vec_walk.cu``, node2vec's) left
+    out."""
+    return {k: n for k, n in counts.items()
+            if k not in ("random_walk", "node2vec_walk")}
 
 
 def phase_build() -> None:
     from smore_tpu_torch.ops import (
         _build,
         jodie_epoch,
+        node2vec_walk,
         random_walk,
         scatter,
         sgns,
@@ -388,7 +398,8 @@ def phase_build() -> None:
 
     loaders = (sgns_banded._load, sgns._load, sgns_banded._load_fused,
                scatter._load, sgns_banded._load_nb, jodie_epoch._load,
-               jodie_epoch._load_schedule, random_walk._load)
+               jodie_epoch._load_schedule, random_walk._load,
+               node2vec_walk._load)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as ex:
         for f in [ex.submit(load) for load in loaders]:
@@ -398,7 +409,7 @@ def phase_build() -> None:
     for name in ("sgns_banded_multiblock", "sgns_shared_grads",
                  "sgns_banded_fused", "band_scatter_add",
                  "sgns_banded_multiblock_nb", "jodie_epoch",
-                 "jodie_schedule", "random_walk"):
+                 "jodie_schedule", "random_walk", "node2vec_walk"):
         secs, report = _build.build_info[name]
         log(f"  {name}: {secs:.2f} s")
         for line in report.splitlines():
@@ -876,16 +887,21 @@ WALK_STEPS = 40  # DeepWalk's walk_steps (SMORe's CLI default)
 WALK_SHAPES = (("youtube", 128), ("flickr", 80_640))
 
 
-def _walk_tables(traffic: str, device):
-    """Sampler tables of a DeepWalk cell's graph (perfbench/traffic/), made
-    at seed 0 as the benchmark makes it."""
+def _walk_graph(traffic: str):
+    """A walk cell's graph (perfbench/traffic/), made at seed 0 as the
+    benchmark makes it."""
     from perfbench.harness import graphs, spec
     from smore_tpu_torch.graph.graph import Graph
-    from smore_tpu_torch.sampling.tables import SamplerTables
 
     a = graphs.make(spec.cell(f"deepwalk.{traffic}").traffic["graph"], 0)
-    g = Graph.from_arrays(a.src, a.dst, a.weights, a.names, a.name2id)
-    return SamplerTables.build(g, device=device)
+    return Graph.from_arrays(a.src, a.dst, a.weights, a.names, a.name2id)
+
+
+def _walk_tables(traffic: str, device):
+    """Sampler tables of a DeepWalk cell's graph (``_walk_graph``)."""
+    from smore_tpu_torch.sampling.tables import SamplerTables
+
+    return SamplerTables.build(_walk_graph(traffic), device=device)
 
 
 def _walk_bound(B: int, steps: int) -> dict:
@@ -960,6 +976,110 @@ def phase_random_walk_vs_twin(device) -> dict:
         if "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
     return out
+
+
+# the node2vec cells' p and q, the same swapped, and p = q = 1 (every first
+# candidate accepted: DeepWalk's law)
+N2V_PQ = ((0.5, 2.0), (2.0, 0.5), (1.0, 1.0))
+N2V_TRIALS = 4
+
+
+def _node2vec_bound(t, starts, u_first, u, walk, p, q) -> dict:
+    """The bytes one launch needs, as the benchmark counts them
+    (``perfbench/harness/families/node2vec.py`` ``launch_bytes_of``: each
+    input sector the second-order law reads counted once), against the HBM
+    rate; its operations are negligible."""
+    from perfbench.harness import spec
+
+    fam = spec.family("node2vec")
+    nbytes = fam.launch_bytes_of(
+        [{"starts": starts, "u_first": u_first, "u": u}], [walk],
+        t.vert_meta, t.ctx_pa, p, q, N2V_TRIALS)
+    return _bound("node2vec_walk", 0.0, nbytes)
+
+
+def phase_node2vec_walk_vs_twin(device) -> dict:
+    """The node2vec walk kernel against its plain twin at the node2vec
+    cells' shapes (``WALK_SHAPES`` on the benchmark's graphs at seed 0):
+    walks and row mask torch.equal for each p/q of ``N2V_PQ``; a call is
+    ONE launch of the kernel; ptxas's report; both times alternated on the
+    card at the cells' p and q, the bound. Returns the Youtube shape's
+    numbers, the Flickr shape's under "flickr"."""
+    from smore_tpu_torch.ops import _build
+    from smore_tpu_torch.sampling.tables import SamplerTables
+    from smore_tpu_torch.sampling.walks import (
+        NeighborIndex,
+        node2vec_walk,
+        node2vec_walk_ref,
+    )
+
+    card = _card()
+    out = {}
+    for traffic, b in WALK_SHAPES:
+        g = _walk_graph(traffic)
+        t = SamplerTables.build(g, device=device)
+        nbr = NeighborIndex.build(g, device)
+        gen = torch.Generator(device=device).manual_seed(b)
+        starts = torch.randint(0, t.n_vertices, (b,), generator=gen,
+                               device=device, dtype=torch.int32)
+        u_first = torch.rand((b, 2), generator=gen, device=device)
+        u = torch.rand((WALK_STEPS - 1, b, N2V_TRIALS, 3), generator=gen,
+                       device=device)
+        for p, q in N2V_PQ:
+            got = node2vec_walk(t, nbr, None, starts, WALK_STEPS, p, q,
+                                N2V_TRIALS, u_first=u_first, u=u)
+            want = node2vec_walk_ref(t, nbr, starts, WALK_STEPS, p, q,
+                                     N2V_TRIALS, u_first, u)
+            require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                    f"node2vec_walk on {traffic} (B={b}, p={p}, q={q}): "
+                    "the kernel's walks differ from the twin's")
+        p, q = N2V_PQ[0]
+
+        def kernel():
+            node2vec_walk(t, nbr, None, starts, WALK_STEPS, p, q, N2V_TRIALS,
+                          u_first=u_first, u=u)
+
+        for _ in range(3):
+            host, kernels = _cuda_work(kernel)
+            require(len(host) == 3 and all(h.startswith("cudaLaunchKernel")
+                                           for h in host)
+                    and len(kernels) <= 3
+                    and all("node2vec_walk_steps" in k for k in kernels),
+                    f"node2vec_walk: 3 calls put {host} / {kernels} on the "
+                    "card, not 3 launches of node2vec_walk_steps")
+            if kernels:
+                break
+        ms, t_kern, plain_ms, t_plain = _alternate(
+            lambda: node2vec_walk_ref(t, nbr, starts, WALK_STEPS, p, q,
+                                      N2V_TRIALS, u_first, u), kernel, 3,
+            100)
+        walk = node2vec_walk(t, nbr, None, starts, WALK_STEPS, p, q,
+                             N2V_TRIALS, u_first=u_first, u=u)[0]
+        bound = _node2vec_bound(t, starts, u_first, u, walk, p, q)
+        log(f"node2vec_walk vs twin on {traffic} ({t.n_vertices:,} vertices, "
+            f"{t.n_edges:,} edges, neighbour search {nbr.n_iters} "
+            f"iterations; B={b:,}, {WALK_STEPS} steps, p={p}, q={q}, "
+            f"{N2V_TRIALS} trials): walks and row mask equal at p/q "
+            f"{N2V_PQ}; kernel {ms:.4f} ms {t_kern} "
+            f"({1e6 * ms / WALK_STEPS:.0f} ns a step), twin {plain_ms:.4f} ms "
+            f"{t_plain} ({plain_ms / ms:.0f}x); "
+            f"{100 * bound['bound_ms'] / ms:.2f}% of its bytes bound "
+            f"[{card}]")
+        shape = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **bound,
+                     library_ms=None, traffic=traffic, walks=b,
+                     steps=WALK_STEPS, p=p, q=q)
+        if out:
+            out["flickr"] = shape
+        else:
+            out.update(shape)
+    log(f"node2vec_walk CUDA launches per call (profiler, 3 calls): host "
+        f"{len(host) / 3:g} {sorted(set(host))}, device kernels recorded "
+        f"{len(kernels)} {sorted(set(kernels)) or '(none: CUPTI dropped them)'}")
+    for line in _build.build_info["node2vec_walk"][1].splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+    return out
+
 
 def _train_counted(m, counter, never=(), **kw):
     """1M samples (tables, stream, warm-up), fresh tables, then the timed
@@ -1469,11 +1589,16 @@ def _card() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+# each walk model's kernel launches in its CLI run (phase_walks_cli)
+WALK_CLI_LAUNCHES: dict = {}
+
+
 def phase_walks_cli() -> str:
     """The four walk models through ``python -m smore_tpu_torch`` on the
     20k walk-parity graph at the reference's default budgets; each must
     launch no update kernel (the walk update is the masked plain path), and
-    every model but node2vec the walk kernel. APP also
+    every model but node2vec the walk kernel and node2vec its own walk
+    kernel (csrc/node2vec_walk.cu). APP also
     checkpoints its final state, whose context table scores its AUC."""
     from smore_tpu_torch.utils.bench_graphs import make_graph
     from smore_tpu_torch.utils.checkpoint import load_checkpoint
@@ -1495,6 +1620,9 @@ def phase_walks_cli() -> str:
                 f"{model} launched a kernel: {r['launches']}")
         require((r["launches"]["random_walk"] > 0) == (model != "node2vec"),
                 f"{model}'s walk kernel launches: {r['launches']}")
+        require((r["launches"]["node2vec_walk"] > 0) == (model == "node2vec"),
+                f"{model}'s node2vec walk kernel launches: {r['launches']}")
+        WALK_CLI_LAUNCHES[model] = r["launches"]
         name2row, emb = _load_emb(save)
         require(len(name2row) == WALK_GRAPH["n"] and np.isfinite(emb).all(),
                 f"{model}: {len(name2row)} rows or non-finite values")
@@ -3282,6 +3410,7 @@ def run_phases(args) -> None:
     k3 = timed("K3 vs twin", phase_k3_vs_twin, device)
     k2 = timed("K2 vs twin", phase_k2_vs_twin, device)
     kw_ = timed("random_walk vs twin", phase_random_walk_vs_twin, device)
+    kn = timed("node2vec_walk vs twin", phase_node2vec_walk_vs_twin, device)
     g_yt, m_yt, k4_launches = timed("Youtube multiblock and unbanded",
                                     phase_youtube, device)
     routes = timed("Youtube routes", phase_youtube_routes, g_yt, device)
@@ -3456,6 +3585,14 @@ def run_phases(args) -> None:
             "replaces": "smore_tpu/sampling/walks.py:39",
             "launches": kw_launches,
             **kw_,
+        },
+        {
+            "name": "node2vec_walk",
+            "route": "cuda",
+            "source": "smore_tpu_torch/csrc/node2vec_walk.cu",
+            "replaces": "smore_tpu/sampling/walks.py:151",
+            "launches": WALK_CLI_LAUNCHES["node2vec"]["node2vec_walk"],
+            **kn,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {

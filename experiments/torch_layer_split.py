@@ -37,7 +37,8 @@ T_START = time.perf_counter()
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 LINE_CELLS = ["line_o2.youtube", "line_o2.flickr"]
-WALK_CELLS = ["deepwalk.youtube", "deepwalk.flickr"]
+WALK_CELLS = ["deepwalk.youtube", "deepwalk.flickr", "node2vec.youtube",
+              "node2vec.flickr"]
 ALL_CELLS = LINE_CELLS + WALK_CELLS
 
 
@@ -157,7 +158,7 @@ def nodes(args) -> dict:
 
     base.CapturedCalls.close = close
     st = bench.set_up(cell, args.seed, device)
-    st.fam.job(st.model, cell, cell.traffic["jobs"][cell.family])
+    st.fam.job(st.model, cell, cell.budget)
     return {"root": args.root, "workload": cell.name, "loops": loops}
 
 

@@ -3,7 +3,8 @@
 Port of ``smore_tpu/models/node2vec.py``. The reference (Go) scans the
 whole neighbour list at each step; here the bias is applied by alias draws
 and rejection against a sorted-adjacency index
-(``sampling/walks.node2vec_walk``).
+(``sampling/walks.node2vec_walk``: one launch of the walk kernel
+``csrc/node2vec_walk.cu`` a draw on the card, its plain twin on the CPU).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from smore_tpu_torch.models.walk_base import WalkSGNSBase
 from smore_tpu_torch.sampling.mappers import skipgram_pairs
 from smore_tpu_torch.sampling.walks import NeighborIndex, node2vec_walk
+from smore_tpu_torch.utils import profiling
 
 
 class Node2Vec(WalkSGNSBase):
@@ -36,9 +38,11 @@ class Node2Vec(WalkSGNSBase):
 
     def _emit_pairs(self, ctx, gen, starts):
         tables, nbr = ctx
-        walk, row_mask = node2vec_walk(tables, nbr, gen, starts,
-                                       self.walk_steps, self.p, self.q)
-        return skipgram_pairs(walk, gen, self.window_size, row_mask)
+        with profiling.segment("walk.walk"):
+            walk, row_mask = node2vec_walk(tables, nbr, gen, starts,
+                                           self.walk_steps, self.p, self.q)
+        with profiling.segment("walk.pairs"):
+            return skipgram_pairs(walk, gen, self.window_size, row_mask)
 
     def train(
         self,

@@ -3,7 +3,8 @@ CUDA graph holds.
 
 Each wrapper (``sgns_shared_grads``, ``band_scatter_add``,
 ``sgns_banded_multiblock``, ``sgns_banded_multiblock_nb``,
-``sgns_banded_fused``, ``jodie_epoch``, ``random_walk``) adds one to its
+``sgns_banded_fused``, ``jodie_epoch``, ``random_walk``,
+``node2vec_walk``) adds one to its
 own ``launches`` attribute where it launches its kernel. A CUDA graph
 replays its kernels without running the wrappers' Python, so
 ``TrainDriver`` reads, from the captured graph's own nodes, how many
@@ -29,6 +30,7 @@ _PREFIX = {
     "sgns_banded_multiblock_nb": "sgns_nb",
     "jodie_epoch": "jodie_epoch",
     "random_walk": "random_walk",
+    "node2vec_walk": "node2vec_walk",
 }
 
 Credit = List[Tuple[object, int]]
@@ -38,6 +40,7 @@ Credit = List[Tuple[object, int]]
 def wrappers() -> dict:
     """The launch-counting wrappers of every kernel, by kernel name."""
     from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
+    from smore_tpu_torch.ops.node2vec_walk import node2vec_walk
     from smore_tpu_torch.ops.random_walk import random_walk
     from smore_tpu_torch.ops.scatter import band_scatter_add
     from smore_tpu_torch.ops.sgns import sgns_shared_grads
@@ -50,7 +53,7 @@ def wrappers() -> dict:
     funcs = {f.__name__: f for f in (sgns_banded_multiblock, sgns_shared_grads,
                                      sgns_banded_fused, band_scatter_add,
                                      sgns_banded_multiblock_nb, jodie_epoch,
-                                     random_walk)}
+                                     random_walk, node2vec_walk)}
     assert list(funcs) == list(_PREFIX)
     return funcs
 

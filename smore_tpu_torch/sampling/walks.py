@@ -16,11 +16,12 @@ Port of ``smore_tpu/sampling/walks.py``. The reference's walks:
   draws, each accepted with probability bias / max_bias, the last taken
   when all are rejected.
 
-JAX's ``lax.scan`` over the steps is, for ``random_walk`` on a CUDA card,
-one launch of the hand-written kernel ``csrc/random_walk.cu`` (one thread a
-walk, every step in the launch); on the CPU its plain twin
-``random_walk_ref``, and for the other walks, a Python loop over steps, each
-step a few tensor ops on the whole batch. Every function takes its
+JAX's loop over the steps is, on a CUDA card, one launch of a hand-written
+kernel for ``random_walk`` (``csrc/random_walk.cu``) and for
+``node2vec_walk`` (``csrc/node2vec_walk.cu``), one thread a walk, every
+step in the launch; on the CPU their plain twins ``random_walk_ref`` and
+``node2vec_walk_ref``, a Python loop over steps, each step a few tensor ops
+on the whole batch. Every function takes its
 uniforms as optional arguments of the JAX draws' shapes and draws them
 from ``gen`` when they are not given; given the same uniforms the walks are
 the JAX package's bit for bit, except the stop index of
@@ -36,6 +37,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from smore_tpu_torch.ops import node2vec_walk as n2v_kernel
 from smore_tpu_torch.ops import random_walk as walk_kernel
 from smore_tpu_torch.sampling.tables import SamplerTables
 
@@ -162,34 +164,27 @@ class NeighborIndex:
         return (lo < end) & (val == b)
 
 
-def node2vec_walk(
+def node2vec_walk_ref(
     tables: SamplerTables,
     nbr: NeighborIndex,
-    gen: Optional[torch.Generator],
     starts: torch.Tensor,  # (B,) int32
     steps: int,
-    p: float = 1.0,
-    q: float = 1.0,
-    trials: int = 4,
-    u_first: Optional[torch.Tensor] = None,  # (B, 2): the first step
-    u: Optional[torch.Tensor] = None,  # (steps-1, B, trials, 3)
+    p: float,
+    q: float,
+    trials: int,
+    u_first: torch.Tensor,  # (B, 2): the first step
+    u: torch.Tensor,  # (steps-1, B, trials, 3)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched second-order walk by alias draw and rejection: per step and
-    row up to ``trials`` candidates (uniforms: index, alias, acceptance),
-    the first accepted one kept, the last one if none is. p = q = 1 is
-    random_walk's law (every candidate is accepted). Returns (walk (B,
-    steps+1) int32, row_mask (B,))."""
-    inv_p, inv_q = 1.0 / p, 1.0 / q
-    max_bias = max(inv_p, 1.0, inv_q)
+    """Plain PyTorch twin of the node2vec walk kernel: the JAX loop over
+    the steps, a few tensor ops on the whole batch for each trial. Every
+    trial is computed; the kernel stops at the first accepted one, which is
+    the one kept here."""
+    inv_p, inv_q, max_bias = n2v_kernel.biases(p, q)
     row_mask = (tables.vert_meta[starts][..., 1] > 0).to(torch.float32)
     B = starts.shape[0]
-    if u_first is None:
-        u_first = tables._uniform(gen, (B, 2))
     first = tables.target_sample(None, starts, u2=u_first)
     if steps <= 1:
         return torch.stack([starts, first], dim=1)[:, :steps + 1], row_mask
-    if u is None:
-        u = tables._uniform(gen, (steps - 1, B, trials, 3))
 
     path = [starts, first]
     prev, cur = starts, first
@@ -211,3 +206,46 @@ def node2vec_walk(
         prev, cur = cur, chosen
         path.append(chosen)
     return torch.stack(path, dim=1), row_mask
+
+
+def node2vec_walk(
+    tables: SamplerTables,
+    nbr: NeighborIndex,
+    gen: Optional[torch.Generator],
+    starts: torch.Tensor,  # (B,) int32
+    steps: int,
+    p: float = 1.0,
+    q: float = 1.0,
+    trials: int = 4,
+    u_first: Optional[torch.Tensor] = None,  # (B, 2): the first step
+    u: Optional[torch.Tensor] = None,  # (steps-1, B, trials, 3)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched second-order walk by alias draw and rejection: per step and
+    row up to ``trials`` candidates (uniforms: index, alias, acceptance),
+    the first accepted one kept, the last one if none is. p = q = 1 is
+    random_walk's law (every candidate is accepted). Returns (walk (B,
+    steps+1) int32, row_mask (B,)).
+
+    The uniforms are drawn from ``gen`` when not given, ``u_first`` first
+    and ``u`` after it (none when steps <= 1). CPU tensors run
+    ``node2vec_walk_ref``; CUDA tensors launch the kernel
+    (``csrc/node2vec_walk.cu``) on the current stream, bit-equal to the
+    twin given the same uniforms; any other device raises: nothing falls
+    back. ``ops/node2vec_walk.node2vec_walk.launches`` counts kernel
+    launches. Vertex ids are not bounds-checked on the card."""
+    dev = starts.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {dev}")
+    B = starts.shape[0]
+    if u_first is None:
+        u_first = tables._uniform(gen, (B, 2))
+    if u is None:
+        u = (tables._uniform(gen, (steps - 1, B, trials, 3)) if steps > 1
+             else torch.empty((0, B, trials, 3), device=dev))
+    args = (tables.vert_meta, tables.ctx_pa, nbr.indptr, nbr.sorted_nbrs)
+    if dev.type == "cuda":
+        return n2v_kernel.node2vec_walk(starts, u_first, u, *args, steps, p,
+                                        q, trials)
+    n2v_kernel.check(starts, steps, trials, u_first, u, *args)
+    return node2vec_walk_ref(tables, nbr, starts, steps, p, q, trials,
+                             u_first, u)

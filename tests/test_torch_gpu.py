@@ -51,7 +51,7 @@ from torch_superstep_inputs import (
     multiblock_inputs,
     multiblock_nb_inputs,
 )
-from torch_walk_inputs import dead_end_graph, walk_inputs
+from torch_walk_inputs import dead_end_graph, node2vec_inputs, walk_inputs
 
 # Atomics sum duplicate rows in an order that changes from run to run, and
 # later tiles gather those sums: f32 round-off scale, not bit-equal.
@@ -604,6 +604,120 @@ def test_walk_kernel_captured_matches_eager(cuda):
     for (walk, mask), restart in zip(got, (True, False)):
         want = walks.random_walk_ref(t, starts, steps, u, restart)
         assert torch.equal(walk, want[0]) and torch.equal(mask, want[1])
+
+
+def _node2vec_inputs(t, B, steps, trials, seed):
+    """``torch_walk_inputs.node2vec_inputs`` on the tables' device."""
+    device = t.vert_meta.device
+    return tuple(torch.from_numpy(a).to(device) for a in node2vec_inputs(
+        t.n_vertices, B, steps, trials, seed))
+
+
+def _node2vec_index(t):
+    """The neighbour index of ``torch_walk_inputs.dead_end_graph`` on the
+    tables' device."""
+    from smore_tpu_torch.sampling import walks
+
+    return walks.NeighborIndex.build(Graph.from_arrays(*dead_end_graph()),
+                                     t.vert_meta.device)
+
+
+NODE2VEC_PQ = [(0.5, 2.0), (4.0, 0.25), (1.0, 1.0)]
+NODE2VEC_KERNEL_CASES = [(B, steps) for B in (1, 128, 4096, 80640)
+                         for steps in (1, 2, 40)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,q", NODE2VEC_PQ)
+@pytest.mark.parametrize("B,steps", NODE2VEC_KERNEL_CASES)
+def test_node2vec_kernel_matches_twin(cuda, B, steps, p, q):
+    """The node2vec walk kernel's walks and row mask are the twin's, bit for
+    bit, given the same uniforms: dead starts, dead ends mid-walk (the
+    cursor back at the start), index uniforms that round up to the
+    degree, every p/q regime (returns favoured, far steps favoured, none)."""
+    from smore_tpu_torch.ops import node2vec_walk as n2v_kernel
+    from smore_tpu_torch.sampling import walks
+
+    t = _walk_kernel_tables(cuda)
+    nbr = _node2vec_index(t)
+    starts, u_first, u = _node2vec_inputs(t, B, steps, 4, B * 100 + steps)
+    before = n2v_kernel.node2vec_walk.launches
+    got = walks.node2vec_walk(t, nbr, None, starts, steps, p, q,
+                              u_first=u_first, u=u)
+    assert n2v_kernel.node2vec_walk.launches == before + 1
+    want = walks.node2vec_walk_ref(t, nbr, starts, steps, p, q, 4, u_first,
+                                   u)
+    assert got[0].shape == (B, steps + 1) and got[0].dtype == torch.int32
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("trials", [1, 2, 3])
+def test_node2vec_kernel_matches_twin_at_fewer_trials(cuda, trials):
+    from smore_tpu_torch.sampling import walks
+
+    t = _walk_kernel_tables(cuda)
+    nbr = _node2vec_index(t)
+    B, steps = 4096, 40
+    starts, u_first, u = _node2vec_inputs(t, B, steps, trials, trials)
+    got = walks.node2vec_walk(t, nbr, None, starts, steps, 0.5, 2.0, trials,
+                              u_first=u_first, u=u)
+    want = walks.node2vec_walk_ref(t, nbr, starts, steps, 0.5, 2.0, trials,
+                                   u_first, u)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_node2vec_kernel_captured_matches_eager(cuda):
+    """Two node2vec walk launches captured into one CUDA graph: its nodes
+    hold two launches of the kernel, and a replay on new uniforms, copied
+    into the captured inputs, gives the twin's walks on those uniforms."""
+    from smore_tpu_torch.ops import launches
+    from smore_tpu_torch.sampling import walks
+
+    t = _walk_kernel_tables(cuda)
+    nbr = _node2vec_index(t)
+    B, steps = 4096, 40
+    starts, u_first, u = _node2vec_inputs(t, B, steps, 4, seed=1)
+    pqs = NODE2VEC_PQ[:2]
+
+    def call():
+        return [walks.node2vec_walk(t, nbr, None, starts, steps, p, q,
+                                    u_first=u_first, u=u) for p, q in pqs]
+
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        got = call()
+    assert launches.in_graph(graph.raw_cuda_graph()) == {"node2vec_walk": 2}
+    _, u_first2, u2 = _node2vec_inputs(t, B, steps, 4, seed=2)
+    u_first.copy_(u_first2)
+    u.copy_(u2)
+    graph.replay()
+    torch.cuda.synchronize()
+    for (walk, mask), (p, q) in zip(got, pqs):
+        want = walks.node2vec_walk_ref(t, nbr, starts, steps, p, q, 4,
+                                       u_first, u)
+        assert torch.equal(walk, want[0]) and torch.equal(mask, want[1])
+
+
+@pytest.mark.gpu
+def test_node2vec_draws_its_walks_with_the_kernel(cuda):
+    """Node2Vec on captured calls launches the node2vec walk kernel once a
+    step (its replays credited), and no other kernel."""
+    from smore_tpu_torch import models
+    from smore_tpu_torch.ops import launches
+
+    m = models.Node2Vec(_walk_graph()[0], seed=0, device=cuda)
+    m.init(dim=16)
+    before = launches.read()
+    m.train(walk_times=4, steps_per_call=4, p=0.5, q=2.0, verbose=False)
+    d = m.last_driver
+    assert d.replays >= 1
+    moved = launches.moved(before)
+    assert moved == {"node2vec_walk":
+                     d.executed_samples // d.samples_per_step}, moved
 
 
 @pytest.mark.gpu
@@ -1756,6 +1870,8 @@ _TRACED = {
                         "line.neg_add"},
     "line_unbanded_g8": {"line.draw", "line.update"},
     "DeepWalk": {"walk.draw", "walk.starts", "walk.walk", "walk.pairs",
+                 "walk.negatives", "walk.update"},
+    "Node2Vec": {"walk.draw", "walk.starts", "walk.walk", "walk.pairs",
                  "walk.negatives", "walk.update"},
 }
 

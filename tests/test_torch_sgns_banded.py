@@ -24,6 +24,7 @@ from smore_tpu.ops.pallas_sgns_banded import (
 )
 from smore_tpu_torch.ops import jodie_epoch as jodie_ops
 from smore_tpu_torch.ops import launches
+from smore_tpu_torch.ops import node2vec_walk as n2v_ops
 from smore_tpu_torch.ops import random_walk as walk_ops
 from smore_tpu_torch.ops import scatter as scatter_ops
 from smore_tpu_torch.ops import sgns as sgns_ops
@@ -157,7 +158,8 @@ def _ctypes_kinds(argtypes):
 def test_launch_signature_matches_ctypes(name):
     argtypes = {**sgns_banded_ops.LAUNCH_ARGTYPES, **sgns_ops.LAUNCH_ARGTYPES,
                 **scatter_ops.LAUNCH_ARGTYPES, **jodie_ops.LAUNCH_ARGTYPES,
-                **profiling.LAUNCH_ARGTYPES, **walk_ops.LAUNCH_ARGTYPES}
+                **profiling.LAUNCH_ARGTYPES, **walk_ops.LAUNCH_ARGTYPES,
+                **n2v_ops.LAUNCH_ARGTYPES}
     assert name in argtypes, f"no wrapper binds csrc/{name}.cu"
     assert _c_kinds(name) == _ctypes_kinds(argtypes[name])
 

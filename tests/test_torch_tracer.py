@@ -24,7 +24,7 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from smore_tpu_torch.models import base, deepwalk, line, walk_base
+from smore_tpu_torch.models import base, deepwalk, line, node2vec, walk_base
 from smore_tpu_torch.models.base import TrainDriver
 from smore_tpu_torch.ops import launches
 from smore_tpu_torch.utils import profiling as P
@@ -324,6 +324,7 @@ def _counting(calls, orig):
     (line, "sgns_shared_negs_step", "line_unbanded_g8"),
     (walk_base, "sgns_shared_negs_step", "DeepWalk"),
     (deepwalk, "random_walk", "DeepWalk"),
+    (node2vec, "node2vec_walk", "Node2Vec"),
 ])
 def test_the_output_checks_names_still_wrap_with_the_tracer_on(
         module, name, case, monkeypatch, tmp_path):

@@ -31,3 +31,15 @@ def walk_inputs(n_vertices: int, B: int, steps: int, seed: int):
     u = rng.random((steps, B, 2), dtype=np.float32)
     u[:, 2::7, 0] = np.float32(1.0 - 2.0 ** -24)
     return starts, u
+
+
+def node2vec_inputs(n_vertices: int, B: int, steps: int, trials: int,
+                    seed: int):
+    """(starts (B,) int32, u_first (B, 2), u (steps - 1, B, trials, 3)
+    float32): ``walk_inputs``' dead starts, and index uniforms at the
+    float just below 1 in the first step and in some trials."""
+    rng = np.random.default_rng(seed)
+    starts, u_first = walk_inputs(n_vertices, B, 1, seed)
+    u = rng.random((max(steps - 1, 0), B, trials, 3), dtype=np.float32)
+    u[:, 3::7, :, 0] = np.float32(1.0 - 2.0 ** -24)
+    return starts, u_first[0], u
