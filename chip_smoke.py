@@ -247,9 +247,12 @@ Phases (any failure exits non-zero; there is no CPU path):
  38. the node2vec walk kernel (csrc/node2vec_walk.cu) against its plain
      twin sampling/walks.node2vec_walk_ref at the node2vec cells' shapes
      (phase 37's graphs and batches, 4 trials a step): walks and row mask
-     torch.equal at p/q (0.5, 2), (2, 0.5) and (1, 1); one call is ONE
-     launch of the kernel; its ptxas report, both times alternated at the
-     cells' p = 0.5, q = 2, the bound from the benchmark's byte count
+     torch.equal for each instance (a thread, a warp a walk) at p/q
+     (0.5, 2), (2, 0.5) and (1, 1); one call is ONE launch of the kernel;
+     each instance's ptxas report; the instance lanes_for picks and the
+     twin timed alternately at the cells' p = 0.5, q = 2, the bound from
+     the benchmark's byte count; every instance timed, warm and cold, at
+     B = 128 to 80,640 on both graphs (the crossover of lanes_for)
 Every path that trains through TrainDriver without a mesh (phases 8-28
 and 33's single-device runs) or on an NCCL mesh (33 (a)'s captured arms)
 and every model with a loop of its own but
@@ -998,14 +1001,96 @@ def _node2vec_bound(t, starts, u_first, u, walk, p, q) -> dict:
     return _bound("node2vec_walk", 0.0, nbytes)
 
 
+# the batches at which phase 38 times every instance of the node2vec walk
+# kernel, beside the cells' (128 and 80,640): where the crossover of
+# ops/node2vec_walk.lanes_for is set
+N2V_BATCHES = (128, 1024, 2048, 4096, 8192, 16384, 21120, 24576, 32768,
+               49152, 80_640)
+
+
+def _forced_lanes(lanes: int):
+    """A context in which the node2vec walk's launcher takes the instance
+    of ``lanes`` lanes a walk, whatever the batch."""
+    from unittest import mock
+
+    from smore_tpu_torch.ops import node2vec_walk as n2v_ops
+
+    return mock.patch.object(n2v_ops, "lanes_for", lambda B, sms: lanes)
+
+
+def _ptxas_entries(report: str) -> dict:
+    """ptxas's report by kernel entry: {entry name: its lines}."""
+    out, entry = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+            out[entry] = []
+        elif entry is not None and ("registers" in line or "spill" in line
+                                    or "smem" in line):
+            out[entry].append(line.strip())
+    return out
+
+
+def _node2vec_instance_times(t, nbr, device, traffic: str) -> dict:
+    """Every instance's device time a launch at each of ``N2V_BATCHES`` on
+    a cell's tables, at the cells' p, q and trials: warm (the same walks
+    each repetition, as the kernel's time beside the twin's is taken) and
+    cold (a rotation of fresh starts and uniforms, as a replay's 64
+    launches come: Youtube's tables exceed the L2). {(B, lanes): (warm ms,
+    cold ms)}."""
+    from smore_tpu_torch.ops import node2vec_walk as n2v_ops
+    from smore_tpu_torch.sampling.walks import node2vec_walk
+
+    p, q = N2V_PQ[0]
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {}
+    for b in N2V_BATCHES:
+        gen = torch.Generator(device=device).manual_seed(b + 1)
+        sets = [(torch.randint(0, t.n_vertices, (b,), generator=gen,
+                               device=device, dtype=torch.int32),
+                 torch.rand((b, 2), generator=gen, device=device),
+                 torch.rand((WALK_STEPS - 1, b, N2V_TRIALS, 3), generator=gen,
+                            device=device))
+                for _ in range(64 if b <= 2048 else 8)]
+        row = []
+        for lanes in n2v_ops.LANES:
+            turn = iter(range(1 << 30))
+
+            def warm():
+                s, uf, u = sets[0]
+                node2vec_walk(t, nbr, None, s, WALK_STEPS, p, q, N2V_TRIALS,
+                              u_first=uf, u=u)
+
+            def cold():
+                s, uf, u = sets[next(turn) % len(sets)]
+                node2vec_walk(t, nbr, None, s, WALK_STEPS, p, q, N2V_TRIALS,
+                              u_first=uf, u=u)
+
+            reps = max(4, min(64, 2_000_000 // (b * WALK_STEPS)))
+            with _forced_lanes(lanes):
+                out[b, lanes] = (min(_time_ms(warm, reps) for _ in range(2)),
+                                 min(_time_ms(cold, reps) for _ in range(2)))
+            row.append(f"{lanes} lanes {out[b, lanes][0]:.4f} / "
+                       f"{out[b, lanes][1]:.4f}")
+        best = min(n2v_ops.LANES, key=lambda n: out[b, n][1])
+        log(f"node2vec_walk instances on {traffic}, B={b:,} (warm / cold ms "
+            f"a launch): {'; '.join(row)}; fastest cold {best}, lanes_for "
+            f"{n2v_ops.lanes_for(b, sms)} ({sms} SMs)")
+    return out
+
+
 def phase_node2vec_walk_vs_twin(device) -> dict:
     """The node2vec walk kernel against its plain twin at the node2vec
     cells' shapes (``WALK_SHAPES`` on the benchmark's graphs at seed 0):
-    walks and row mask torch.equal for each p/q of ``N2V_PQ``; a call is
-    ONE launch of the kernel; ptxas's report; both times alternated on the
-    card at the cells' p and q, the bound. Returns the Youtube shape's
-    numbers, the Flickr shape's under "flickr"."""
+    walks and row mask torch.equal for each instance and each p/q of
+    ``N2V_PQ``; a call is ONE launch of the kernel; ptxas's report of each
+    instance; the instance ``lanes_for`` picks and the twin timed
+    alternately on the card at the cells' p and q, the bound; every
+    instance timed at ``N2V_BATCHES`` on each cell's tables (the
+    crossover). Returns the Youtube shape's numbers, the Flickr shape's
+    under "flickr"."""
     from smore_tpu_torch.ops import _build
+    from smore_tpu_torch.ops import node2vec_walk as n2v_ops
     from smore_tpu_torch.sampling.tables import SamplerTables
     from smore_tpu_torch.sampling.walks import (
         NeighborIndex,
@@ -1014,6 +1099,7 @@ def phase_node2vec_walk_vs_twin(device) -> dict:
     )
 
     card = _card()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     out = {}
     for traffic, b in WALK_SHAPES:
         g = _walk_graph(traffic)
@@ -1026,14 +1112,18 @@ def phase_node2vec_walk_vs_twin(device) -> dict:
         u = torch.rand((WALK_STEPS - 1, b, N2V_TRIALS, 3), generator=gen,
                        device=device)
         for p, q in N2V_PQ:
-            got = node2vec_walk(t, nbr, None, starts, WALK_STEPS, p, q,
-                                N2V_TRIALS, u_first=u_first, u=u)
             want = node2vec_walk_ref(t, nbr, starts, WALK_STEPS, p, q,
                                      N2V_TRIALS, u_first, u)
-            require(all(torch.equal(x, y) for x, y in zip(got, want)),
-                    f"node2vec_walk on {traffic} (B={b}, p={p}, q={q}): "
-                    "the kernel's walks differ from the twin's")
+            for lanes in n2v_ops.LANES:
+                with _forced_lanes(lanes):
+                    got = node2vec_walk(t, nbr, None, starts, WALK_STEPS, p,
+                                        q, N2V_TRIALS, u_first=u_first, u=u)
+                require(all(torch.equal(x, y) for x, y in zip(got, want)),
+                        f"node2vec_walk on {traffic} (B={b}, p={p}, q={q}, "
+                        f"{lanes} lanes): the kernel's walks differ from "
+                        "the twin's")
         p, q = N2V_PQ[0]
+        lanes = n2v_ops.lanes_for(b, sms)
 
         def kernel():
             node2vec_walk(t, nbr, None, starts, WALK_STEPS, p, q, N2V_TRIALS,
@@ -1060,14 +1150,18 @@ def phase_node2vec_walk_vs_twin(device) -> dict:
             f"{t.n_edges:,} edges, neighbour search {nbr.n_iters} "
             f"iterations; B={b:,}, {WALK_STEPS} steps, p={p}, q={q}, "
             f"{N2V_TRIALS} trials): walks and row mask equal at p/q "
-            f"{N2V_PQ}; kernel {ms:.4f} ms {t_kern} "
+            f"{N2V_PQ} for the instances of {n2v_ops.LANES} lanes; "
+            f"lanes_for {lanes} lanes: kernel {ms:.4f} ms {t_kern} "
             f"({1e6 * ms / WALK_STEPS:.0f} ns a step), twin {plain_ms:.4f} ms "
             f"{t_plain} ({plain_ms / ms:.0f}x); "
             f"{100 * bound['bound_ms'] / ms:.2f}% of its bytes bound "
             f"[{card}]")
+        times = _node2vec_instance_times(t, nbr, device, traffic)
         shape = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **bound,
                      library_ms=None, traffic=traffic, walks=b,
-                     steps=WALK_STEPS, p=p, q=q)
+                     steps=WALK_STEPS, p=p, q=q, lanes=lanes,
+                     instances={f"{bb}x{n}": v for (bb, n), v in
+                                times.items()})
         if out:
             out["flickr"] = shape
         else:
@@ -1075,9 +1169,9 @@ def phase_node2vec_walk_vs_twin(device) -> dict:
     log(f"node2vec_walk CUDA launches per call (profiler, 3 calls): host "
         f"{len(host) / 3:g} {sorted(set(host))}, device kernels recorded "
         f"{len(kernels)} {sorted(set(kernels)) or '(none: CUPTI dropped them)'}")
-    for line in _build.build_info["node2vec_walk"][1].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for entry, lines in _ptxas_entries(
+            _build.build_info["node2vec_walk"][1]).items():
+        log(f"  ptxas {entry}: {' | '.join(lines)}")
     return out
 
 

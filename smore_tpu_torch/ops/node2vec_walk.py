@@ -2,25 +2,38 @@
 
 ``smore_tpu/sampling/walks.py::node2vec_walk`` is a loop of jnp ops over
 the steps, with no Pallas kernel. Here one launch of
-``csrc/node2vec_walk.cu`` takes every step, one thread a walk, with the
-rounding of ``SamplerTables._context_of``, the acceptance test and the
-restart rule of ``sampling/walks.node2vec_walk_ref``, so its walks are
-bit-equal to that plain twin's given the same uniforms.
+``csrc/node2vec_walk.cu`` takes every step, with the rounding of
+``SamplerTables._context_of``, the acceptance test and the restart rule of
+``sampling/walks.node2vec_walk_ref``, so its walks are bit-equal to that
+plain twin's given the same uniforms.
+
+The kernel is latency-bound, and has two instances (``LANES``): one
+thread a walk, and a warp a walk. In the warp, the lanes split into one
+group a trial, which draws its candidate and searches prev's sorted list
+with the group's lanes at once, and a ballot keeps the earliest accepted
+trial: a step is ~3-4 dependent reads, against ~19 for one thread a walk
+on the Youtube graph. One thread a walk issues ~32 times fewer
+instructions a walk, so it wins once the batch fills the card.
+``lanes_for`` picks the instance from the batch and the card's SM count
+alone.
 
 ``check`` holds the inputs to the kernel's contract on any device.
 ``node2vec_walk`` launches the kernel for CUDA tensors and raises for any
 other device; ``sampling/walks.node2vec_walk`` runs the twin on the CPU.
-``node2vec_walk.launches`` counts kernel launches.
+``node2vec_walk.launches`` counts kernel launches, and the tracer's counter
+``node2vec_walk.warp_launches`` those of a multi-lane instance.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from smore_tpu_torch.ops.random_walk import _aligned
+from smore_tpu_torch.utils import profiling
 
 _KERNEL = "node2vec_walk"
 _lib = None
@@ -28,6 +41,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the launcher's C signature as ctypes passes it (pointers and the stream as
 # c_void_p), held to csrc/ by tests/test_torch_sgns_banded.py
 LAUNCH_ARGTYPES = {_KERNEL: [_I] + [_P] * 9 + [_I] * 4 + [_F] * 3 + [_P]}
+# node2vec_walk_launch_lanes: the lane count first, then the same
+LANES_ARGTYPES = [_I] + LAUNCH_ARGTYPES[_KERNEL]
+
+# the kernel's instances, lanes a walk (node2vec_walk_steps<lanes>)
+LANES = (1, 32)
+# the largest batch, in walks an SM, that takes a warp a walk: on the H100
+# a warp a walk is ahead up to ~20,000 walks on the Flickr tables and
+# ~33,000 on Youtube's, one thread a walk above (chip_smoke.py phase 38;
+# PERF.md section 6)
+WARP_WALKS_PER_SM = 160
 
 
 def _load():
@@ -36,12 +59,24 @@ def _load():
         from smore_tpu_torch.ops._build import load_kernel_lib
 
         lib = load_kernel_lib(_KERNEL)
-        lib.node2vec_walk_launch.restype = _I
-        lib.node2vec_walk_launch.argtypes = LAUNCH_ARGTYPES[_KERNEL]
+        lib.node2vec_walk_launch_lanes.restype = _I
+        lib.node2vec_walk_launch_lanes.argtypes = LANES_ARGTYPES
         lib.node2vec_walk_error_string.restype = ctypes.c_char_p
         lib.node2vec_walk_error_string.argtypes = [_I]
         _lib = lib
     return _lib
+
+
+def lanes_for(B: int, sms: int) -> int:
+    """The instance for a launch of B walks on a card of ``sms`` SMs: a
+    warp a walk while one thread a walk would leave the card nearly empty,
+    one thread a walk once the batch fills it."""
+    return 32 if B <= WARP_WALKS_PER_SM * sms else 1
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def biases(p: float, q: float) -> Tuple[float, float, float]:
@@ -91,9 +126,9 @@ def node2vec_walk(starts, u_first, u, vert_meta, ctx_pa, indptr,
                   trials: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Second-order walks of ``steps`` steps from ``starts``: (walk (B,
     steps + 1) int32, row_mask (B,) float32, 0 where the start has no
-    out-edge), in one launch on the current stream. Arguments as ``check``
-    takes them, on a CUDA card. Vertex ids are not bounds-checked on the
-    card."""
+    out-edge), in one launch on the current stream, of the instance
+    ``lanes_for`` picks. Arguments as ``check`` takes them, on a CUDA card.
+    Vertex ids are not bounds-checked on the card."""
     check(starts, steps, trials, u_first, u, vert_meta, ctx_pa, indptr,
           sorted_nbrs)
     dev = starts.device
@@ -112,9 +147,10 @@ def node2vec_walk(starts, u_first, u, vert_meta, ctx_pa, indptr,
     u_first = _aligned(u_first, 8)
     meta, ctx = _aligned(vert_meta, 8), _aligned(ctx_pa, 16)
     indptr, nbrs = indptr.contiguous(), sorted_nbrs.contiguous()
-    rc = lib.node2vec_walk_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        starts.data_ptr(), u_first.data_ptr(), u.data_ptr(),
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    lanes = lanes_for(B, _sm_count(index))
+    rc = lib.node2vec_walk_launch_lanes(
+        lanes, index, starts.data_ptr(), u_first.data_ptr(), u.data_ptr(),
         meta.data_ptr(), ctx.data_ptr(), indptr.data_ptr(), nbrs.data_ptr(),
         walk.data_ptr(), row_mask.data_ptr(), B, steps, trials, ctx.shape[0],
         inv_p, inv_q, max_bias, torch.cuda.current_stream(dev).cuda_stream,
@@ -124,6 +160,8 @@ def node2vec_walk(starts, u_first, u, vert_meta, ctx_pa, indptr,
             f"node2vec_walk launch failed: CUDA error {rc} "
             f"({lib.node2vec_walk_error_string(rc).decode()})")
     node2vec_walk.launches += 1
+    if lanes > 1:
+        profiling.count("node2vec_walk.warp_launches")
     return walk, row_mask
 
 

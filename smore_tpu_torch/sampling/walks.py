@@ -17,9 +17,10 @@ Port of ``smore_tpu/sampling/walks.py``. The reference's walks:
   when all are rejected.
 
 JAX's loop over the steps is, on a CUDA card, one launch of a hand-written
-kernel for ``random_walk`` (``csrc/random_walk.cu``) and for
-``node2vec_walk`` (``csrc/node2vec_walk.cu``), one thread a walk, every
-step in the launch; on the CPU their plain twins ``random_walk_ref`` and
+kernel for ``random_walk`` (``csrc/random_walk.cu``, one thread a walk)
+and for ``node2vec_walk`` (``csrc/node2vec_walk.cu``, a warp a walk at
+small batches, one thread a walk at large ones), every step in the
+launch; on the CPU their plain twins ``random_walk_ref`` and
 ``node2vec_walk_ref``, a Python loop over steps, each step a few tensor ops
 on the whole batch. Every function takes its
 uniforms as optional arguments of the JAX draws' shapes and draws them

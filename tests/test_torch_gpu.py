@@ -8,6 +8,7 @@ nor smore_tpu, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 """
 
+import functools
 import socket
 from collections import defaultdict
 
@@ -51,7 +52,12 @@ from torch_superstep_inputs import (
     multiblock_inputs,
     multiblock_nb_inputs,
 )
-from torch_walk_inputs import dead_end_graph, node2vec_inputs, walk_inputs
+from torch_walk_inputs import (
+    dead_end_graph,
+    hub_graph,
+    node2vec_inputs,
+    walk_inputs,
+)
 
 # Atomics sum duplicate rows in an order that changes from run to run, and
 # later tiles gather those sums: f32 round-off scale, not bit-equal.
@@ -613,90 +619,157 @@ def _node2vec_inputs(t, B, steps, trials, seed):
         t.n_vertices, B, steps, trials, seed))
 
 
-def _node2vec_index(t):
-    """The neighbour index of ``torch_walk_inputs.dead_end_graph`` on the
-    tables' device."""
+_NODE2VEC_GRAPHS = {"dead_end": dead_end_graph, "hub": hub_graph}
+
+
+@functools.cache
+def _node2vec_tables(graph, device):
+    """Sampler tables and neighbour index of a ``torch_walk_inputs`` graph
+    (``_NODE2VEC_GRAPHS``) on the device: dead starts (vertex 0, and the
+    last vertex, whose indptr is E), and on "hub" a vertex of 4,499
+    out-neighbours."""
     from smore_tpu_torch.sampling import walks
+    from smore_tpu_torch.sampling.tables import SamplerTables
 
-    return walks.NeighborIndex.build(Graph.from_arrays(*dead_end_graph()),
-                                     t.vert_meta.device)
+    g = Graph.from_arrays(*_NODE2VEC_GRAPHS[graph]())
+    t = SamplerTables.build(g, device=device)
+    n = g.n_vertices
+    assert t.vert_meta[n - 1].tolist() == [t.n_edges, 0]
+    assert t.vert_meta[0, 1].item() == 0
+    return t, walks.NeighborIndex.build(g, device)
 
 
-NODE2VEC_PQ = [(0.5, 2.0), (4.0, 0.25), (1.0, 1.0)]
-NODE2VEC_KERNEL_CASES = [(B, steps) for B in (1, 128, 4096, 80640)
-                         for steps in (1, 2, 40)]
+def _node2vec_instances(monkeypatch, run):
+    """``run()`` under each instance of the node2vec walk kernel, forced
+    through ``lanes_for``: {lanes: its result}."""
+    from smore_tpu_torch.ops import node2vec_walk as n2v_kernel
+
+    out = {}
+    for lanes in n2v_kernel.LANES:
+        with monkeypatch.context() as mp:
+            mp.setattr(n2v_kernel, "lanes_for",
+                       lambda B, sms, lanes=lanes: lanes)
+            out[lanes] = run()
+    return out
+
+
+NODE2VEC_PQ = [(0.5, 2.0), (4.0, 0.25), (1.0, 1.0), (2.0, 0.5)]
+# the cells' batches, and each side of lanes_for's crossover, sized on the
+# card: "warp" the largest batch of the 32-lane instance, "warp+1" the next
+NODE2VEC_BATCHES = (1, 128, "warp", "warp+1", 80640)
+
+
+def _node2vec_batch(B, device):
+    """A batch of ``NODE2VEC_BATCHES`` on the card."""
+    from smore_tpu_torch.ops import node2vec_walk as n2v_kernel
+
+    if isinstance(B, int):
+        return B
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return n2v_kernel.WARP_WALKS_PER_SM * sms + (B == "warp+1")
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("graph", sorted(_NODE2VEC_GRAPHS))
 @pytest.mark.parametrize("p,q", NODE2VEC_PQ)
-@pytest.mark.parametrize("B,steps", NODE2VEC_KERNEL_CASES)
-def test_node2vec_kernel_matches_twin(cuda, B, steps, p, q):
-    """The node2vec walk kernel's walks and row mask are the twin's, bit for
-    bit, given the same uniforms: dead starts, dead ends mid-walk (the
-    cursor back at the start), index uniforms that round up to the
-    degree, every p/q regime (returns favoured, far steps favoured, none)."""
+@pytest.mark.parametrize("steps", [1, 2, 40])
+@pytest.mark.parametrize("B", NODE2VEC_BATCHES)
+def test_node2vec_kernel_matches_twin(cuda, monkeypatch, B, steps, p, q,
+                                      graph):
+    """Both instances of the node2vec walk kernel (a thread and a warp a
+    walk) give the twin's walks and row mask, bit for bit, given the same
+    uniforms: dead starts, dead ends mid-walk (the cursor back at the
+    start), index uniforms that round up to the degree, every p/q regime
+    (returns favoured, far steps favoured, none, near steps favoured), and
+    on the hub graph searches of several rounds, lists read whole and
+    cand == prev; at the cells' batches and on both sides of the
+    crossover."""
     from smore_tpu_torch.ops import node2vec_walk as n2v_kernel
     from smore_tpu_torch.sampling import walks
 
-    t = _walk_kernel_tables(cuda)
-    nbr = _node2vec_index(t)
+    t, nbr = _node2vec_tables(graph, cuda)
+    B = _node2vec_batch(B, cuda)
     starts, u_first, u = _node2vec_inputs(t, B, steps, 4, B * 100 + steps)
-    before = n2v_kernel.node2vec_walk.launches
-    got = walks.node2vec_walk(t, nbr, None, starts, steps, p, q,
-                              u_first=u_first, u=u)
-    assert n2v_kernel.node2vec_walk.launches == before + 1
     want = walks.node2vec_walk_ref(t, nbr, starts, steps, p, q, 4, u_first,
                                    u)
-    assert got[0].shape == (B, steps + 1) and got[0].dtype == torch.int32
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    def run():
+        before = n2v_kernel.node2vec_walk.launches
+        got = walks.node2vec_walk(t, nbr, None, starts, steps, p, q,
+                                  u_first=u_first, u=u)
+        assert n2v_kernel.node2vec_walk.launches == before + 1
+        return got
+
+    for lanes, got in _node2vec_instances(monkeypatch, run).items():
+        assert got[0].shape == (B, steps + 1) and got[0].dtype == torch.int32
+        assert torch.equal(got[0], want[0]), lanes
+        assert torch.equal(got[1], want[1]), lanes
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("trials", [1, 2, 3])
-def test_node2vec_kernel_matches_twin_at_fewer_trials(cuda, trials):
+@pytest.mark.parametrize("trials", [1, 2, 3, 5, 6, 9, 33])
+def test_node2vec_kernel_matches_twin_at_fewer_trials(cuda, monkeypatch,
+                                                      trials):
+    """Other trial counts than the cells' 4, on the hub graph, each
+    instance: in the warp one group a trial (groups of 32, 16, 8, 4 and 2
+    lanes), and more trials than the warp has groups (33: two rounds)."""
     from smore_tpu_torch.sampling import walks
 
-    t = _walk_kernel_tables(cuda)
-    nbr = _node2vec_index(t)
+    t, nbr = _node2vec_tables("hub", cuda)
     B, steps = 4096, 40
     starts, u_first, u = _node2vec_inputs(t, B, steps, trials, trials)
-    got = walks.node2vec_walk(t, nbr, None, starts, steps, 0.5, 2.0, trials,
-                              u_first=u_first, u=u)
     want = walks.node2vec_walk_ref(t, nbr, starts, steps, 0.5, 2.0, trials,
                                    u_first, u)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for lanes, got in _node2vec_instances(
+            monkeypatch, lambda: walks.node2vec_walk(
+                t, nbr, None, starts, steps, 0.5, 2.0, trials,
+                u_first=u_first, u=u)).items():
+        assert torch.equal(got[0], want[0]), lanes
+        assert torch.equal(got[1], want[1]), lanes
 
 
 @pytest.mark.gpu
-def test_node2vec_kernel_captured_matches_eager(cuda):
-    """Two node2vec walk launches captured into one CUDA graph: its nodes
-    hold two launches of the kernel, and a replay on new uniforms, copied
-    into the captured inputs, gives the twin's walks on those uniforms."""
+def test_node2vec_kernel_captured_matches_eager(cuda, tracer):
+    """Node2vec walk launches of two instances captured into one CUDA
+    graph, as ``lanes_for`` picks them on the card (128 walks a warp each,
+    80,640 a thread each): its nodes hold both launches, a replay on new
+    uniforms, copied into the captured inputs, gives the twin's walks on
+    those uniforms, and the tracer's ``node2vec_walk.warp_launches`` counts
+    the multi-lane launch of the eager call and of the capture, not the
+    replay's."""
     from smore_tpu_torch.ops import launches
+    from smore_tpu_torch.ops import node2vec_walk as n2v_kernel
     from smore_tpu_torch.sampling import walks
 
-    t = _walk_kernel_tables(cuda)
-    nbr = _node2vec_index(t)
-    B, steps = 4096, 40
-    starts, u_first, u = _node2vec_inputs(t, B, steps, 4, seed=1)
-    pqs = NODE2VEC_PQ[:2]
+    t, nbr = _node2vec_tables("hub", cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    batches, steps, pqs = (128, 80640), 40, NODE2VEC_PQ[:2]
+    assert [n2v_kernel.lanes_for(B, sms) for B in batches] == [32, 1]
+    inputs = [_node2vec_inputs(t, B, steps, 4, seed=B) for B in batches]
+    tracer.enable()
+    warp = "node2vec_walk.warp_launches"
 
     def call():
         return [walks.node2vec_walk(t, nbr, None, starts, steps, p, q,
-                                    u_first=u_first, u=u) for p, q in pqs]
+                                    u_first=u_first, u=u)
+                for (starts, u_first, u), (p, q) in zip(inputs, pqs)]
 
     call()
     torch.cuda.synchronize()
+    assert tracer._counters[warp] == 1
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         got = call()
     assert launches.in_graph(graph.raw_cuda_graph()) == {"node2vec_walk": 2}
-    _, u_first2, u2 = _node2vec_inputs(t, B, steps, 4, seed=2)
-    u_first.copy_(u_first2)
-    u.copy_(u2)
+    assert tracer._counters[warp] == 2
+    for B, (_, u_first, u) in zip(batches, inputs):
+        _, u_first2, u2 = _node2vec_inputs(t, B, steps, 4, seed=B + 1)
+        u_first.copy_(u_first2)
+        u.copy_(u2)
     graph.replay()
     torch.cuda.synchronize()
-    for (walk, mask), (p, q) in zip(got, pqs):
+    assert tracer._counters[warp] == 2
+    for (walk, mask), (starts, u_first, u), (p, q) in zip(got, inputs, pqs):
         want = walks.node2vec_walk_ref(t, nbr, starts, steps, p, q, 4,
                                        u_first, u)
         assert torch.equal(walk, want[0]) and torch.equal(mask, want[1])

@@ -4,7 +4,9 @@ neighbour lists, and the SGNS formulas), on seeded random uniforms and
 tables on the CPU; the benchmark's byte count of the walk on a graph worked
 by hand; the benchmark's frozen copy of the reference."""
 
+import ctypes
 import os
+import re
 
 import numpy as np
 import pytest
@@ -124,6 +126,69 @@ def test_the_walk_rejects_what_the_kernel_does_not_take(dead_end, bad):
         nbr = W.NeighborIndex(nbr.indptr[:-1], nbr.sorted_nbrs, nbr.n_iters)
     with pytest.raises(ValueError):
         W.node2vec_walk(t, nbr, None, starts, 5, 0.5, 2.0, trials, **kw)
+
+
+# ------------------------------------------------- the kernel's instances #
+def _kernel_source():
+    with open(os.path.join(ROOT, "smore_tpu_torch", "csrc",
+                           "node2vec_walk.cu")) as f:
+        return f.read()
+
+
+def test_lanes_for_picks_only_instances_the_kernel_has():
+    """``LANES`` are the instances the kernel's launch dispatches to and its
+    graph count reads, and ``lanes_for`` returns nothing else, from one walk
+    to past the crossover, on cards of 1 to 144 SMs."""
+    src = _kernel_source()
+    extern = src.split('extern "C"', 1)[1]
+    cases = re.findall(r"case (\d+):\s*return \(int\)launch<(\d+)>", extern)
+    assert [int(a) for a, b in cases] == [int(b) for a, b in cases]
+    assert tuple(int(a) for a, _ in cases) == n2v_kernel.LANES
+    counted = re.findall(r"node2vec_walk_steps<(\d+)>", extern)
+    assert tuple(int(n) for n in counted) == n2v_kernel.LANES
+    for sms in (1, 66, 114, 132, 144):
+        top = 2 * n2v_kernel.WARP_WALKS_PER_SM * sms
+        seen = {n2v_kernel.lanes_for(B, sms) for B in range(1, top, 7)}
+        assert seen == set(n2v_kernel.LANES), sms
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132])
+def test_lanes_for_narrows_as_the_batch_grows(sms):
+    """Monotone in B: a larger batch never takes more lanes a walk."""
+    top = 3 * n2v_kernel.WARP_WALKS_PER_SM * sms
+    lanes = [n2v_kernel.lanes_for(B, sms) for B in range(1, top)]
+    assert all(a >= b for a, b in zip(lanes, lanes[1:]))
+    assert lanes[0] == max(n2v_kernel.LANES)
+    assert lanes[-1] == 1
+
+
+def test_lanes_for_at_the_cells_shapes_on_an_h100():
+    """On an H100 (132 SMs): a warp a walk at ``node2vec.youtube``'s 128
+    walks a launch, one thread a walk at ``node2vec.flickr``'s 80,640 (an
+    epoch's hoisted starts)."""
+    assert n2v_kernel.lanes_for(128, 132) == 32
+    assert n2v_kernel.lanes_for(80640, 132) == 1
+
+
+def test_the_launch_signature_is_unchanged():
+    """``node2vec_walk_launch``'s C signature stays as it was, and
+    ``node2vec_walk_launch_lanes`` takes the lane count before the same
+    arguments, as ``LANES_ARGTYPES`` passes them."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    assert n2v_kernel.LAUNCH_ARGTYPES == {
+        "node2vec_walk": [I] + [P] * 9 + [I] * 4 + [F] * 3 + [P]}
+    assert n2v_kernel.LANES_ARGTYPES == (
+        [I] + n2v_kernel.LAUNCH_ARGTYPES["node2vec_walk"])
+    extern = _kernel_source().split('extern "C"', 1)[1]
+    m = re.search(r"\bint\s+node2vec_walk_launch_lanes\s*\(([^)]*)\)",
+                  extern)
+    kinds = []
+    for param in m.group(1).split(","):
+        param = " ".join(param.split())
+        kinds.append(P if "*" in param else
+                     F if re.match(r"(const )?float\b", param) else
+                     I if re.match(r"(const )?int\b", param) else param)
+    assert kinds == n2v_kernel.LANES_ARGTYPES
 
 
 def test_the_class_law_sums_to_one_and_keeps_the_first_order_law():

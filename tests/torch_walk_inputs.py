@@ -20,6 +20,30 @@ def dead_end_graph(n: int = 2000):
             names, {nm: i for i, nm in enumerate(names)})
 
 
+def hub_graph(n: int = 6000, hub_degree: int = 4500):
+    """(src, dst, weights, names, name2id) of a weighted directed graph with
+    ``dead_end_graph``'s dead ends (every fifth vertex and the last one) and
+    one hub, vertex 1, of ``hub_degree`` out-neighbours, that every other
+    live vertex links to: the node2vec walk kernel's searches of prev's
+    list take several rounds at the hub, read short lists (1-9 entries)
+    whole, and meet cand == prev."""
+    rng = np.random.default_rng(9)
+    hub = 1
+    src, dst = [np.full(hub_degree, hub)], [rng.choice(n, hub_degree,
+                                                       replace=False)]
+    for v in range(2, n - 1):
+        if v % 5 == 0:
+            continue
+        d = int(rng.choice([1, 2, 3, 5, 8, 9, 17, 40]))
+        src.append(np.full(d + 1, v))
+        dst.append(np.append(rng.choice(n, d, replace=False), hub))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    keep = src != dst
+    names = [f"v{i}" for i in range(n)]
+    return (src[keep], dst[keep], rng.uniform(0.5, 3.0, int(keep.sum())),
+            names, {nm: i for i, nm in enumerate(names)})
+
+
 def walk_inputs(n_vertices: int, B: int, steps: int, seed: int):
     """(starts (B,) int32, u (steps, B, 2) float32): dead starts (vertex 0,
     and the last vertex, past the last edge), and some u0 at the float just
