@@ -9,8 +9,8 @@ and the SASRec family, on one NVIDIA card.
 
 Phases (any failure exits non-zero; there is no CPU path):
   1. device: a CUDA card must be present; prints its name and power limit
-  2. build: compiles smore_tpu_torch/csrc/*.cu with nvcc (the five SGNS
-     kernels, jodie_epoch, random_walk and node2vec_walk) and
+  2. build: compiles every kernel library the port declares
+     (ops/launches.Kernel: smore_tpu_torch/csrc/*.cu) with nvcc and
      csrc/jodie_schedule.cpp with g++, one
      process per source, all started together (first use)
   3. K4 vs twin at the banded path's shapes (S=16 micro-steps, B=2048,
@@ -260,7 +260,7 @@ JODIE and FastRP (the KG models, HAN, the SASRec family; phases 26, 27,
 31) trains on captured calls: the first call of a train() eager, the
 others replays of CUDA graphs; a kernel's launch
 counter is credited on every replay the launches of it that the graph's
-nodes hold, which capture holds to what the wrappers launched.
+nodes hold, which capture holds to what the launchers launched.
 Each in-process path runs 1M samples first (tables, stream and warm-up),
 then every kernel's launch count is set to 0, read after the timed 40M run
 and printed; a command-line run counts the launches of its own process.
@@ -373,10 +373,10 @@ def phase_device() -> torch.device:
 
 
 def _counters():
-    """The launch-counting wrappers of every kernel, by kernel name."""
+    """The launch-counting kernels, by name."""
     from smore_tpu_torch.ops import launches
 
-    return launches.wrappers()
+    return {n: k for n, k in launches.declared().items() if k.counted}
 
 
 def _update_launches(counts: dict) -> dict:
@@ -389,30 +389,17 @@ def _update_launches(counts: dict) -> dict:
 
 
 def phase_build() -> None:
-    from smore_tpu_torch.ops import (
-        _build,
-        jodie_epoch,
-        node2vec_walk,
-        random_walk,
-        scatter,
-        sgns,
-        sgns_banded,
-    )
+    from smore_tpu_torch.ops import _build, jodie_epoch, launches
 
-    loaders = (sgns_banded._load, sgns._load, sgns_banded._load_fused,
-               scatter._load, sgns_banded._load_nb, jodie_epoch._load,
-               jodie_epoch._load_schedule, random_walk._load,
-               node2vec_walk._load)
+    loaders = [k.load for k in launches.declared().values()]
+    loaders.append(jodie_epoch._load_schedule)  # the host library
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as ex:
         for f in [ex.submit(load) for load in loaders]:
             f.result()
     log(f"build: {time.perf_counter() - t0:.2f} s for all {len(loaders)} "
         f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for name in ("sgns_banded_multiblock", "sgns_shared_grads",
-                 "sgns_banded_fused", "band_scatter_add",
-                 "sgns_banded_multiblock_nb", "jodie_epoch",
-                 "jodie_schedule", "random_walk", "node2vec_walk"):
+    for name in sorted(_build.build_info):
         secs, report = _build.build_info[name]
         log(f"  {name}: {secs:.2f} s")
         for line in report.splitlines():
@@ -555,14 +542,12 @@ def _launch_report(tag: str, name: str, kernel, device_kernel: str,
             log(f"  ptxas: {line.strip()}")
 
 
-def _superstep_report(tag: str, name: str, prefix: str, kernel) -> None:
-    """_launch_report of a launcher of the superstep kernel (K4, K5, K3)."""
-    from smore_tpu_torch.ops import sgns_banded
-
-    lib = sgns_banded._libs[name]
-    _launch_report(tag, name, kernel, "superstep",
-                   getattr(lib, f"{prefix}_grid_size")(0, KS, D),
-                   getattr(lib, f"{prefix}_smem_bytes")(KS, D))
+def _superstep_report(tag: str, lib, kernel) -> None:
+    """_launch_report of a launcher of the superstep kernel (K4, K5, K3),
+    whose library is ``lib`` (an ``ops.launches.Kernel``)."""
+    _launch_report(tag, lib.name, kernel, "superstep",
+                   lib.call("grid_size", 0, KS, D),
+                   lib.call("smem_bytes", KS, D))
 
 
 def _all_collide_check(tag: str, kernel, twin, x: dict, args, **kw) -> None:
@@ -612,6 +597,7 @@ _ARGS = ("wv", "wc", "sb", "db", "src_l", "pos_l", "cn", "alpha")
 
 def phase_k4_vs_twin(device) -> dict:
     from smore_tpu_torch.ops.sgns_banded import (
+        K4,
         sgns_banded_multiblock,
         sgns_banded_multiblock_ref,
     )
@@ -634,7 +620,7 @@ def phase_k4_vs_twin(device) -> dict:
     _all_collide_check("K4", sgns_banded_multiblock,
                        sgns_banded_multiblock_ref, multiblock_inputs(**c),
                        _ARGS, band_size=c["band"])
-    _superstep_report("K4", "sgns_banded_multiblock", "sgns_mb",
+    _superstep_report("K4", K4,
                       lambda: sgns_banded_multiblock(*(x[k] for k in _ARGS),
                                                      band_size=BAND))
     ms, t_kern, plain_ms, t_plain = _alternate(
@@ -683,6 +669,7 @@ def _nb_superstep_inputs(seed: int, device):
 
 def phase_k5_vs_twin(device) -> dict:
     from smore_tpu_torch.ops.sgns_banded import (
+        K5,
         sgns_banded_multiblock_nb,
         sgns_banded_multiblock_nb_ref,
     )
@@ -706,7 +693,7 @@ def phase_k5_vs_twin(device) -> dict:
                        sgns_banded_multiblock_nb_ref,
                        multiblock_nb_inputs(**c), _NB_ARGS,
                        band_size=c["band"], nb2=c["nb2"])
-    _superstep_report("K5", "sgns_banded_multiblock_nb", "sgns_nb",
+    _superstep_report("K5", K5,
                       lambda: sgns_banded_multiblock_nb(
                           *(x[k] for k in _NB_ARGS), **kw))
     ms, t_kern, plain_ms, t_plain = _alternate(
@@ -731,8 +718,8 @@ def phase_k5_vs_twin(device) -> dict:
 
 
 def phase_k1_vs_twin(device) -> dict:
-    from smore_tpu_torch.ops import sgns
     from smore_tpu_torch.ops.sgns import (
+        K1,
         sgns_shared_grads,
         sgns_shared_grads_ref,
     )
@@ -749,12 +736,11 @@ def phase_k1_vs_twin(device) -> dict:
         ("d_src", "d_pos", "d_neg"), got, want))
     log(f"K1 vs twin (B={B_UNBANDED} Ks={KS} D={D}): max |diff| "
         f"{err:.3e} within rtol {RTOL} atol {ATOL}")
-    lib = sgns._load()
-    _launch_report("K1", "sgns_shared_grads",
+    _launch_report("K1", K1.name,
                    lambda: sgns_shared_grads(v, cp, cn, alpha, k_equiv=5),
                    "shared_grads_persistent",
-                   lib.sgns_sg_grid_size(0, B_UNBANDED, KS, D),
-                   lib.sgns_sg_smem_bytes(KS, D))
+                   K1.call("grid_size", 0, B_UNBANDED, KS, D),
+                   K1.call("smem_bytes", KS, D))
     ms, t_kern, plain_ms, t_plain = _alternate(
         lambda: sgns_shared_grads_ref(v, cp, cn, alpha, k_equiv=5),
         lambda: sgns_shared_grads(v, cp, cn, alpha, k_equiv=5), 50, 50)
@@ -791,6 +777,7 @@ def _fused_inputs(seed: int, b: int, device):
 
 def phase_k3_vs_twin(device) -> dict:
     from smore_tpu_torch.ops.sgns_banded import (
+        K3,
         sgns_banded_fused,
         sgns_banded_fused_ref,
         sgns_banded_multiblock,
@@ -817,7 +804,7 @@ def phase_k3_vs_twin(device) -> dict:
         log(f"K3 micro-step time (B={b}): kernel {ms:.4f} ms {t_kern}, "
             f"twin {plain_ms:.4f} ms {t_plain}")
         if b == B_FUSED:  # the fused route's batch
-            _superstep_report("K3", "sgns_banded_fused", "sgns_bf",
+            _superstep_report("K3", K3,
                               lambda: sgns_banded_fused(
                                   *(x[k] for k in _ARGS)))
             h = {k: y[k].cpu().numpy() for k in ("sb", "db", "src_l",
@@ -1195,13 +1182,13 @@ def _train_counted(m, counter, never=(), **kw):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {name: c.launches for name, c in counters.items()}
-    launches = counts[counter.__name__]
+    launches = counts[counter.name]
     executed = m.last_driver.executed_samples
     log(f"  {executed:,} samples in {dt:.3f} s = {executed / dt:,.0f} "
         f"samples/s; launches {counts}")
-    require(launches > 0, f"the path never launched {counter.__name__}")
+    require(launches > 0, f"the path never launched {counter.name}")
     for c in never:
-        require(counts[c.__name__] == 0, f"the path launched {c.__name__}")
+        require(counts[c.name] == 0, f"the path launched {c.name}")
     for k, t in m.state.items():
         require(tuple(t.shape) == (m.graph.n_vertices, D),
                 f"{k} table shape {tuple(t.shape)}")
@@ -1218,8 +1205,8 @@ def _route(m) -> str:
 def phase_youtube(device):
     from smore_tpu_torch.graph.graph import Graph
     from smore_tpu_torch.models.line import LINE
-    from smore_tpu_torch.ops.sgns import sgns_shared_grads
-    from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
+    from smore_tpu_torch.ops.sgns import K1
+    from smore_tpu_torch.ops.sgns_banded import K4
     from smore_tpu_torch.utils.bench_graphs import (
         make_youtube_graph,
         yt_community_auc,
@@ -1236,7 +1223,7 @@ def phase_youtube(device):
     m = LINE(g, seed=0, device=device)
     m.init(dim=D, order=2)
     log("banded main path (LINE o2, Youtube scale, defaults):")
-    rate, launches = _train_counted(m, sgns_banded_multiblock)
+    rate, launches = _train_counted(m, K4)
     bt = m.banded_tables
     log(f"  route: multiblock {_route(m)} band {bt.band_size} bands "
         f"{bt.n_bands} stream entries {bt.stream.numel():,}")
@@ -1257,7 +1244,7 @@ def phase_youtube(device):
     log("unbanded route at Youtube scale (banded=False, use_pallas=True; "
         "a measurement):")
     t0 = time.perf_counter()
-    rate_u, _ = _train_counted(mu, sgns_shared_grads, banded=False,
+    rate_u, _ = _train_counted(mu, K1, banded=False,
                                use_pallas=True)
     log(f"  route: {_route(mu)} ({time.perf_counter() - t0:.1f} s with "
         "sampler tables and warm-up)")
@@ -1273,28 +1260,21 @@ def phase_youtube_routes(g, device) -> dict:
     gated), order 1 (K2), scatter-only o2 (K2), neg_band (K5 and never K4,
     gated), held fused (K3, gated) and held scatter-only (K2)."""
     from smore_tpu_torch.models.line import LINE
-    from smore_tpu_torch.ops.scatter import band_scatter_add
-    from smore_tpu_torch.ops.sgns_banded import (
-        sgns_banded_fused,
-        sgns_banded_multiblock,
-        sgns_banded_multiblock_nb,
-    )
+    from smore_tpu_torch.ops.scatter import K2
+    from smore_tpu_torch.ops.sgns_banded import K3, K4, K5
     from smore_tpu_torch.utils.bench_graphs import yt_community_auc
 
     out = {}
     for tag, order, kw, counter, never, gate in (
-        ("fused", 2, dict(multiband=False), sgns_banded_fused, (),
-         AUC_MIN_FUSED),
-        ("order 1", 1, {}, band_scatter_add, (), None),
+        ("fused", 2, dict(multiband=False), K3, (), AUC_MIN_FUSED),
+        ("order 1", 1, {}, K2, (), None),
         ("scatter-only o2", 2, dict(multiband=False, use_pallas="scatter"),
-         band_scatter_add, (), None),
-        ("neg_band", 2, dict(neg_band=True), sgns_banded_multiblock_nb,
-         (sgns_banded_multiblock,), AUC_MIN_NB),
-        ("held fused", 2, dict(multiband=False, band_hold=True),
-         sgns_banded_fused, (), AUC_MIN_HOLD),
+         K2, (), None),
+        ("neg_band", 2, dict(neg_band=True), K5, (K4,), AUC_MIN_NB),
+        ("held fused", 2, dict(multiband=False, band_hold=True), K3, (),
+         AUC_MIN_HOLD),
         ("held scatter-only", 2, dict(multiband=False, band_hold=True,
-                                      use_pallas="scatter"),
-         band_scatter_add, (), None),
+                                      use_pallas="scatter"), K2, (), None),
     ):
         m = LINE(g, seed=0, device=device)
         m.init(dim=D, order=order)
@@ -1354,15 +1334,15 @@ def phase_captured_vs_eager(g_yt, g_50k, device) -> None:
     to the eager ones within the kernels' tolerance, the captured AUC to
     its gate."""
     from smore_tpu_torch.models.line import LINE
-    from smore_tpu_torch.ops.sgns import sgns_shared_grads
-    from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
+    from smore_tpu_torch.ops.sgns import K1
+    from smore_tpu_torch.ops.sgns_banded import K4
     from smore_tpu_torch.utils.bench_graphs import yt_community_auc
 
     for tag, g, kw, counter, gate, auc_of in (
         ("LINE multiblock at Youtube scale (K4)", g_yt, {},
-         sgns_banded_multiblock, AUC_MIN, yt_community_auc),
+         K4, AUC_MIN, yt_community_auc),
         ("LINE unbanded on the 50k graph, group 8 (K1)", g_50k,
-         dict(use_pallas=True), sgns_shared_grads, AUC_MIN_50K,
+         dict(use_pallas=True), K1, AUC_MIN_50K,
          community_auc_50k),
     ):
         runs = {}
@@ -1771,7 +1751,7 @@ def phase_walk_kill_resume(path: str, device):
     from smore_tpu_torch.graph.graph import Graph
     from smore_tpu_torch.models import DeepWalk
     from smore_tpu_torch.models.base import TrainDriver
-    from smore_tpu_torch.ops.random_walk import random_walk
+    from smore_tpu_torch.ops.random_walk import KERNEL as WALK
     from smore_tpu_torch.utils.checkpoint import load_checkpoint
 
     g = Graph.load_edge_list(path, undirected=True)
@@ -1789,11 +1769,11 @@ def phase_walk_kill_resume(path: str, device):
         return link_auc(path, *_load_emb(f))
 
     ref = fresh()
-    random_walk.launches = 0
+    WALK.launches = 0
     t0 = time.perf_counter()
     ref.train(**kw)
     dt = time.perf_counter() - t0
-    walk_launches = random_walk.launches
+    walk_launches = WALK.launches
     require(walk_launches > 0, "DeepWalk launched no walk kernel")
     auc_ref = auc_of(ref, "deepwalk_ref.txt")
     d = ref.last_driver

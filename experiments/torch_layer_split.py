@@ -152,7 +152,7 @@ def nodes(args) -> dict:
     def close(self):
         orig(self)
         loops.append({"nodes": {str(k): v for k, v in self.nodes.items()},
-                      "credit": {str(k): {f.__name__: n for f, n in c}
+                      "credit": {str(k): {kern.name: n for kern, n in c}
                                  for k, c in self._credit.items()},
                       "calls": self.calls, "replays": self.replays})
 

@@ -39,9 +39,7 @@ __global__ void __launch_bounds__(kThreads) band_scatter_add_rows(
 
 extern "C" {
 
-const char* band_scatter_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+KERNEL_LIBRARY_EXPORTS(band_scatter_add, band_scatter_add_rows)
 
 // table (rows, D) f32; start: one int32 band START row; idx (B,) int32
 // band-local rows; delta (B, D) f32. Returns the launch's cudaError_t.
@@ -55,13 +53,6 @@ int band_scatter_add_launch(int device, float* table, const int* start,
                           0, (cudaStream_t)stream_handle>>>(
       table, start, idx, delta, B, D);
   return (int)cudaGetLastError();
-}
-
-// Kernel nodes of a captured CUDA graph that launch this library's kernel,
-// in *count. Returns a cudaError_t.
-int band_scatter_graph_launches(void* graph, long long* count) {
-  const void* k = (const void*)band_scatter_add_rows;
-  return (int)graph_nodes::count((cudaGraph_t)graph, &k, 1, count);
 }
 
 }  // extern "C"

@@ -395,9 +395,7 @@ cudaError_t make_plan(int device, int D, int max_width, Plan* pl) {
 
 extern "C" {
 
-const char* jodie_epoch_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+KERNEL_LIBRARY_EXPORTS(jodie_epoch, kKernel)
 
 // The launch's plan for (D, the widest level): out = {grid blocks, split,
 // cached weight rows of a block, shared bytes of a block}. Returns a
@@ -490,12 +488,6 @@ int jodie_epoch_launch(int device, float* ue, float* ie, float* us, float* is,
   err = cudaLaunchKernelEx(&cfg, jodie_levels, p);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// Kernel nodes of a captured CUDA graph that launch this library's kernel,
-// in *count. Returns a cudaError_t.
-int jodie_epoch_graph_launches(void* graph, long long* count) {
-  return (int)graph_nodes::count((cudaGraph_t)graph, &kKernel, 1, count);
 }
 
 }  // extern "C"

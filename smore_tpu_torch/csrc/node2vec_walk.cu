@@ -340,9 +340,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-const char* node2vec_walk_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+KERNEL_LIBRARY_EXPORTS(node2vec_walk, node2vec_walk_steps<1>,
+                       node2vec_walk_steps<32>)
 
 // starts (B,) int32; u_first (B, 2) f32; u (steps - 1, B, trials, 3) f32
 // [index, alias, acceptance]; vert_meta (N, 2) int32 [indptr, degree];
@@ -353,7 +352,7 @@ const char* node2vec_walk_error_string(int code) {
 // inv_p, inv_q and max_bias are float32 as the twin rounds them. `lanes` (1
 // or 32) picks the instance. Returns the launch's cudaError_t
 // (cudaErrorInvalidValue for a lane count with no instance).
-int node2vec_walk_launch_lanes(int lanes, int device, const int* starts,
+int node2vec_walk_launch_lanes(int device, int lanes, const int* starts,
                                const float* u_first, const float* u,
                                const int* vert_meta, const float* ctx_pa,
                                const int* indptr, const int* sorted_nbrs,
@@ -380,28 +379,6 @@ int node2vec_walk_launch_lanes(int lanes, int device, const int* starts,
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// The 1-lane instance (one thread a walk), the arguments as above.
-int node2vec_walk_launch(int device, const int* starts, const float* u_first,
-                         const float* u, const int* vert_meta,
-                         const float* ctx_pa, const int* indptr,
-                         const int* sorted_nbrs, int* walk, float* row_mask,
-                         int B, int steps, int trials, int n_edges,
-                         float inv_p, float inv_q, float max_bias,
-                         void* stream_handle) {
-  return node2vec_walk_launch_lanes(1, device, starts, u_first, u, vert_meta,
-                                    ctx_pa, indptr, sorted_nbrs, walk,
-                                    row_mask, B, steps, trials, n_edges,
-                                    inv_p, inv_q, max_bias, stream_handle);
-}
-
-// Kernel nodes of a captured CUDA graph that launch this library's kernel,
-// any instance, in *count. Returns a cudaError_t.
-int node2vec_walk_graph_launches(void* graph, long long* count) {
-  const void* k[] = {(const void*)node2vec_walk_steps<1>,
-                     (const void*)node2vec_walk_steps<32>};
-  return (int)graph_nodes::count((cudaGraph_t)graph, k, 2, count);
 }
 
 }  // extern "C"

@@ -94,9 +94,7 @@ __global__ void __launch_bounds__(kThreads) random_walk_steps(
 
 extern "C" {
 
-const char* random_walk_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+KERNEL_LIBRARY_EXPORTS(random_walk, random_walk_steps)
 
 // starts (B,) int32; u (steps, B, 2) f32; vert_meta (N, 2) int32
 // [indptr, degree]; ctx_pa (n_edges, 4) f32 [prob, vid, alias_vid, 0];
@@ -116,13 +114,6 @@ int random_walk_launch(int device, const int* starts, const float* u,
       starts, (const float2*)u, (const int2*)vert_meta,
       (const float4*)ctx_pa, walk, row_mask, B, steps, n_edges, restart);
   return (int)cudaGetLastError();
-}
-
-// Kernel nodes of a captured CUDA graph that launch this library's kernel,
-// in *count. Returns a cudaError_t.
-int random_walk_graph_launches(void* graph, long long* count) {
-  const void* k = (const void*)random_walk_steps;
-  return (int)graph_nodes::count((cudaGraph_t)graph, &k, 1, count);
 }
 
 }  // extern "C"

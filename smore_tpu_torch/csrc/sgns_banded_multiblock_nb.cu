@@ -29,36 +29,14 @@ static constexpr int kMode = sgns_ss::kWindow;
 
 extern "C" {
 
-// Dynamic shared memory of one block (0 when (Ks, D) are not supported).
-size_t sgns_nb_smem_bytes(int Ks, int D) {
-  return sgns_ss::supported<kMode>(Ks, D) ? sgns_ss::plan<kMode>(Ks, D).smem
-                                          : 0;
-}
-
-// Floats of the scratch buffer one launch needs.
-size_t sgns_nb_scratch_floats(int S, int B, int tb, int Ks, int D) {
-  return sgns_ss::scratch_floats(sgns_ss::kept_rows<kMode>(S, B),
-                                 sgns_ss::kept_g_rows<kMode>(S, B, Ks, D),
-                                 tb, Ks, D);
-}
-
-// The grid one launch uses (one block on each SM), or minus the
-// cudaError_t that prevents it.
-int sgns_nb_grid_size(int device, int Ks, int D) {
-  int grid = 0;
-  const cudaError_t err = sgns_ss::grid_size<kMode>(device, Ks, D, &grid);
-  return err == cudaSuccess ? grid : -(int)err;
-}
-
-const char* sgns_nb_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+SUPERSTEP_LIBRARY_EXPORTS(sgns_banded_multiblock_nb, kMode)
 
 // One superstep: S micro-steps of B samples, tiles of tb rows (B % tb == 0,
 // tb % 8 == 0, D % 4 == 0). Index arrays are int32 and row-major: sb, db,
 // nb (S,), src_l, pos_l (S, B), negs_l (S, Ks) window-local. scratch holds
-// sgns_nb_scratch_floats floats; loss receives the loss sum over all S * B
-// rows. Returns the launch's cudaError_t (0 when it was accepted).
+// sgns_banded_multiblock_nb_scratch_floats floats; loss receives the loss
+// sum over all S * B rows. Returns the launch's cudaError_t (0 when it was
+// accepted).
 int sgns_banded_multiblock_nb_launch(
     int device, float* wv, float* wc, const int* sb, const int* db,
     const int* nb, const int* src_l, const int* pos_l, const int* negs_l,
@@ -86,12 +64,6 @@ int sgns_banded_multiblock_nb_launch(
   p.loss = loss;
   return (int)sgns_ss::launch<kMode>(device, p, scratch,
                                      (cudaStream_t)stream_handle);
-}
-
-// Kernel nodes of a captured CUDA graph that launch this library's kernel,
-// in *count. Returns a cudaError_t.
-int sgns_nb_graph_launches(void* graph, long long* count) {
-  return (int)sgns_ss::graph_launches<kMode>((cudaGraph_t)graph, count);
 }
 
 }  // extern "C"

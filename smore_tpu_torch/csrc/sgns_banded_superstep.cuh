@@ -742,11 +742,28 @@ inline cudaError_t launch(int device, Params p, float* scratch,
   return cudaGetLastError();
 }
 
-// Nodes of a captured graph that launch this mode's superstep.
-template <int kMode>
-inline cudaError_t graph_launches(cudaGraph_t graph, long long* count) {
-  const void* k = (const void*)superstep<kMode>;
-  return graph_nodes::count(graph, &k, 1, count);
-}
-
 }  // namespace sgns_ss
+
+// Inside the extern "C" block of a library of one mode of the superstep:
+// its exports beside its launcher, <name>_smem_bytes (dynamic shared memory
+// of one block, 0 when (Ks, D) are not supported), <name>_scratch_floats
+// (floats of the scratch buffer one launch needs; K3 passes S = 1),
+// <name>_grid_size (the grid one launch uses, one block on each SM, or
+// minus the cudaError_t that prevents it) and those of every library.
+#define SUPERSTEP_LIBRARY_EXPORTS(name, mode)                                \
+  size_t name##_smem_bytes(int Ks, int D) {                                  \
+    return sgns_ss::supported<mode>(Ks, D) ? sgns_ss::plan<mode>(Ks, D).smem \
+                                           : 0;                              \
+  }                                                                          \
+  size_t name##_scratch_floats(int S, int B, int tb, int Ks, int D) {        \
+    return sgns_ss::scratch_floats(                                          \
+        sgns_ss::kept_rows<mode>(S, B),                                      \
+        sgns_ss::kept_g_rows<mode>(S, B, Ks, D), tb, Ks, D);                 \
+  }                                                                          \
+  int name##_grid_size(int device, int Ks, int D) {                          \
+    int grid = 0;                                                            \
+    const cudaError_t err =                                                  \
+        sgns_ss::grid_size<mode>(device, Ks, D, &grid);                      \
+    return err == cudaSuccess ? grid : -(int)err;                            \
+  }                                                                          \
+  KERNEL_LIBRARY_EXPORTS(name, sgns_ss::superstep<mode>)

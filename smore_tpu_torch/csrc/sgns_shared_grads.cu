@@ -423,14 +423,14 @@ inline cudaError_t resident_blocks(int device, int Ks, int D, int* blocks) {
 extern "C" {
 
 // Dynamic shared memory of one block (0 when (Ks, D) are not supported).
-size_t sgns_sg_smem_bytes(int Ks, int D) {
+size_t sgns_shared_grads_smem_bytes(int Ks, int D) {
   Plan pl;
   return plan(Ks, D, &pl) ? pl.smem : 0;
 }
 
 // The grid of a launch over B rows (one block a SM, at most one a tile), or
 // minus the cudaError_t that prevents it.
-int sgns_sg_grid_size(int device, int B, int Ks, int D) {
+int sgns_shared_grads_grid_size(int device, int B, int Ks, int D) {
   int blocks = 0;
   const cudaError_t err = resident_blocks(device, Ks, D, &blocks);
   if (err != cudaSuccess) return -(int)err;
@@ -440,9 +440,8 @@ int sgns_sg_grid_size(int device, int B, int Ks, int D) {
   return tiles < blocks ? tiles : blocks;
 }
 
-const char* sgns_sg_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+KERNEL_LIBRARY_EXPORTS(sgns_shared_grads, shared_grads_persistent<64>,
+                       shared_grads_persistent<0>)
 
 // v, cp (B, D); cn (Ks, D); alpha one float on the device; outputs d_src,
 // d_pos (B, D) and d_neg (Ks, D), all written by the kernel (D % 4 == 0,
@@ -491,14 +490,6 @@ int sgns_shared_grads_launch(int device, const float* v, const float* cp,
                                     pl.smem, (cudaStream_t)stream_handle);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// Kernel nodes of a captured CUDA graph that launch this library's kernel
-// (either form of it), in *count. Returns a cudaError_t.
-int sgns_sg_graph_launches(void* graph, long long* count) {
-  const void* k[] = {(const void*)shared_grads_persistent<64>,
-                     (const void*)shared_grads_persistent<0>};
-  return (int)graph_nodes::count((cudaGraph_t)graph, k, 2, count);
 }
 
 }  // extern "C"

@@ -31,9 +31,7 @@ __global__ void trace_stamp_kernel(long long* __restrict__ ring,
 
 extern "C" {
 
-const char* trace_stamp_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+KERNEL_LIBRARY_EXPORTS(trace_stamp, trace_stamp_kernel)
 
 // ring (capacity, 2) int64: (code, ns) records; cursor: one uint64, the
 // stamps taken so far. Returns the launch's cudaError_t.
@@ -45,13 +43,6 @@ int trace_stamp_launch(int device, long long* ring,
   trace_stamp_kernel<<<1, 1, 0, (cudaStream_t)stream_handle>>>(
       ring, cursor, capacity, code);
   return (int)cudaGetLastError();
-}
-
-// Kernel nodes of a captured CUDA graph that launch the stamp, in *count.
-// Returns a cudaError_t.
-int trace_stamp_graph_launches(void* graph, long long* count) {
-  const void* k = (const void*)trace_stamp_kernel;
-  return (int)graph_nodes::count((cudaGraph_t)graph, &k, 1, count);
 }
 
 }  // extern "C"

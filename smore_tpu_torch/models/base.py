@@ -290,7 +290,7 @@ class CapturedCalls:
     call's graph holds (a call of another length, or one that also starts
     or ends an epoch, is another kind). The graph replays no Python, so
     each kernel's launch counter is credited, on every replay, the
-    launches its graph's nodes hold, which must equal what the wrappers
+    launches its graph's nodes hold, which must equal what the kernels
     launched while it was captured (``ops.launches``).
 
     ``comm``, given when the calls issue collectives (a mesh), is credited

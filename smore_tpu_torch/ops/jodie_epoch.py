@@ -29,7 +29,7 @@ tensors and launches the CUDA kernel (``csrc/jodie_epoch.cu``: the levels of
 the ``level_schedule`` it is given in order, the events of a level side by
 side across the SMs, one launch an epoch) for CUDA tensors, or raises; it
 never falls back.
-``jodie_epoch.launches`` counts kernel launches.
+``KERNEL.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -40,33 +40,15 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-_KERNEL = "jodie_epoch"
-_lib = None
+from smore_tpu_torch.ops.launches import Kernel
+
 _sched_lib = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the launcher's C signature as ctypes passes it, held to csrc/ by
-# tests/test_torch_sgns_banded.py
-LAUNCH_ARGTYPES = {_KERNEL: [_I] + [_P] * 17 + [_I] * 5 + [_F] * 2
-                   + [_P] * 2}
+KERNEL = Kernel("jodie_epoch", [_I] + [_P] * 17 + [_I] * 5 + [_F] * 2
+                + [_P] * 2, {"plan": (_I, [_I] * 3 + [_P])})
 # the kernel computes an event on a cluster of up to this many blocks
 # (csrc/jodie_epoch.cu kMaxSplit, a portable cluster)
 _MAX_SPLIT = 8
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        from smore_tpu_torch.ops._build import load_kernel_lib
-
-        lib = load_kernel_lib(_KERNEL)
-        lib.jodie_epoch_launch.restype = _I
-        lib.jodie_epoch_launch.argtypes = LAUNCH_ARGTYPES[_KERNEL]
-        lib.jodie_epoch_error_string.restype = ctypes.c_char_p
-        lib.jodie_epoch_error_string.argtypes = [_I]
-        lib.jodie_epoch_plan.restype = _I
-        lib.jodie_epoch_plan.argtypes = [_I] * 3 + [_P]
-        _lib = lib
-    return _lib
 
 
 def _load_schedule():
@@ -263,7 +245,6 @@ def jodie_epoch(ue, ie, us, is_, uid, iid, negs, cu, ci,
         raise ValueError(f"no kernel for device {dev}")
     if schedule is None:
         raise ValueError("the kernel needs the epoch's level_schedule")
-    lib = _load()
     # freed on return while the launch may still run: the caching allocator
     # hands their memory only to later work on the same stream
     ids = [t.to(torch.int32).contiguous()
@@ -274,24 +255,13 @@ def jodie_epoch(ue, ie, us, is_, uid, iid, negs, cu, ci,
                            dtype=torch.float32, device=dev)
     # the kernel writes the loss: with int32 inputs a call is one launch
     loss = torch.empty((), dtype=torch.float32, device=dev)
-    rc = lib.jodie_epoch_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        ue.data_ptr(), ie.data_ptr(), us.data_ptr(), is_.data_ptr(),
+    KERNEL.launch(
+        dev, ue.data_ptr(), ie.data_ptr(), us.data_ptr(), is_.data_ptr(),
         *(t.data_ptr() for t in ids), cu.data_ptr(), ci.data_ptr(),
         *(w.data_ptr() for w in ws), slots.data_ptr(), partials.data_ptr(),
         T, schedule.n_levels, schedule.max_width, D, ws[1].shape[1], lr,
-        bce_lr, loss.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"jodie_epoch launch failed: CUDA error {rc} "
-            f"({lib.jodie_epoch_error_string(rc).decode()})")
-    jodie_epoch.launches += 1
+        bce_lr, loss.data_ptr())
     return loss
-
-
-jodie_epoch.launches = 0
 
 
 def kernel_plan(D: int, max_width: int, device: int = 0) -> dict:
@@ -299,10 +269,7 @@ def kernel_plan(D: int, max_width: int, device: int = 0) -> dict:
     blocks an event (split), cached weight rows of a block, shared bytes
     of a block."""
     out = (ctypes.c_int * 4)()
-    lib = _load()
-    rc = lib.jodie_epoch_plan(device, D, max_width, ctypes.addressof(out))
-    if rc != 0:
-        raise RuntimeError(f"jodie_epoch plan failed: CUDA error {rc} "
-                           f"({lib.jodie_epoch_error_string(rc).decode()})")
+    KERNEL.check(KERNEL.call("plan", device, D, max_width,
+                             ctypes.addressof(out)), "plan")
     return dict(grid=out[0], split=out[1], cached_rows=out[2],
                 smem_bytes=out[3])

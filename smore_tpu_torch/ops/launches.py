@@ -1,73 +1,153 @@
-"""The launch counters of the kernels' wrappers, and the launches a captured
-CUDA graph holds.
+"""How the port binds, launches, checks and counts its hand-written kernel
+libraries (``csrc/<name>.cu``), and the launches a captured CUDA graph
+holds.
 
-Each wrapper (``sgns_shared_grads``, ``band_scatter_add``,
-``sgns_banded_multiblock``, ``sgns_banded_multiblock_nb``,
-``sgns_banded_fused``, ``jodie_epoch``, ``random_walk``,
-``node2vec_walk``) adds one to its
-own ``launches`` attribute where it launches its kernel. A CUDA graph
-replays its kernels without running the wrappers' Python, so
-``TrainDriver`` reads, from the captured graph's own nodes, how many
-launches of each kernel it holds (``in_graph``), holds that to how far each
-counter moved while the call was captured, takes the capture's count back
-(nothing ran) and credits the graph's on every replay (``recorded``,
-``credit``): the counters count launches the card ran.
+Each launcher module declares its library once, at module level, as a
+``Kernel``: its name (the file's), the C signature of its launcher as
+ctypes passes it, and its helpers. The ``Kernel`` builds and binds the
+library at first use, and its ``launch`` passes the device index and the
+current stream, raises with the library's own error string on a nonzero
+return, and otherwise adds one to its ``launches``. Every library exports
+``<name>_error_string`` and ``<name>_graph_launches`` (the macro of
+``csrc/graph_nodes.cuh``).
+
+A CUDA graph replays its kernels without running the launchers' Python,
+so ``TrainDriver`` reads, from the captured graph's own nodes, how many
+launches of each kernel it holds (``in_graph``), holds that to how far
+each counter moved while the call was captured, takes the capture's count
+back (nothing ran) and credits the graph's on every replay (``recorded``,
+``credit``): the counters count launches the card ran. ``read``,
+``moved``, ``in_graph`` and ``recorded`` see the counted kernels declared
+so far; ``declared`` first imports every module that may declare one.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, List, Tuple
+import importlib
+import pkgutil
+from typing import Dict, List, Optional, Tuple
 
-# each kernel library's prefix: its ``<prefix>_graph_launches`` counts the
-# nodes of a captured graph that launch its kernel (csrc/graph_nodes.cuh)
-_PREFIX = {
-    "sgns_banded_multiblock": "sgns_mb",
-    "sgns_shared_grads": "sgns_sg",
-    "sgns_banded_fused": "sgns_bf",
-    "band_scatter_add": "band_scatter",
-    "sgns_banded_multiblock_nb": "sgns_nb",
-    "jodie_epoch": "jodie_epoch",
-    "random_walk": "random_walk",
-    "node2vec_walk": "node2vec_walk",
-}
+import torch
 
-Credit = List[Tuple[object, int]]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each library's own exports, beside its launcher and helpers
+_EXPORTS = {"error_string": (ctypes.c_char_p, [_I]),
+            "graph_launches": (_I, [_P, ctypes.POINTER(ctypes.c_longlong)])}
+# the packages whose modules declare the port's kernels
+_PACKAGES = ("smore_tpu_torch.ops", "smore_tpu_torch.utils")
+
+_kernels: Dict[str, "Kernel"] = {}
+
+Credit = List[Tuple["Kernel", int]]
 
 
-@functools.cache
-def wrappers() -> dict:
-    """The launch-counting wrappers of every kernel, by kernel name."""
-    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
-    from smore_tpu_torch.ops.node2vec_walk import node2vec_walk
-    from smore_tpu_torch.ops.random_walk import random_walk
-    from smore_tpu_torch.ops.scatter import band_scatter_add
-    from smore_tpu_torch.ops.sgns import sgns_shared_grads
-    from smore_tpu_torch.ops.sgns_banded import (
-        sgns_banded_fused,
-        sgns_banded_multiblock,
-        sgns_banded_multiblock_nb,
-    )
+class Kernel:
+    """The library ``csrc/<name>.cu``. ``argtypes`` is its launcher's C
+    signature as ctypes passes it (pointers and the stream as c_void_p):
+    the device index first and the stream last. The launcher is
+    ``<name>_launch`` unless ``symbol`` names another; ``helpers`` maps
+    each further export ``<name>_<helper>`` to its (restype, argtypes).
+    ``counted``: whether ``launches`` counts its launches and the graph
+    queries credit them (the tracer's stamps are not kernel launches)."""
 
-    funcs = {f.__name__: f for f in (sgns_banded_multiblock, sgns_shared_grads,
-                                     sgns_banded_fused, band_scatter_add,
-                                     sgns_banded_multiblock_nb, jodie_epoch,
-                                     random_walk, node2vec_walk)}
-    assert list(funcs) == list(_PREFIX)
-    return funcs
+    def __init__(self, name: str, argtypes: list,
+                 helpers: Optional[dict] = None, counted: bool = True,
+                 symbol: Optional[str] = None):
+        if name in _kernels:
+            raise ValueError(f"kernel library {name} is declared twice")
+        self.name, self.argtypes, self.counted = name, argtypes, counted
+        self.symbol = symbol or f"{name}_launch"
+        self.helpers = {**_EXPORTS, **(helpers or {})}
+        self.launches = 0
+        self._lib = None
+        self._launch = None
+        _kernels[name] = self
+
+    def load(self) -> ctypes.CDLL:
+        """The library, built (``ops._build``) and bound at first use."""
+        if self._lib is None:
+            from smore_tpu_torch.ops._build import load_kernel_lib
+
+            lib = load_kernel_lib(self.name)
+            sigs = {f"{self.name}_{h}": s for h, s in self.helpers.items()}
+            sigs[self.symbol] = (_I, self.argtypes)
+            for symbol, (restype, argtypes) in sigs.items():
+                fn = getattr(lib, symbol)
+                fn.restype, fn.argtypes = restype, argtypes
+            self._launch = getattr(lib, self.symbol)
+            self._lib = lib
+        return self._lib
+
+    def call(self, helper: str, *args):
+        """``<name>_<helper>(*args)``."""
+        return getattr(self.load(), f"{self.name}_{helper}")(*args)
+
+    def check(self, rc: int, what: str = "launch") -> None:
+        """Raise on a nonzero cudaError_t ``rc``, with the library's
+        string for it."""
+        if rc:
+            raise RuntimeError(
+                f"{self.name} {what} failed: CUDA error {rc} "
+                f"({self.call('error_string', rc).decode()})")
+
+    def launch(self, device: torch.device, *args) -> None:
+        """One launch on ``device``'s current stream: the launcher takes
+        ``device``'s index, ``args`` and the stream. A failed launch raises
+        and is not counted."""
+        self.load()
+        self.check(self._launch(device_index(device), *args,
+                                torch.cuda.current_stream(device).cuda_stream))
+        if self.counted:
+            self.launches += 1
+
+
+def declared() -> Dict[str, Kernel]:
+    """Every kernel the port declares, by library name: every module of
+    the packages that declare them is imported first."""
+    for pkg in _PACKAGES:
+        path = importlib.import_module(pkg).__path__
+        for mod in pkgutil.iter_modules(path):
+            importlib.import_module(f"{pkg}.{mod.name}")
+    return dict(_kernels)
+
+
+def device_index(dev: torch.device) -> int:
+    """``dev``'s index, or the current card's where it names none."""
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t`` contiguous at an address of ``nbytes``' alignment, a kernel's
+    vector loads' (a contiguous view may start inside its storage)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
+
+
+def check_aligned(*tables) -> None:
+    """Tables a kernel updates in place, so cannot copy: they must start
+    on 16 bytes, where it moves their rows as 16-byte vectors."""
+    for t in tables:
+        if t.data_ptr() % 16:
+            raise ValueError("tables must start on a 16-byte boundary")
+
+
+def _counted() -> Dict[str, Kernel]:
+    return {name: k for name, k in _kernels.items() if k.counted}
 
 
 def read() -> Dict[str, int]:
     """Every counter's value, by kernel name."""
-    return {name: f.launches for name, f in wrappers().items()}
+    return {name: k.launches for name, k in _counted().items()}
 
 
 def moved(before: Dict[str, int]) -> Dict[str, int]:
-    """How far each counter moved since ``before`` (``read()``); counters
-    that did not move are left out."""
+    """How far each counter moved since ``before`` (``read()``); a kernel
+    declared since counts from 0, and counters that did not move are left
+    out."""
     now = read()
-    return {k: now[k] - v for k, v in before.items() if now[k] != v}
+    return {k: n - before.get(k, 0) for k, n in now.items()
+            if n != before.get(k, 0)}
 
 
 def in_graph(graph: int) -> Dict[str, int]:
@@ -76,24 +156,13 @@ def in_graph(graph: int) -> Dict[str, int]:
     kernel nodes by each library; kernels it does not launch are left out.
     A library not loaded in this process launched nothing, and is not
     asked."""
-    from smore_tpu_torch.ops._build import loaded_lib
-
     out = {}
-    for name, prefix in _PREFIX.items():
-        lib = loaded_lib(name)
-        if lib is None:
+    for name, k in _counted().items():
+        if k._lib is None:
             continue
-        count_nodes = getattr(lib, f"{prefix}_graph_launches")
-        count_nodes.restype = ctypes.c_int
-        count_nodes.argtypes = [ctypes.c_void_p,
-                                ctypes.POINTER(ctypes.c_longlong)]
         n = ctypes.c_longlong(0)
-        rc = count_nodes(graph, ctypes.byref(n))
-        if rc:
-            err = getattr(lib, f"{prefix}_error_string")
-            err.restype, err.argtypes = ctypes.c_char_p, [ctypes.c_int]
-            raise RuntimeError(f"reading the captured graph's {name} nodes "
-                               f"failed: {err(rc).decode()}")
+        k.check(k.call("graph_launches", graph, ctypes.byref(n)),
+                "count of the captured graph's nodes")
         if n.value:
             out[name] = n.value
     return out
@@ -120,15 +189,15 @@ def recorded(before: Dict[str, int], nodes: Dict[str, int]) -> Credit:
     graph holds, ``nodes`` (``in_graph``); returns the credit of one
     replay for ``credit``."""
     seen = moved(before)
-    credit([(wrappers()[k], -n) for k, n in seen.items()])
+    credit([(_kernels[k], -n) for k, n in seen.items()])
     if seen != nodes:
         raise RuntimeError(
             f"the captured graph holds the launches {nodes}, but the "
-            f"wrappers launched {seen} while it was captured")
-    return [(wrappers()[k], n) for k, n in nodes.items()]
+            f"kernels launched {seen} while it was captured")
+    return [(_kernels[k], n) for k, n in nodes.items()]
 
 
 def credit(launched: Credit) -> None:
-    """Add each ``(wrapper, n)``'s n to that wrapper's counter."""
-    for f, n in launched:
-        f.launches += n
+    """Add each ``(kernel, n)``'s n to that kernel's counter."""
+    for k, n in launched:
+        k.launches += n

@@ -20,7 +20,7 @@ alone.
 ``check`` holds the inputs to the kernel's contract on any device.
 ``node2vec_walk`` launches the kernel for CUDA tensors and raises for any
 other device; ``sampling/walks.node2vec_walk`` runs the twin on the CPU.
-``node2vec_walk.launches`` counts kernel launches, and the tracer's counter
+``KERNEL.launches`` counts kernel launches, and the tracer's counter
 ``node2vec_walk.warp_launches`` those of a multi-lane instance.
 """
 
@@ -32,17 +32,14 @@ from typing import Tuple
 
 import torch
 
-from smore_tpu_torch.ops.random_walk import _aligned
+from smore_tpu_torch.ops.launches import Kernel, aligned, device_index
 from smore_tpu_torch.utils import profiling
 
-_KERNEL = "node2vec_walk"
-_lib = None
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the launcher's C signature as ctypes passes it (pointers and the stream as
-# c_void_p), held to csrc/ by tests/test_torch_sgns_banded.py
-LAUNCH_ARGTYPES = {_KERNEL: [_I] + [_P] * 9 + [_I] * 4 + [_F] * 3 + [_P]}
-# node2vec_walk_launch_lanes: the lane count first, then the same
-LANES_ARGTYPES = [_I] + LAUNCH_ARGTYPES[_KERNEL]
+# one launcher for every instance: the device index, then the lane count
+KERNEL = Kernel("node2vec_walk",
+                [_I] * 2 + [_P] * 9 + [_I] * 4 + [_F] * 3 + [_P],
+                symbol="node2vec_walk_launch_lanes")
 
 # the kernel's instances, lanes a walk (node2vec_walk_steps<lanes>)
 LANES = (1, 32)
@@ -51,20 +48,6 @@ LANES = (1, 32)
 # ~33,000 on Youtube's, one thread a walk above (chip_smoke.py phase 38;
 # PERF.md section 6)
 WARP_WALKS_PER_SM = 160
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        from smore_tpu_torch.ops._build import load_kernel_lib
-
-        lib = load_kernel_lib(_KERNEL)
-        lib.node2vec_walk_launch_lanes.restype = _I
-        lib.node2vec_walk_launch_lanes.argtypes = LANES_ARGTYPES
-        lib.node2vec_walk_error_string.restype = ctypes.c_char_p
-        lib.node2vec_walk_error_string.argtypes = [_I]
-        _lib = lib
-    return _lib
 
 
 def lanes_for(B: int, sms: int) -> int:
@@ -139,30 +122,19 @@ def node2vec_walk(starts, u_first, u, vert_meta, ctx_pa, indptr,
     row_mask = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:  # a grid of no blocks is a launch error
         return walk, row_mask
-    lib = _load()
     inv_p, inv_q, max_bias = biases(p, q)
     # freed on return while the launch may still run: the caching allocator
     # hands their memory only to later work on the same stream
     starts, u = starts.contiguous(), u.contiguous()
-    u_first = _aligned(u_first, 8)
-    meta, ctx = _aligned(vert_meta, 8), _aligned(ctx_pa, 16)
+    u_first = aligned(u_first, 8)
+    meta, ctx = aligned(vert_meta, 8), aligned(ctx_pa, 16)
     indptr, nbrs = indptr.contiguous(), sorted_nbrs.contiguous()
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    lanes = lanes_for(B, _sm_count(index))
-    rc = lib.node2vec_walk_launch_lanes(
-        lanes, index, starts.data_ptr(), u_first.data_ptr(), u.data_ptr(),
-        meta.data_ptr(), ctx.data_ptr(), indptr.data_ptr(), nbrs.data_ptr(),
-        walk.data_ptr(), row_mask.data_ptr(), B, steps, trials, ctx.shape[0],
-        inv_p, inv_q, max_bias, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"node2vec_walk launch failed: CUDA error {rc} "
-            f"({lib.node2vec_walk_error_string(rc).decode()})")
-    node2vec_walk.launches += 1
+    lanes = lanes_for(B, _sm_count(device_index(dev)))
+    KERNEL.launch(dev, lanes, starts.data_ptr(), u_first.data_ptr(),
+                  u.data_ptr(), meta.data_ptr(), ctx.data_ptr(),
+                  indptr.data_ptr(), nbrs.data_ptr(), walk.data_ptr(),
+                  row_mask.data_ptr(), B, steps, trials, ctx.shape[0], inv_p,
+                  inv_q, max_bias)
     if lanes > 1:
         profiling.count("node2vec_walk.warp_launches")
     return walk, row_mask
-
-
-node2vec_walk.launches = 0

@@ -10,7 +10,7 @@ rule, so its walks are bit-equal to the plain twin
 ``check`` holds the inputs to the kernel's contract on any device.
 ``random_walk`` launches the kernel for CUDA tensors and raises for any
 other device; ``sampling/walks.random_walk`` runs the twin on the CPU.
-``random_walk.launches`` counts kernel launches.
+``KERNEL.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -20,26 +20,10 @@ from typing import Tuple
 
 import torch
 
-_KERNEL = "random_walk"
-_lib = None
+from smore_tpu_torch.ops.launches import Kernel, aligned
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the launcher's C signature as ctypes passes it (pointers and the stream as
-# c_void_p), held to csrc/ by tests/test_torch_sgns_banded.py
-LAUNCH_ARGTYPES = {_KERNEL: [_I] + [_P] * 6 + [_I] * 4 + [_P]}
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        from smore_tpu_torch.ops._build import load_kernel_lib
-
-        lib = load_kernel_lib(_KERNEL)
-        lib.random_walk_launch.restype = _I
-        lib.random_walk_launch.argtypes = LAUNCH_ARGTYPES[_KERNEL]
-        lib.random_walk_error_string.restype = ctypes.c_char_p
-        lib.random_walk_error_string.argtypes = [_I]
-        _lib = lib
-    return _lib
+KERNEL = Kernel("random_walk", [_I] + [_P] * 6 + [_I] * 4 + [_P])
 
 
 def check(starts, steps: int, u, vert_meta, ctx_pa) -> None:
@@ -63,13 +47,6 @@ def check(starts, steps: int, u, vert_meta, ctx_pa) -> None:
         raise ValueError(f"all tensors must share one device, got {devs}")
 
 
-def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
-    """``t`` contiguous at an address of ``nbytes``' alignment, the kernel's
-    vector loads' (a contiguous view may start inside its storage)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % nbytes == 0 else t.clone()
-
-
 def random_walk(starts, u, vert_meta, ctx_pa,
                 restart_on_deadend: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -87,24 +64,11 @@ def random_walk(starts, u, vert_meta, ctx_pa,
     row_mask = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:  # a grid of no blocks is a launch error
         return walk, row_mask
-    lib = _load()
     # freed on return while the launch may still run: the caching allocator
     # hands their memory only to later work on the same stream
-    starts, u = starts.contiguous(), _aligned(u, 8)
-    meta, ctx = _aligned(vert_meta, 8), _aligned(ctx_pa, 16)
-    rc = lib.random_walk_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        starts.data_ptr(), u.data_ptr(), meta.data_ptr(), ctx.data_ptr(),
-        walk.data_ptr(), row_mask.data_ptr(), B, steps, ctx.shape[0],
-        int(bool(restart_on_deadend)),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"random_walk launch failed: CUDA error {rc} "
-            f"({lib.random_walk_error_string(rc).decode()})")
-    random_walk.launches += 1
+    starts, u = starts.contiguous(), aligned(u, 8)
+    meta, ctx = aligned(vert_meta, 8), aligned(ctx_pa, 16)
+    KERNEL.launch(dev, starts.data_ptr(), u.data_ptr(), meta.data_ptr(),
+                  ctx.data_ptr(), walk.data_ptr(), row_mask.data_ptr(), B,
+                  steps, ctx.shape[0], int(bool(restart_on_deadend)))
     return walk, row_mask
-
-
-random_walk.launches = 0

@@ -11,7 +11,7 @@ duplicate's sum differs.
 ``band_scatter_add`` runs the plain PyTorch twin ``band_scatter_add_ref``
 (``index_add_``) for CPU tensors and launches the CUDA kernel
 (``csrc/band_scatter_add.cu``) for CUDA tensors, or raises; it never falls
-back. ``band_scatter_add.launches`` counts kernel launches.
+back. ``K2.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -20,26 +20,10 @@ import ctypes
 
 import torch
 
-_KERNEL = "band_scatter_add"
-_lib = None
+from smore_tpu_torch.ops.launches import Kernel
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the launcher's C signature as ctypes passes it (pointers and the stream as
-# c_void_p), held to csrc/ by tests/test_torch_sgns_banded.py
-LAUNCH_ARGTYPES = {_KERNEL: [_I] + [_P] * 4 + [_I] * 2 + [_P]}
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        from smore_tpu_torch.ops._build import load_kernel_lib
-
-        lib = load_kernel_lib(_KERNEL)
-        lib.band_scatter_add_launch.restype = _I
-        lib.band_scatter_add_launch.argtypes = LAUNCH_ARGTYPES[_KERNEL]
-        lib.band_scatter_error_string.restype = ctypes.c_char_p
-        lib.band_scatter_error_string.argtypes = [_I]
-        _lib = lib
-    return _lib
+K2 = Kernel("band_scatter_add", [_I] + [_P] * 4 + [_I] * 2 + [_P])
 
 
 def _check(table, start, idx, delta):
@@ -86,7 +70,6 @@ def band_scatter_add(table, start, idx, delta):
         return band_scatter_add_ref(table, start, idx, delta)
     if table.device.type != "cuda":
         raise ValueError(f"no kernel for device {table.device}")
-    lib = _load()
     dev = table.device
     # freed on return while the launch may still run: the caching allocator
     # hands their memory only to later work on the same stream
@@ -94,17 +77,6 @@ def band_scatter_add(table, start, idx, delta):
     idx = idx.to(torch.int32).contiguous()
     delta = delta.contiguous()
     B, D = delta.shape
-    rc = lib.band_scatter_add_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        table.data_ptr(), start.data_ptr(), idx.data_ptr(), delta.data_ptr(),
-        B, D, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"band_scatter_add launch failed: CUDA error {rc} "
-            f"({lib.band_scatter_error_string(rc).decode()})")
-    band_scatter_add.launches += 1
+    K2.launch(dev, table.data_ptr(), start.data_ptr(), idx.data_ptr(),
+              delta.data_ptr(), B, D)
     return table
-
-
-band_scatter_add.launches = 0

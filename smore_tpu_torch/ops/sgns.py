@@ -19,7 +19,7 @@ for CPU tensors and launches the CUDA kernel (``csrc/sgns_shared_grads.cu``)
 for CUDA tensors, or raises; it never falls back. A call is ONE cooperative
 launch of a persistent kernel (one block per SM, all co-resident): g_neg
 stays in shared memory and the kernel zeroes and sums ``d_neg`` itself.
-``sgns_shared_grads.launches`` counts kernel launches. A launch is
+``K1.launches`` counts kernel launches. A launch is
 recorded when the caller captures a CUDA graph (the card takes a
 cooperative launch under stream capture); the launcher sets the kernel's
 shared-memory limit and sizes its grid only at its first launch for a
@@ -33,33 +33,14 @@ import ctypes
 
 import torch
 
-_KERNEL = "sgns_shared_grads"
+from smore_tpu_torch.ops.launches import Kernel, aligned
+
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
-_lib = None
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the launcher's C signature as ctypes passes it (pointers and the stream as
-# c_void_p), held to csrc/ by tests/test_torch_sgns_banded.py
-LAUNCH_ARGTYPES = {
-    _KERNEL: [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float] + [_P] * 4,
-}
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        from smore_tpu_torch.ops._build import load_kernel_lib
-
-        lib = load_kernel_lib(_KERNEL)
-        lib.sgns_shared_grads_launch.restype = _I
-        lib.sgns_shared_grads_launch.argtypes = LAUNCH_ARGTYPES[_KERNEL]
-        lib.sgns_sg_smem_bytes.restype = ctypes.c_size_t
-        lib.sgns_sg_smem_bytes.argtypes = [_I, _I]
-        lib.sgns_sg_grid_size.restype = _I
-        lib.sgns_sg_grid_size.argtypes = [_I] * 4
-        lib.sgns_sg_error_string.restype = ctypes.c_char_p
-        lib.sgns_sg_error_string.argtypes = [_I]
-        _lib = lib
-    return _lib
+K1 = Kernel("sgns_shared_grads",
+            [_I] + [_P] * 4 + [_I] * 3 + [ctypes.c_float] + [_P] * 4,
+            {"smem_bytes": (ctypes.c_size_t, [_I, _I]),
+             "grid_size": (_I, [_I] * 4)})
 
 
 def _check(v, cp, cn, alpha):
@@ -106,10 +87,9 @@ def sgns_shared_grads(v, cp, cn, alpha, k_equiv: int = 5):
         return sgns_shared_grads_ref(v, cp, cn, alpha, k_equiv)
     if v.device.type != "cuda":
         raise ValueError(f"no kernel for device {v.device}")
-    lib = _load()
     B, D = v.shape
     Ks = cn.shape[0]
-    if lib.sgns_sg_smem_bytes(Ks, D) == 0:
+    if K1.call("smem_bytes", Ks, D) == 0:
         raise ValueError(f"the kernel takes D a multiple of 4 and (Ks, D) "
                          f"whose buffers fit {_MAX_SMEM} B of shared memory "
                          f"per block, got Ks={Ks}, D={D}")
@@ -120,26 +100,12 @@ def sgns_shared_grads(v, cp, cn, alpha, k_equiv: int = 5):
     # on the same stream, which runs after it. Nothing here launches a
     # kernel of its own when the inputs are contiguous on 16 bytes and alpha
     # is an f32 tensor on the card: the kernel zeroes d_neg itself.
-    v, cp, cn = (t if t.is_contiguous() and t.data_ptr() % 16 == 0
-                 else t.clone(memory_format=torch.contiguous_format)
-                 for t in (v, cp, cn))
+    v, cp, cn = (aligned(t, 16) for t in (v, cp, cn))
     alpha = torch.as_tensor(alpha, **f32).reshape(1).contiguous()
     d_src = torch.empty(B, D, **f32)
     d_pos = torch.empty(B, D, **f32)
     d_neg = torch.empty(Ks, D, **f32)
-    rc = lib.sgns_shared_grads_launch(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        v.data_ptr(), cp.data_ptr(), cn.data_ptr(), alpha.data_ptr(),
-        B, Ks, D, k_equiv / Ks,
-        d_src.data_ptr(), d_pos.data_ptr(), d_neg.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"sgns_shared_grads launch failed: CUDA error {rc} "
-            f"({lib.sgns_sg_error_string(rc).decode()})")
-    sgns_shared_grads.launches += 1
+    K1.launch(dev, v.data_ptr(), cp.data_ptr(), cn.data_ptr(),
+              alpha.data_ptr(), B, Ks, D, k_equiv / Ks,
+              d_src.data_ptr(), d_pos.data_ptr(), d_neg.data_ptr())
     return d_src, d_pos, d_neg
-
-
-sgns_shared_grads.launches = 0

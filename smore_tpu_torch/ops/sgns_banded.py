@@ -39,8 +39,9 @@ the persistent kernel of ``csrc/sgns_banded_superstep.cuh`` per superstep;
 its blocks must all be co-resident on the card. K3
 (``csrc/sgns_banded_fused.cu``) is one launch of the same kernel per
 micro-step: K4's superstep with S = 1, 2048-row tiles and the band start
-rows as band indices of size 1. ``<wrapper>.launches`` counts wrapper calls
-that launched their kernel. Each launch is recorded when the caller
+rows as band indices of size 1. ``K4``, ``K5`` and ``K3`` are their
+libraries (``ops.launches.Kernel``), whose ``launches`` count the
+launches. Each launch is recorded when the caller
 captures a CUDA graph (the card takes a cooperative launch under stream
 capture); a launcher sets the kernel's shared-memory limit and sizes its
 grid only at its first launch for a (device, Ks, D), which TrainDriver's
@@ -53,8 +54,9 @@ import ctypes
 
 import torch
 
+from smore_tpu_torch.ops.launches import Kernel, check_aligned
+
 _MAX_SMEM = 232_448  # bytes of shared memory one H100 block may use
-_libs: dict = {}
 _EPS = 1e-7
 
 
@@ -67,53 +69,16 @@ def _fused_tile(B: int) -> int:
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# The launchers' C signatures as ctypes passes them (pointers and the stream
-# as c_void_p); tests/test_torch_sgns_banded.py holds each to its
-# ``extern "C"`` declaration in csrc/.
-LAUNCH_ARGTYPES = {
-    "sgns_banded_multiblock":
-        [_I] + [_P] * 8 + [_I] * 6 + [_F] + [_P] * 4,
-    "sgns_banded_multiblock_nb":
-        [_I] + [_P] * 9 + [_I] * 7 + [_F] + [_P] * 3,
-    "sgns_banded_fused": [_I] + [_P] * 8 + [_I] * 4 + [_F] + [_P] * 4,
-}
-# helpers of the persistent superstep kernel's launchers (K4, K5, K3)
+# helpers of the persistent superstep kernel's libraries (K4, K5, K3)
 _SUPERSTEP_HELPERS = {"smem_bytes": (ctypes.c_size_t, [_I, _I]),
                       "scratch_floats": (ctypes.c_size_t, [_I] * 5),
                       "grid_size": (_I, [_I] * 3)}
-
-
-def _load_lib(name: str, prefix: str, helpers: dict):
-    """Build and bind ``csrc/<name>.cu``; its helpers are ``<prefix>_*``."""
-    if name not in _libs:
-        from smore_tpu_torch.ops._build import load_kernel_lib
-
-        lib = load_kernel_lib(name)
-        launch = getattr(lib, f"{name}_launch")
-        launch.restype = _I
-        launch.argtypes = LAUNCH_ARGTYPES[name]
-        for fn, (restype, argtypes) in helpers.items():
-            fn = getattr(lib, f"{prefix}_{fn}")
-            fn.restype = restype
-            fn.argtypes = argtypes
-        err = getattr(lib, f"{prefix}_error_string")
-        err.restype = ctypes.c_char_p
-        err.argtypes = [_I]
-        _libs[name] = lib
-    return _libs[name]
-
-
-def _load():
-    return _load_lib("sgns_banded_multiblock", "sgns_mb", _SUPERSTEP_HELPERS)
-
-
-def _load_nb():
-    return _load_lib("sgns_banded_multiblock_nb", "sgns_nb",
-                     _SUPERSTEP_HELPERS)
-
-
-def _load_fused():
-    return _load_lib("sgns_banded_fused", "sgns_bf", _SUPERSTEP_HELPERS)
+K4 = Kernel("sgns_banded_multiblock",
+            [_I] + [_P] * 8 + [_I] * 6 + [_F] + [_P] * 4, _SUPERSTEP_HELPERS)
+K5 = Kernel("sgns_banded_multiblock_nb",
+            [_I] + [_P] * 9 + [_I] * 7 + [_F] + [_P] * 3, _SUPERSTEP_HELPERS)
+K3 = Kernel("sgns_banded_fused",
+            [_I] + [_P] * 8 + [_I] * 4 + [_F] + [_P] * 4, _SUPERSTEP_HELPERS)
 
 
 def _check_smem(smem: int, Ks: int, D: int) -> None:
@@ -122,8 +87,8 @@ def _check_smem(smem: int, Ks: int, D: int) -> None:
                          f"per block (at most {_MAX_SMEM})")
 
 
-def _superstep_smem(lib, prefix: str, Ks: int, D: int) -> None:
-    smem = getattr(lib, f"{prefix}_smem_bytes")(Ks, D)
+def _superstep_smem(kernel: Kernel, Ks: int, D: int) -> None:
+    smem = kernel.call("smem_bytes", Ks, D)
     if smem == 0:
         raise ValueError(f"the superstep kernel takes D a multiple of 4 up "
                          f"to 1024, got Ks={Ks}, D={D}")
@@ -154,17 +119,6 @@ def _check_tables(wv, wc, D: int) -> None:
                              f"{tuple(t.shape)} {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous (updated in place)")
-
-
-def _check_aligned(*tables) -> None:
-    """The superstep kernels move rows as 16-byte vectors."""
-    for t in tables:
-        if t.data_ptr() % 16:
-            raise ValueError("tables must start on a 16-byte boundary")
-
-
-def _device_index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _check_device(*tensors) -> None:
@@ -231,12 +185,11 @@ def sgns_banded_multiblock(wv, wc, sb, db, src_l, pos_l, cn, alpha,
                                           alpha, band_size, k_equiv)
     if wv.device.type != "cuda":
         raise ValueError(f"no kernel for device {wv.device}")
-    lib = _load()
     S, B = src_l.shape
     Ks, D = cn.shape[1], cn.shape[2]
     TB = _tile(B)
-    _superstep_smem(lib, "sgns_mb", Ks, D)
-    _check_aligned(wv, wc)
+    _superstep_smem(K4, Ks, D)
+    check_aligned(wv, wc)
     # Tensors made here are freed when this returns, while the launch may
     # still run: the caching allocator hands their memory only to later work
     # on the same stream, which runs after it. Nothing here launches a
@@ -247,26 +200,14 @@ def sgns_banded_multiblock(wv, wc, sb, db, src_l, pos_l, cn, alpha,
     alpha = alpha.to(torch.float32).contiguous()
     dev = wv.device
     f32 = dict(dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.sgns_mb_scratch_floats(S, B, TB, Ks, D), **f32)
+    scratch = torch.empty(K4.call("scratch_floats", S, B, TB, Ks, D), **f32)
     d_neg = torch.empty(S, Ks, D, **f32)
     loss = torch.empty((), **f32)
-    rc = lib.sgns_banded_multiblock_launch(
-        _device_index(dev),
-        wv.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in i32),
-        cn.data_ptr(), alpha.data_ptr(),
-        S, B, TB, Ks, D, band_size, k_equiv / Ks,
-        scratch.data_ptr(), d_neg.data_ptr(), loss.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"sgns_banded_multiblock launch failed: CUDA error {rc} "
-            f"({lib.sgns_mb_error_string(rc).decode()})")
-    sgns_banded_multiblock.launches += 1
+    K4.launch(dev, wv.data_ptr(), wc.data_ptr(),
+              *(t.data_ptr() for t in i32), cn.data_ptr(), alpha.data_ptr(),
+              S, B, TB, Ks, D, band_size, k_equiv / Ks,
+              scratch.data_ptr(), d_neg.data_ptr(), loss.data_ptr())
     return wv, wc, d_neg, loss
-
-
-sgns_banded_multiblock.launches = 0
 
 
 def _check_nb(wv, wc, sb, db, nb, src_l, pos_l, negs_l, alpha):
@@ -335,12 +276,11 @@ def sgns_banded_multiblock_nb(wv, wc, sb, db, nb, src_l, pos_l, negs_l,
                                              nb2, k_equiv)
     if wv.device.type != "cuda":
         raise ValueError(f"no kernel for device {wv.device}")
-    lib = _load_nb()
     S, B = src_l.shape
     Ks, D = negs_l.shape[1], wv.shape[1]
     TB = _tile(B)
-    _superstep_smem(lib, "sgns_nb", Ks, D)
-    _check_aligned(wv, wc)
+    _superstep_smem(K5, Ks, D)
+    check_aligned(wv, wc)
     # Tensors made here are freed when this returns, while the launch may
     # still run: the caching allocator hands their memory only to later work
     # on the same stream, which runs after it. Nothing here launches a
@@ -350,24 +290,13 @@ def sgns_banded_multiblock_nb(wv, wc, sb, db, nb, src_l, pos_l, negs_l,
     alpha = alpha.to(torch.float32).contiguous()
     dev = wv.device
     f32 = dict(dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.sgns_nb_scratch_floats(S, B, TB, Ks, D), **f32)
+    scratch = torch.empty(K5.call("scratch_floats", S, B, TB, Ks, D), **f32)
     loss = torch.empty((), **f32)
-    rc = lib.sgns_banded_multiblock_nb_launch(
-        _device_index(dev),
-        wv.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in i32),
-        alpha.data_ptr(), S, B, TB, Ks, D, band_size, nb2, k_equiv / Ks,
-        scratch.data_ptr(), loss.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"sgns_banded_multiblock_nb launch failed: CUDA error {rc} "
-            f"({lib.sgns_nb_error_string(rc).decode()})")
-    sgns_banded_multiblock_nb.launches += 1
+    K5.launch(dev, wv.data_ptr(), wc.data_ptr(),
+              *(t.data_ptr() for t in i32), alpha.data_ptr(),
+              S, B, TB, Ks, D, band_size, nb2, k_equiv / Ks,
+              scratch.data_ptr(), loss.data_ptr())
     return wv, wc, loss
-
-
-sgns_banded_multiblock_nb.launches = 0
 
 
 def _check_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha):
@@ -430,12 +359,11 @@ def sgns_banded_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha,
                                      k_equiv)
     if wv.device.type != "cuda":
         raise ValueError(f"no kernel for device {wv.device}")
-    lib = _load_fused()
     B = src_l.shape[0]
     Ks, D = cn.shape
     TB = _fused_tile(B)
-    _superstep_smem(lib, "sgns_bf", Ks, D)
-    _check_aligned(wv, wc)
+    _superstep_smem(K3, Ks, D)
+    check_aligned(wv, wc)
     # Tensors made here are freed when this returns, while the launch may
     # still run: the caching allocator hands their memory only to later work
     # on the same stream, which runs after it. Nothing here launches a
@@ -447,22 +375,11 @@ def sgns_banded_fused(wv, wc, sb, db, src_l, pos_l, cn, alpha,
     alpha = alpha.to(torch.float32).reshape(1).contiguous()
     dev = wv.device
     f32 = dict(dtype=torch.float32, device=dev)
-    scratch = torch.empty(lib.sgns_bf_scratch_floats(1, B, TB, Ks, D), **f32)
+    scratch = torch.empty(K3.call("scratch_floats", 1, B, TB, Ks, D), **f32)
     d_neg = torch.empty(Ks, D, **f32)
     loss = torch.empty((), **f32)
-    rc = lib.sgns_banded_fused_launch(
-        _device_index(dev),
-        wv.data_ptr(), wc.data_ptr(), *(t.data_ptr() for t in i32),
-        cn.data_ptr(), alpha.data_ptr(), B, TB, Ks, D, k_equiv / Ks,
-        scratch.data_ptr(), d_neg.data_ptr(), loss.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(
-            f"sgns_banded_fused launch failed: CUDA error {rc} "
-            f"({lib.sgns_bf_error_string(rc).decode()})")
-    sgns_banded_fused.launches += 1
+    K3.launch(dev, wv.data_ptr(), wc.data_ptr(),
+              *(t.data_ptr() for t in i32), cn.data_ptr(), alpha.data_ptr(),
+              B, TB, Ks, D, k_equiv / Ks,
+              scratch.data_ptr(), d_neg.data_ptr(), loss.data_ptr())
     return wv, wc, d_neg, loss
-
-
-sgns_banded_fused.launches = 0

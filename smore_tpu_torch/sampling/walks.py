@@ -82,7 +82,7 @@ def random_walk(
     tensors run ``random_walk_ref``; CUDA tensors launch the kernel
     (``csrc/random_walk.cu``) on the current stream, bit-equal to the twin
     given the same ``u``; any other device raises: nothing falls back.
-    ``ops/random_walk.random_walk.launches`` counts kernel launches. Vertex
+    ``ops/random_walk.KERNEL.launches`` counts kernel launches. Vertex
     ids are not bounds-checked on the card."""
     dev = starts.device
     if dev.type not in ("cpu", "cuda"):
@@ -232,7 +232,7 @@ def node2vec_walk(
     ``node2vec_walk_ref``; CUDA tensors launch the kernel
     (``csrc/node2vec_walk.cu``) on the current stream, bit-equal to the
     twin given the same uniforms; any other device raises: nothing falls
-    back. ``ops/node2vec_walk.node2vec_walk.launches`` counts kernel
+    back. ``ops/node2vec_walk.KERNEL.launches`` counts kernel
     launches. Vertex ids are not bounds-checked on the card."""
     dev = starts.device
     if dev.type not in ("cpu", "cuda"):

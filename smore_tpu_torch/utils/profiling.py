@@ -51,6 +51,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from smore_tpu_torch.ops.launches import Kernel
+
 MAX_STAMPS = 16  # stamps a call: its first and last node, its first step's
 RING = 1 << 16  # (code, ns) records in a card's ring
 KEEP = 8  # groups kept
@@ -58,11 +60,9 @@ ANCHOR_TRIES = 3  # the tightest of this many anchors
 NO_SPAN = "host: no span"
 CALL, STEP = "call", "step"
 
-_KERNEL = "trace_stamp"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# the launcher's C signature as ctypes passes it, held to csrc/ by
-# tests/test_torch_sgns_banded.py
-LAUNCH_ARGTYPES = {_KERNEL: [_I, _P, _P, _I, _I, _P]}
+# the stamps are the tracer's nodes, not kernel launches: not counted
+STAMP = Kernel("trace_stamp", [_I, _P, _P, _I, _I, _P], counted=False)
 
 _on = False
 _spans: list = []  # the open group's spans: [name, t0, t1, parent index]
@@ -74,7 +74,6 @@ _names: List[str] = []  # id -> segment name
 _rings: dict = {}  # device -> _Ring
 _device_side = None  # the open group's (ring, anchor), on the card
 _stamping = None  # the call being stamped (_CallStamps)
-_lib = None
 
 
 def enable() -> None:
@@ -211,20 +210,6 @@ def wait(event, name: str) -> None:
 
 
 # ------------------------------------------------------- device segments #
-def _load():
-    global _lib
-    if _lib is None:
-        from smore_tpu_torch.ops._build import load_kernel_lib
-
-        lib = load_kernel_lib(_KERNEL)
-        lib.trace_stamp_launch.restype = _I
-        lib.trace_stamp_launch.argtypes = LAUNCH_ARGTYPES[_KERNEL]
-        lib.trace_stamp_error_string.restype = ctypes.c_char_p
-        lib.trace_stamp_error_string.argtypes = [_I]
-        _lib = lib
-    return _lib
-
-
 class _Ring:
     """A card's stamp ring: ``records`` (RING, 2) int64 (code, ns), the
     stamps taken so far in ``cursor``, and a one-record ring of its own for
@@ -232,24 +217,17 @@ class _Ring:
 
     def __init__(self, device: torch.device):
         self.device = device
-        self.index = device.index
         i64 = dict(dtype=torch.int64, device=device)
         self.records = torch.zeros((RING, 2), **i64)
         self.cursor = torch.zeros(1, **i64)
         self.anchor_rec = torch.zeros((1, 2), **i64)
         self.anchor_cursor = torch.zeros(1, **i64)
-        self.lib = _load()
+        STAMP.load()
 
     def stamp(self, code: int, anchor: bool = False) -> None:
         rec, cur, cap = ((self.anchor_rec, self.anchor_cursor, 1) if anchor
                          else (self.records, self.cursor, RING))
-        rc = self.lib.trace_stamp_launch(
-            self.index, rec.data_ptr(), cur.data_ptr(), cap, code,
-            torch.cuda.current_stream(self.device).cuda_stream)
-        if rc:
-            raise RuntimeError(
-                f"trace_stamp launch failed: CUDA error {rc} "
-                f"({self.lib.trace_stamp_error_string(rc).decode()})")
+        STAMP.launch(self.device, rec.data_ptr(), cur.data_ptr(), cap, code)
 
     def anchor(self) -> tuple:
         """(host ns, card ns) of one instant: the card's stamp between two

@@ -18,9 +18,20 @@ import torch
 
 from smore_tpu_torch.graph.graph import Graph
 from smore_tpu_torch.models.line import LINE
-from smore_tpu_torch.ops.scatter import band_scatter_add, band_scatter_add_ref
-from smore_tpu_torch.ops.sgns import sgns_shared_grads, sgns_shared_grads_ref
+from smore_tpu_torch.ops.scatter import (
+    K2,
+    band_scatter_add,
+    band_scatter_add_ref,
+)
+from smore_tpu_torch.ops.sgns import (
+    K1,
+    sgns_shared_grads,
+    sgns_shared_grads_ref,
+)
 from smore_tpu_torch.ops.sgns_banded import (
+    K3,
+    K4,
+    K5,
     sgns_banded_fused,
     sgns_banded_fused_ref,
     sgns_banded_multiblock,
@@ -121,10 +132,10 @@ def test_kernel_matches_twin(cuda, case):
         x["sb"][1], x["db"][1] = x["sb"][0], x["db"][0]
     a = {k: torch.from_numpy(v.copy()).to(cuda) for k, v in x.items()}
     b = {k: v.clone() for k, v in a.items()}
-    before = sgns_banded_multiblock.launches
+    before = K4.launches
     kv, kc, kd, kl = sgns_banded_multiblock(*(a[k] for k in _ARGS),
                                             band_size=c["band"])
-    assert sgns_banded_multiblock.launches == before + 1
+    assert K4.launches == before + 1
     assert kv is a["wv"] and kc is a["wc"]
     rv, rc, rd, rl = sgns_banded_multiblock_ref(*(b[k] for k in _ARGS),
                                                 band_size=c["band"])
@@ -155,10 +166,10 @@ def test_line_trains_through_the_kernel(cuda):
     g = toy_graph()
     m = LINE(g, seed=0, device=cuda)
     m.init(dim=64, order=2)
-    before = sgns_banded_multiblock.launches
+    before = K4.launches
     m.train(banded=True, band_size=64, batch=128, hoist=4, sample_times=0.2,
             steps_per_call=32, verbose=False)
-    assert sgns_banded_multiblock.launches > before
+    assert K4.launches > before
     assert _link_auc(m, g) > 0.8
 
 
@@ -177,9 +188,9 @@ def test_k1_kernel_matches_twin(cuda, B, Ks, D):
     v, cp, cn = (torch.from_numpy((rng.standard_normal(s) * 0.3).astype(
         np.float32)).to(cuda) for s in ((B, D), (B, D), (Ks, D)))
     alpha = torch.tensor(0.025, device=cuda)
-    before = sgns_shared_grads.launches
+    before = K1.launches
     got = sgns_shared_grads(v, cp, cn, alpha, k_equiv=5)
-    assert sgns_shared_grads.launches == before + 1
+    assert K1.launches == before + 1
     want = sgns_shared_grads_ref(v, cp, cn, alpha, k_equiv=5)
     torch.cuda.synchronize()
     for name, x, y in zip(("d_src", "d_pos", "d_neg"), got, want):
@@ -197,10 +208,10 @@ def test_line_unbanded_trains_through_k1(cuda, order):
     g = toy_graph()
     m = LINE(g, seed=0, device=cuda)
     m.init(dim=64, order=order)
-    before = sgns_shared_grads.launches
+    before = K1.launches
     m.train(sample_times=0.2, batch=128, use_pallas=True, verbose=False)
     assert m.banded_tables is None and m.last_driver.micro_steps == 32
-    assert sgns_shared_grads.launches > before
+    assert K1.launches > before
     assert _link_auc(m, g) > 0.8
 
 
@@ -231,9 +242,9 @@ def test_k3_kernel_matches_twin(cuda, B, band, Ks, D):
     a = {k: torch.from_numpy(np.array(v)).to(cuda) for k, v in x.items()}
     b = {k: v.clone() for k, v in a.items()}
     args = ("wv", "wc", "sb", "db", "src_l", "pos_l", "cn", "alpha")
-    before = sgns_banded_fused.launches
+    before = K3.launches
     kv, kc, kd, kl = sgns_banded_fused(*(a[k] for k in args))
-    assert sgns_banded_fused.launches == before + 1
+    assert K3.launches == before + 1
     assert kv is a["wv"] and kc is a["wc"]
     rv, rc, rd, rl = sgns_banded_fused_ref(*(b[k] for k in args))
     torch.cuda.synchronize()
@@ -265,9 +276,9 @@ def test_k2_kernel_matches_twin(cuda, kind):
     start = torch.tensor(2 * band, dtype=torch.int32, device=cuda)
     idx = torch.from_numpy(idx).to(cuda)
     want = band_scatter_add_ref(table.clone(), start, idx, delta)
-    before = band_scatter_add.launches
+    before = K2.launches
     got = band_scatter_add(table, start, idx, delta)
-    assert got is table and band_scatter_add.launches == before + 1
+    assert got is table and K2.launches == before + 1
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=2e-5, atol=2e-4)
@@ -275,8 +286,8 @@ def test_k2_kernel_matches_twin(cuda, kind):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("order,kw,counter", [
-    (2, dict(multiband=False, use_pallas=True), sgns_banded_fused),
-    (1, {}, band_scatter_add),
+    (2, dict(multiband=False, use_pallas=True), K3),
+    (1, {}, K2),
 ])
 def test_line_banded_routes_train_through_k3_k2(cuda, order, kw, counter):
     """On a CUDA device LINE o2 with multiband=False, use_pallas=True takes
@@ -329,10 +340,10 @@ def test_k5_kernel_matches_twin(cuda, S, B, band, n_bands, nb2, Ks, D,
         v, np.float32 if v.dtype.kind == "f" else np.int32)).to(cuda)
         for k, v in x.items()}
     b = {k: v.clone() for k, v in a.items()}
-    before = sgns_banded_multiblock_nb.launches
+    before = K5.launches
     kv, kc, kl = sgns_banded_multiblock_nb(*(a[k] for k in args),
                                            band_size=band, nb2=nb2)
-    assert sgns_banded_multiblock_nb.launches == before + 1
+    assert K5.launches == before + 1
     assert kv is a["wv"] and kc is a["wc"]
     rv, rc, rl = sgns_banded_multiblock_nb_ref(*(b[k] for k in args),
                                                band_size=band, nb2=nb2)
@@ -347,10 +358,10 @@ def test_k5_kernel_matches_twin(cuda, S, B, band, n_bands, nb2, Ks, D,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kw,counter", [
-    (dict(neg_band=True), sgns_banded_multiblock_nb),
-    (dict(multiband=False, band_hold=True, hoist=4), sgns_banded_fused),
+    (dict(neg_band=True), K5),
+    (dict(multiband=False, band_hold=True, hoist=4), K3),
     (dict(multiband=False, band_hold=True, hoist=4, use_pallas="scatter"),
-     band_scatter_add),
+     K2),
 ])
 def test_line_neg_band_and_band_hold_train(cuda, kw, counter):
     """On a CUDA device LINE o2 with neg_band=True takes the multiblock
@@ -360,12 +371,12 @@ def test_line_neg_band_and_band_hold_train(cuda, kw, counter):
     g = toy_graph()
     m = LINE(g, seed=0, device=cuda)
     m.init(dim=64, order=2)
-    before = counter.launches, sgns_banded_multiblock.launches
+    before = counter.launches, K4.launches
     m.train(banded=True, band_size=64, batch=128, sample_times=0.2,
             steps_per_call=32, verbose=False, **kw)
     assert counter.launches > before[0]
-    if counter is sgns_banded_multiblock_nb:
-        assert sgns_banded_multiblock.launches == before[1]
+    if counter is K5:
+        assert K4.launches == before[1]
         assert m.banded_tables.nb2 == 64
     else:
         assert m.last_driver.micro_steps == 4
@@ -573,9 +584,9 @@ def test_walk_kernel_matches_twin(cuda, B, steps, restart):
 
     t = _walk_kernel_tables(cuda)
     starts, u = _walk_inputs(t, B, steps, seed=B * 1000 + steps)
-    before = walk_kernel.random_walk.launches
+    before = walk_kernel.KERNEL.launches
     got = walks.random_walk(t, None, starts, steps, restart, u=u)
-    assert walk_kernel.random_walk.launches == before + 1
+    assert walk_kernel.KERNEL.launches == before + 1
     want = walks.random_walk_ref(t, starts, steps, u, restart)
     assert got[0].shape == (B, steps + 1) and got[0].dtype == torch.int32
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -694,10 +705,10 @@ def test_node2vec_kernel_matches_twin(cuda, monkeypatch, B, steps, p, q,
                                    u)
 
     def run():
-        before = n2v_kernel.node2vec_walk.launches
+        before = n2v_kernel.KERNEL.launches
         got = walks.node2vec_walk(t, nbr, None, starts, steps, p, q,
                                   u_first=u_first, u=u)
-        assert n2v_kernel.node2vec_walk.launches == before + 1
+        assert n2v_kernel.KERNEL.launches == before + 1
         return got
 
     for lanes, got in _node2vec_instances(monkeypatch, run).items():
@@ -1169,8 +1180,7 @@ def test_community_model_trains_on_the_card(cuda, name, kw):
     m = getattr(models, name)(field_graph(), seed=0, device=cuda, **ctor)
     m.init(dim=16)
     before = {k: v.clone() for k, v in m.state.items()}
-    counters = (sgns_banded_multiblock, sgns_shared_grads, sgns_banded_fused,
-                band_scatter_add, sgns_banded_multiblock_nb)
+    counters = (K4, K1, K3, K2, K5)
     for c in counters:
         c.launches = 0
     m.train(sample_times=0.02, steps_per_call=4, verbose=False, **kw)
@@ -1183,8 +1193,7 @@ def test_community_model_trains_on_the_card(cuda, name, kw):
     assert moved and m.last_driver.executed_samples >= 20_000
 
 
-_KERNELS = (sgns_banded_multiblock, sgns_shared_grads, sgns_banded_fused,
-            band_scatter_add, sgns_banded_multiblock_nb)
+_KERNELS = (K4, K1, K3, K2, K5)
 
 
 def _moved_on_card(before, state):
@@ -1349,6 +1358,7 @@ def test_jodie_epoch_kernel_matches_the_twin(cuda, tmp_path, dim, features,
     draws (events with neg == i among them): the four tables and the loss
     agree to f32 round-off (the dot products and cell products sum in
     another order), and the call launched the kernel once."""
+    from smore_tpu_torch.ops.jodie_epoch import KERNEL as JODIE
     from smore_tpu_torch.ops.jodie_epoch import jodie_epoch, jodie_epoch_ref
 
     m = _jodie_inputs(tmp_path, dim, features, kind)
@@ -1359,10 +1369,10 @@ def test_jodie_epoch_kernel_matches_the_twin(cuda, tmp_path, dim, features,
     b = tables()
     lb = jodie_epoch_ref(*b, *args)
     a = tables()
-    before = jodie_epoch.launches
+    before = JODIE.launches
     la = jodie_epoch(*a, *args, sched)
     torch.cuda.synchronize()
-    assert jodie_epoch.launches == before + 1
+    assert JODIE.launches == before + 1
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
     torch.testing.assert_close(la, lb, rtol=RTOL, atol=ATOL)
@@ -1414,13 +1424,13 @@ def test_jodie_launch_after_a_plan_of_another_dim(cuda, tmp_path):
 
 @pytest.mark.gpu
 def test_jodie_trains_on_the_card_one_launch_an_epoch(cuda, tmp_path):
-    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
+    from smore_tpu_torch.ops.jodie_epoch import KERNEL as JODIE
 
     m = _jodie_inputs(tmp_path, 64, False)
     before = m.state["user_static"].clone()
-    n = jodie_epoch.launches
+    n = JODIE.launches
     m.train(epochs=3, learning_rate=0.05, bce_lr=0.2, verbose=False)
-    assert jodie_epoch.launches == n + 3
+    assert JODIE.launches == n + 3
     assert bool(torch.isfinite(m.user_dyn).all())
     assert not torch.equal(m.state["user_static"], before)
     assert m.evaluate_predictions() > 0.6
@@ -1432,13 +1442,13 @@ def test_jodie_kernel_takes_any_dim(cuda, tmp_path, dim):
     """Dims the earlier kernel refused (not a multiple of 32, or above 96)
     train through the kernel: one launch an epoch, finite tables that
     moved."""
-    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
+    from smore_tpu_torch.ops.jodie_epoch import KERNEL as JODIE
 
     m = _jodie_inputs(tmp_path, dim, False)
     before = m.state["user_static"].clone()
-    n = jodie_epoch.launches
+    n = JODIE.launches
     m.train(epochs=2, learning_rate=0.05, bce_lr=0.2, verbose=False)
-    assert jodie_epoch.launches == n + 2
+    assert JODIE.launches == n + 2
     assert m.user_dyn.shape == (m.ig.n_users, dim)
     assert bool(torch.isfinite(m.user_dyn).all())
     assert bool(torch.isfinite(m.item_dyn).all())
@@ -1452,7 +1462,7 @@ def test_seq_model_trains_on_the_card(cuda, name, tmp_path):
     set: parameters on the card, finite and moved, no kernel launched,
     the ranking evaluated."""
     from smore_tpu_torch import models
-    from smore_tpu_torch.ops.jodie_epoch import jodie_epoch
+    from smore_tpu_torch.ops.jodie_epoch import KERNEL as JODIE
 
     path = tmp_path / "seq.txt"
     rng = np.random.default_rng(0)
@@ -1462,7 +1472,7 @@ def test_seq_model_trains_on_the_card(cuda, name, tmp_path):
                                               negative_samples=3)
     m.init(dim=32, max_seq_len=10)
     before = {k: v.clone() for k, v in m.net.state_dict().items()}
-    counters = _KERNELS + (jodie_epoch,)
+    counters = _KERNELS + (JODIE,)
     for c in counters:
         c.launches = 0
     m.train(epochs=2, batch_size=32, alpha=0.003, verbose=False,
@@ -2006,7 +2016,7 @@ def test_graphs_captured_with_the_tracer_off_hold_no_stamp(cuda, tracer,
         m.train(**kw)
         loop = m.last_driver.loop
         return (dict(loop.nodes),
-                {k: sorted((f.__name__, n) for f, n in c)
+                {k: sorted((kern.name, n) for kern, n in c)
                  for k, c in loop._credit.items()})
 
     off = run()

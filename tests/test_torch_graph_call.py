@@ -32,8 +32,8 @@ from smore_tpu.models.base import TrainDriver as JDriver
 from smore_tpu_torch.models import LINE, base
 from smore_tpu_torch.models.base import TrainDriver, alpha_schedule
 from smore_tpu_torch.ops import launches
-from smore_tpu_torch.ops.sgns import sgns_shared_grads
-from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
+from smore_tpu_torch.ops.sgns import K1
+from smore_tpu_torch.ops.sgns_banded import K4
 from smore_tpu_torch.parallel import mesh
 from smore_tpu_torch.parallel.mesh import CommStats
 from torch_graph_call_cases import CASES, CaptureGuard, build, toy_graph
@@ -293,8 +293,8 @@ def _counting_graph(nodes):
 
 
 def _k1_k4_step(state, ctx, gen, alpha):  # two K1 launches and one K4
-    sgns_shared_grads.launches += 2
-    sgns_banded_multiblock.launches += 1
+    K1.launches += 2
+    K4.launches += 1
     return state, torch.zeros(())
 
 

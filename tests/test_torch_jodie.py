@@ -21,7 +21,11 @@ from smore_tpu.graph.bipartite import InteractionGraph as JaxIG
 from smore_tpu.models.jodie import JODIE as JaxJODIE
 from smore_tpu_torch.models import jodie as jodie_mod
 from smore_tpu_torch.models.jodie import JODIE
-from smore_tpu_torch.ops.jodie_epoch import jodie_epoch, jodie_epoch_ref
+from smore_tpu_torch.ops.jodie_epoch import (
+    KERNEL,
+    jodie_epoch,
+    jodie_epoch_ref,
+)
 
 torch.set_num_threads(1)
 
@@ -271,11 +275,11 @@ def test_wrapper_raises_off_cpu_and_on_bad_shapes(tmp_path):
     with pytest.raises(ValueError):
         jodie_epoch(*bad, up, ip, 0.05, 0.05)
     # on the CPU the wrapper is the plain loop, and launches nothing
-    before = jodie_epoch.launches
+    before = KERNEL.launches
     a = [t.clone() for t in args]
     b = [t.clone() for t in args]
     la = jodie_epoch(*a, up, ip, 0.05, 0.1)
     lb = jodie_epoch_ref(*b, up, ip, 0.05, 0.1)
     assert torch.equal(la, lb) and all(torch.equal(x, y)
                                        for x, y in zip(a, b))
-    assert jodie_epoch.launches == before
+    assert KERNEL.launches == before

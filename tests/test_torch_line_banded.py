@@ -28,11 +28,8 @@ from smore_tpu.models.line import LINE as JLINE
 from smore_tpu.ops.pallas_sgns_banded import fold_table, unfold_table
 from smore_tpu_torch.graph.graph import Graph as TGraph
 from smore_tpu_torch.models.line import LINE as TLINE
-from smore_tpu_torch.ops.scatter import band_scatter_add
-from smore_tpu_torch.ops.sgns_banded import (
-    sgns_banded_fused,
-    sgns_banded_multiblock_nb,
-)
+from smore_tpu_torch.ops.scatter import K2
+from smore_tpu_torch.ops.sgns_banded import K3, K5
 
 # one intra-op thread: test workers share the cores, and a thread pool
 # in each of them oversubscribes the CPU on these tiny shapes
@@ -145,7 +142,7 @@ def test_banded_step_closure_matches_jax(graphs, case):
     jt, tt = _Injected(draws, jnp.asarray), _Injected(draws, torch.from_numpy)
     jstate = {k: jnp.asarray(v) for k, v in tables.items()}
     tstate = tm.state
-    launches = band_scatter_add.launches, sgns_banded_fused.launches
+    launches = K2.launches, K3.launches
     for a in alphas:
         jstate, jl = jstep(jstate, jt, jax.random.PRNGKey(0),
                            jnp.asarray(a))
@@ -153,7 +150,7 @@ def test_banded_step_closure_matches_jax(graphs, case):
         np.testing.assert_allclose(float(tl), float(jl), rtol=RTOL,
                                    atol=ATOL)
     # CPU: the twins, no kernel launch
-    assert (band_scatter_add.launches, sgns_banded_fused.launches) == launches
+    assert (K2.launches, K3.launches) == launches
     assert set(tstate) == set(jstate)
     for k in jstate:
         np.testing.assert_allclose(tstate[k].numpy(), np.asarray(jstate[k]),
@@ -281,14 +278,14 @@ def test_multiblock_nb_step_closure_matches_jax(graphs):
     jstate = {"wvf": fold_table(jnp.asarray(tables["vertex"])),
               "wcf": fold_table(jnp.asarray(tables["context"]))}
     tstate = tm.state
-    before = sgns_banded_multiblock_nb.launches
+    before = K5.launches
     for i in range(calls):
         a = np.linspace(0.05, 0.04, hoist).astype(np.float32) - 0.005 * i
         jstate, jl = jstep(jstate, jt, jax.random.PRNGKey(0), jnp.asarray(a))
         tstate, tl = tstep(tstate, tt, None, torch.from_numpy(a))
         np.testing.assert_allclose(float(tl), float(jl), rtol=RTOL,
                                    atol=ATOL)
-    assert sgns_banded_multiblock_nb.launches == before  # CPU: the twin
+    assert K5.launches == before  # CPU: the twin
     for k, jk in (("vertex", "wvf"), ("context", "wcf")):
         want = np.asarray(unfold_table(jstate[jk]))
         np.testing.assert_allclose(tstate[k].numpy(), want, rtol=RTOL,

@@ -22,7 +22,7 @@ from smore_tpu.models.line import LINE as JLINE
 from smore_tpu_torch.graph.graph import Graph as TGraph
 from smore_tpu_torch.io.embeddings import load_embeddings
 from smore_tpu_torch.models.line import LINE as TLINE
-from smore_tpu_torch.ops.sgns import sgns_shared_grads
+from smore_tpu_torch.ops.sgns import K1
 from smore_tpu_torch.sampling.tables import SamplerTables
 
 # one intra-op thread: test workers share the cores, and a thread pool
@@ -146,14 +146,14 @@ def test_step_closure_matches_jax(graphs, case):
     tstep = tm._make_step(use_pallas=c.get("use_pallas", False), **kw)
     jt, tt = _Injected(draws, jnp.asarray), _Injected(draws, torch.from_numpy)
     jstate, tstate = dict(jm.state), tm.state
-    before = sgns_shared_grads.launches
+    before = K1.launches
     for a in alphas:
         jstate, jl = jstep(jstate, jt, jax.random.PRNGKey(0),
                            jnp.asarray(a))
         tstate, tl = tstep(tstate, tt, None, torch.from_numpy(np.array(a)))
         np.testing.assert_allclose(float(tl), float(jl), rtol=RTOL,
                                    atol=ATOL)
-    assert sgns_shared_grads.launches == before  # CPU: twin, no kernel
+    assert K1.launches == before  # CPU: twin, no kernel
     assert set(tstate) == set(jstate) == (
         {"vertex"} if order == 1 else {"vertex", "context"})
     for k in jstate:
@@ -216,14 +216,14 @@ def test_use_pallas_on_cpu_runs_the_twin(graphs, order):
     launch, and the same tables as the inline math on the same draws."""
     _, tg = graphs
     out = {}
-    before = sgns_shared_grads.launches
+    before = K1.launches
     for use_pallas in (False, True):
         m = TLINE(tg, seed=0, device=CPU)
         m.init(dim=16, order=order)
         m.train(sample_times=0.02, batch=128, use_pallas=use_pallas,
                 verbose=False)
         out[use_pallas] = m.state_numpy()
-    assert sgns_shared_grads.launches == before
+    assert K1.launches == before
     for k in out[False]:
         np.testing.assert_allclose(out[True][k], out[False][k], rtol=1e-5,
                                    atol=1e-6)

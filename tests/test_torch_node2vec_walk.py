@@ -83,7 +83,7 @@ def test_the_walk_launches_nothing_on_the_cpu(dead_end, p, q):
     _, t, nbr, _, _ = dead_end
     B, steps, trials = 32, 10, 4
     starts = torch.arange(B, dtype=torch.int32)
-    launches = n2v_kernel.node2vec_walk.launches
+    launches = n2v_kernel.KERNEL.launches
     got = W.node2vec_walk(t, nbr, torch.Generator().manual_seed(3), starts,
                           steps, p, q, trials)
     gen = torch.Generator().manual_seed(3)
@@ -92,7 +92,7 @@ def test_the_walk_launches_nothing_on_the_cpu(dead_end, p, q):
     want = W.node2vec_walk_ref(t, nbr, starts, steps, p, q, trials, u_first,
                                u)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert n2v_kernel.node2vec_walk.launches == launches
+    assert n2v_kernel.KERNEL.launches == launches
 
 
 def test_the_walk_has_no_fallback_off_the_cpu(dead_end):
@@ -171,14 +171,13 @@ def test_lanes_for_at_the_cells_shapes_on_an_h100():
 
 
 def test_the_launch_signature_is_unchanged():
-    """``node2vec_walk_launch``'s C signature stays as it was, and
-    ``node2vec_walk_launch_lanes`` takes the lane count before the same
-    arguments, as ``LANES_ARGTYPES`` passes them."""
+    """The one launcher, ``node2vec_walk_launch_lanes``, takes the device
+    index, the lane count, then the walk's arguments as before, as its
+    registered ``Kernel`` passes them."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    assert n2v_kernel.LAUNCH_ARGTYPES == {
-        "node2vec_walk": [I] + [P] * 9 + [I] * 4 + [F] * 3 + [P]}
-    assert n2v_kernel.LANES_ARGTYPES == (
-        [I] + n2v_kernel.LAUNCH_ARGTYPES["node2vec_walk"])
+    assert n2v_kernel.KERNEL.symbol == "node2vec_walk_launch_lanes"
+    assert n2v_kernel.KERNEL.argtypes == (
+        [I, I] + [P] * 9 + [I] * 4 + [F] * 3 + [P])
     extern = _kernel_source().split('extern "C"', 1)[1]
     m = re.search(r"\bint\s+node2vec_walk_launch_lanes\s*\(([^)]*)\)",
                   extern)
@@ -188,7 +187,9 @@ def test_the_launch_signature_is_unchanged():
         kinds.append(P if "*" in param else
                      F if re.match(r"(const )?float\b", param) else
                      I if re.match(r"(const )?int\b", param) else param)
-    assert kinds == n2v_kernel.LANES_ARGTYPES
+    assert kinds == n2v_kernel.KERNEL.argtypes
+    assert re.findall(r"\bint\s+(\w+_launch\w*)\s*\(", extern) == [
+        "node2vec_walk_launch_lanes"]
 
 
 def test_the_class_law_sums_to_one_and_keeps_the_first_order_law():

@@ -11,6 +11,7 @@ import ctypes
 import glob
 import os
 import re
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,15 +23,8 @@ from smore_tpu.ops.pallas_sgns_banded import (
     sgns_banded_multiblock as jax_multiblock,
     unfold_table,
 )
-from smore_tpu_torch.ops import jodie_epoch as jodie_ops
 from smore_tpu_torch.ops import launches
-from smore_tpu_torch.ops import node2vec_walk as n2v_ops
-from smore_tpu_torch.ops import random_walk as walk_ops
-from smore_tpu_torch.ops import scatter as scatter_ops
-from smore_tpu_torch.ops import sgns as sgns_ops
-from smore_tpu_torch.ops import sgns_banded as sgns_banded_ops
-from smore_tpu_torch.ops.sgns_banded import sgns_banded_multiblock
-from smore_tpu_torch.utils import profiling
+from smore_tpu_torch.ops.sgns_banded import K4, sgns_banded_multiblock
 from torch_superstep_inputs import ALL_COLLIDE, multiblock_inputs
 
 # one intra-op thread: test workers share the cores, and a thread pool
@@ -73,12 +67,12 @@ def test_twin_matches_pallas_kernel(case):
         band_size=band, interpret=True,
     )
     t = {k: torch.from_numpy(v.copy()) for k, v in x.items()}
-    before = sgns_banded_multiblock.launches
+    before = K4.launches
     tv, tc, td, tl = sgns_banded_multiblock(
         t["wv"], t["wc"], t["sb"], t["db"], t["src_l"], t["pos_l"],
         t["cn"], t["alpha"], band_size=band, k_equiv=5,
     )
-    assert sgns_banded_multiblock.launches == before  # CPU: twin, no kernel
+    assert K4.launches == before  # CPU: twin, no kernel
     assert tv is t["wv"] and tc is t["wc"]  # updated in place
     np.testing.assert_allclose(tv.numpy(), np.asarray(unfold_table(jv)),
                                rtol=RTOL, atol=ATOL)
@@ -125,21 +119,23 @@ def test_wrapper_has_no_fallback_off_cpu():
 
 
 # Each CUDA launcher's extern "C" signature against the ctypes argtypes its
-# wrapper passes: a mismatch in count or kind corrupts the arguments on the
+# Kernel passes: a mismatch in count or kind corrupts the arguments on the
 # card and shows nothing on the CPU.
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "smore_tpu_torch", "csrc")
-_LAUNCHERS = sorted(os.path.basename(f)[:-3]
-                    for f in glob.glob(os.path.join(_CSRC, "*.cu")))
+_KERNELS = launches.declared()
 
 
-def _c_kinds(name):
-    """'p', 'i' or 'f' for each parameter of ``int <name>_launch(...)``."""
+def _extern(name):
     with open(os.path.join(_CSRC, f"{name}.cu")) as f:
         src = f.read()
-    extern = src[src.index('extern "C"'):]
-    m = re.search(rf"\bint\s+{name}_launch\s*\(([^)]*)\)", extern)
-    assert m, f"no extern \"C\" {name}_launch in csrc/{name}.cu"
+    return src[src.index('extern "C"'):]
+
+
+def _c_kinds(name, symbol):
+    """'p', 'i' or 'f' for each parameter of ``int <symbol>(...)``."""
+    m = re.search(rf"\bint\s+{symbol}\s*\(([^)]*)\)", _extern(name))
+    assert m, f"no extern \"C\" {symbol} in csrc/{name}.cu"
     kinds = []
     for param in m.group(1).split(","):
         param = " ".join(param.split())
@@ -154,26 +150,84 @@ def _ctypes_kinds(argtypes):
              ctypes.c_float: "f"}[t] for t in argtypes]
 
 
-@pytest.mark.parametrize("name", _LAUNCHERS)
+@pytest.mark.parametrize("name", sorted(_KERNELS))
 def test_launch_signature_matches_ctypes(name):
-    argtypes = {**sgns_banded_ops.LAUNCH_ARGTYPES, **sgns_ops.LAUNCH_ARGTYPES,
-                **scatter_ops.LAUNCH_ARGTYPES, **jodie_ops.LAUNCH_ARGTYPES,
-                **profiling.LAUNCH_ARGTYPES, **walk_ops.LAUNCH_ARGTYPES,
-                **n2v_ops.LAUNCH_ARGTYPES}
-    assert name in argtypes, f"no wrapper binds csrc/{name}.cu"
-    assert _c_kinds(name) == _ctypes_kinds(argtypes[name])
+    k = _KERNELS[name]
+    assert _c_kinds(name, k.symbol) == _ctypes_kinds(k.argtypes)
 
 
-@pytest.mark.parametrize("name", sorted(launches._PREFIX))
+@pytest.mark.parametrize(
+    "name", sorted(n for n, k in _KERNELS.items() if k.counted))
 def test_each_counted_kernel_exports_its_graph_node_count(name):
     """Every kernel that ``ops/launches`` credits on replays has its own
-    library, ``csrc/<name>.cu``, exporting ``<prefix>_graph_launches`` and
-    ``<prefix>_error_string`` under the prefix the registry gives it, and
-    a wrapper of that name."""
-    prefix = launches._PREFIX[name]
-    with open(os.path.join(_CSRC, f"{name}.cu")) as f:
-        extern = f.read().split('extern "C"', 1)[1]
-    assert re.search(rf"\bint\s+{prefix}_graph_launches\s*\(\s*void\s*\*"
-                     rf"\s*\w+\s*,\s*long long\s*\*\s*\w+\s*\)", extern)
-    assert re.search(rf"\b{prefix}_error_string\s*\(\s*int\b", extern)
-    assert launches.wrappers()[name].__name__ == name
+    library, ``csrc/<name>.cu``, whose extern "C" block exports
+    ``<name>_graph_launches`` and ``<name>_error_string`` through the
+    macro of ``csrc/graph_nodes.cuh``, directly or through the superstep
+    libraries' macro, and writes neither by hand."""
+    extern = _extern(name)
+    assert re.search(rf"\b(KERNEL|SUPERSTEP)_LIBRARY_EXPORTS\(\s*{name}\s*,",
+                     extern)
+    assert not re.search(r"_(graph_launches|error_string)\s*\(", extern)
+
+
+def test_every_kernel_source_is_bound_by_exactly_one_kernel():
+    """Each ``csrc/*.cu`` is one declared ``Kernel``'s library, and each
+    declared ``Kernel`` has its file: the registry names each library once,
+    by its file's name."""
+    sources = sorted(os.path.basename(f)[:-3]
+                     for f in glob.glob(os.path.join(_CSRC, "*.cu")))
+    assert sources == sorted(_KERNELS)
+    assert all(k.name == n for n, k in _KERNELS.items())
+    with pytest.raises(ValueError, match="declared twice"):
+        launches.Kernel(sources[0], [])
+
+
+class _FakeLib:
+    """A library whose launcher returns ``rc`` and whose error string
+    names it."""
+
+    def __init__(self, rc):
+        self.rc = rc
+
+    def fake_launch(self, *args):
+        return self.rc
+
+    def fake_error_string(self, rc):
+        return f"fake error {rc}".encode()
+
+
+@pytest.mark.parametrize("rc", [0, 700])
+def test_a_failed_launch_raises_with_its_library_string_and_counts_nothing(
+        monkeypatch, rc):
+    monkeypatch.setattr(launches, "_kernels", {})
+    k = launches.Kernel("fake", [ctypes.c_int, ctypes.c_void_p])
+    lib = _FakeLib(rc)
+    k._lib, k._launch = lib, lib.fake_launch
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    dev = torch.device("cuda", 0)
+    if rc:
+        with pytest.raises(RuntimeError,
+                           match=r"fake launch failed: CUDA error 700 "
+                                 r"\(fake error 700\)"):
+            k.launch(dev)
+        assert k.launches == 0
+    else:
+        k.launch(dev)
+        assert k.launches == 1
+
+
+def test_a_kernel_declared_after_read_is_seen_by_moved_and_recorded(
+        monkeypatch):
+    """A launcher module first imported after ``read()`` declares its
+    kernel then: ``moved`` counts it from 0, ``recorded`` takes its capture
+    launches back and credits a replay its graph's."""
+    monkeypatch.setattr(launches, "_kernels", dict(launches._kernels))
+    before = launches.read()
+    late = launches.Kernel("late", [])
+    late.launches += 3
+    assert launches.moved(before) == {"late": 3}
+    replay = launches.recorded(before, {"late": 3})
+    assert late.launches == 0 and launches.moved(before) == {}
+    launches.credit(replay)
+    assert launches.moved(before) == {"late": 3}

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 from smore_tpu.ops.pallas_sgns_banded import sgns_banded_fused as jax_fused
-from smore_tpu_torch.ops.sgns_banded import sgns_banded_fused
+from smore_tpu_torch.ops.sgns_banded import K3, sgns_banded_fused
 from torch_superstep_inputs import ALL_COLLIDE_FUSED, fused_inputs
 
 # one intra-op thread: test workers share the cores, and a thread pool
@@ -78,9 +78,9 @@ def test_twin_matches_pallas_kernel(case):
         interpret=True,
     )
     t = _torch(x)
-    before = sgns_banded_fused.launches
+    before = K3.launches
     tv, tc, td, tl = _port(t)
-    assert sgns_banded_fused.launches == before  # CPU: twin, no kernel
+    assert K3.launches == before  # CPU: twin, no kernel
     assert tv is t["wv"] and tc is t["wc"]  # updated in place
     for got, want, start, name in ((tv, jv, sb, "wv"), (tc, jc, db, "wc")):
         got = got.numpy()

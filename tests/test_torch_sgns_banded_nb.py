@@ -22,6 +22,7 @@ from smore_tpu.ops.pallas_sgns_banded import (
     unfold_table,
 )
 from smore_tpu_torch.ops.sgns_banded import (
+    K5,
     sgns_banded_multiblock_nb,
     sgns_banded_multiblock_nb_ref,
     sgns_banded_multiblock_ref,
@@ -76,11 +77,11 @@ def test_twin_matches_pallas_kernel(case):
         band_size=band, nb2=nb2, k_equiv=5, interpret=True,
     )
     t = {k: torch.from_numpy(v.copy()) for k, v in x.items()}
-    before = sgns_banded_multiblock_nb.launches
+    before = K5.launches
     tv, tc, tl = sgns_banded_multiblock_nb(*(t[k] for k in _ARGS),
                                            band_size=band, nb2=nb2,
                                            k_equiv=5)
-    assert sgns_banded_multiblock_nb.launches == before  # CPU: the twin
+    assert K5.launches == before  # CPU: the twin
     assert tv is t["wv"] and tc is t["wc"]  # updated in place
     np.testing.assert_allclose(tv.numpy(), np.asarray(unfold_table(jv)),
                                rtol=RTOL, atol=ATOL)

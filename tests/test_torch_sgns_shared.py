@@ -12,7 +12,11 @@ import pytest
 import torch
 
 from smore_tpu.ops.pallas_sgns import sgns_shared_grads_pallas
-from smore_tpu_torch.ops.sgns import sgns_shared_grads, sgns_shared_grads_ref
+from smore_tpu_torch.ops.sgns import (
+    K1,
+    sgns_shared_grads,
+    sgns_shared_grads_ref,
+)
 
 # one intra-op thread: test workers share the cores, and a thread pool
 # in each of them oversubscribes the CPU on these tiny shapes
@@ -37,11 +41,11 @@ def test_twin_matches_pallas_kernel(B, Ks, D):
     alpha = np.float32(0.025)
     want = sgns_shared_grads_pallas(v, cp, cn, alpha, k_equiv=5,
                                     interpret=True)
-    before = sgns_shared_grads.launches
+    before = K1.launches
     got = sgns_shared_grads(torch.from_numpy(v), torch.from_numpy(cp),
                             torch.from_numpy(cn), torch.tensor(alpha),
                             k_equiv=5)
-    assert sgns_shared_grads.launches == before  # CPU: twin, no kernel
+    assert K1.launches == before  # CPU: twin, no kernel
     for name, g, w in zip(("d_src", "d_pos", "d_neg"), got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL,

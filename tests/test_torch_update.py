@@ -18,7 +18,7 @@ import torch
 
 from smore_tpu.ops import update as J
 from smore_tpu_torch.ops import update as T
-from smore_tpu_torch.ops.sgns import sgns_shared_grads
+from smore_tpu_torch.ops.sgns import K1
 
 # one intra-op thread: test workers share the cores, and a thread pool
 # in each of them oversubscribes the CPU on these tiny shapes
@@ -189,11 +189,11 @@ def test_sgns_shared_negs_step(case):
     tc = tv if order == 1 else _t(wc)
     if mask is not None:
         kw["mask"] = _t(mask)
-    before = sgns_shared_grads.launches
+    before = K1.launches
     gv, gc, gl = T.sgns_shared_negs_step(tv, tc, _t(src), _t(pos),
                                          _t(negs), torch.tensor(a),
                                          use_pallas=use_pallas, **kw)
-    assert sgns_shared_grads.launches == before  # CPU: twin, no kernel
+    assert K1.launches == before  # CPU: twin, no kernel
     assert gv is tv and gc is tc
     _close(gv, jv)
     _close(gc, jc)

@@ -136,14 +136,14 @@ def test_random_walk_on_the_cpu_is_its_twin(both, restart):
     _, _, tg, tt = both
     B, steps = 48, 9
     starts = torch.from_numpy(_starts(tg.n_vertices, B, 4))
-    launches = walk_kernel.random_walk.launches
+    launches = walk_kernel.KERNEL.launches
     got = TW.random_walk(tt, torch.Generator().manual_seed(11), starts,
                          steps, restart_on_deadend=restart)
     u = torch.rand((steps, B, 2), generator=torch.Generator().manual_seed(11))
     want = TW.random_walk_ref(tt, starts, steps, u, restart)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert walk_kernel.random_walk.launches == launches
+    assert walk_kernel.KERNEL.launches == launches
 
 
 @pytest.fixture(scope="module")
@@ -208,10 +208,10 @@ def test_walk_kernel_wrapper_launches_only_on_the_card(device):
     """``ops/random_walk.random_walk`` is the launch alone: off a CUDA card
     it raises and counts nothing (``sampling/walks`` runs the twin)."""
     tables, starts, u = _walk_args(device)
-    launches = walk_kernel.random_walk.launches
+    launches = walk_kernel.KERNEL.launches
     with pytest.raises(ValueError, match="no kernel"):
         walk_kernel.random_walk(starts, u, tables.vert_meta, tables.ctx_pa)
-    assert walk_kernel.random_walk.launches == launches
+    assert walk_kernel.KERNEL.launches == launches
 
 
 @pytest.mark.parametrize("bad", ["starts_int64", "starts_2d", "u_shape",
